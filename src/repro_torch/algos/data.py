@@ -1,0 +1,25 @@
+"""Synthetic data generators for the algorithm suite (paper §5.1 'rand and
+algorithm-specific data generation scripts').  The numbers are the
+reference's: the same numpy generator, the same seed, the same draws."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from repro_torch.interop import to_torch
+
+
+def classification(m: int, n: int, k: int = 2, seed: int = 0,
+                   sparsity: float = 1.0, device="cuda"):
+    """Linearly-separable-ish multiclass data; labels one-hot (m,k) and
+    binary ±1 (m,1) for 2-class, as tensors on ``device``."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(m, n)).astype(np.float32)
+    if sparsity < 1.0:
+        X *= (rng.random((m, n)) < sparsity)
+    w_true = rng.normal(size=(n, k)).astype(np.float32)
+    logits = X @ w_true + 0.5 * rng.normal(size=(m, k)).astype(np.float32)
+    y_idx = logits.argmax(axis=1)
+    Y = np.eye(k, dtype=np.float32)[y_idx]
+    y_pm = (2.0 * (y_idx == 0) - 1.0).astype(np.float32).reshape(m, 1)
+    return to_torch((X, Y, y_pm), device)

@@ -1,0 +1,620 @@
+"""CUDA C++ emitter: one kernel source per CPlan (paper §2.2 code generation).
+
+The reference's Pallas kernels evaluate ``cplan.prog`` at trace time inside
+the kernel body, so every CPlan gets its own specialised kernel.  The
+Hopper counterpart generates source: the template skeletons are fixed
+headers in ``csrc/`` (``cell.cuh``, ``magg.cuh``, ``row.cuh``), and this
+module writes, per CPlan, a ``struct Prog`` holding
+
+* the program's ``__device__`` body — one C statement per CNode, using the
+  op table of :mod:`repro_torch.kernels.ref` (mirrored in ``common.cuh``),
+* the compile-time widths (domain width N, root/closer widths, number of
+  aggregate roots K) and the variant / aggregation codes,
+
+plus an ``extern "C" repro_launch`` that instantiates the skeleton.  The
+row count m stays a run-time argument, so one build serves every m.  The
+text names values by program position, never by IR node id, so
+structurally equal CPlans from different traces give byte-identical
+sources (and share one build, keyed by the source hash).
+
+Programs outside what a skeleton can express (an in-program transpose, a
+matmul against a computed matrix, …) raise ``NotImplementedError`` here;
+the wrappers let that propagate — there is no fallback for a CUDA tensor.
+"""
+
+from __future__ import annotations
+
+import functools
+import hashlib
+import math
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+
+from repro_torch.core.cplan import (CPlan, COL_AGG, COL_T_AGG, FULL_AGG,
+                                    NO_AGG, ROW_AGG)
+from repro_torch.core.ir import AGG_OPS
+from repro_torch.core.templates import TType
+
+#: aggregation codes of common.cuh ("mean" sums, then divides)
+AGG_CODE = {"sum": 0, "mean": 0, "min": 1, "max": 2, "sum_sq": 3}
+
+_UNARY_C = {
+    "exp": "expf({0})", "log": "logf({0})", "sqrt": "sqrtf({0})",
+    "abs": "fabsf({0})", "sign": "rk::f_sign({0})", "round": "rintf({0})",
+    "floor": "floorf({0})", "ceil": "ceilf({0})",
+    "sigmoid": "rk::f_sigmoid({0})", "tanh": "tanhf({0})",
+    "relu": "rk::f_relu({0})", "neg": "(-{0})", "recip": "(1.f / {0})",
+    "pow2": "({0} * {0})", "square": "({0} * {0})",
+    "neq0": "rk::f_neq0({0})", "sprop": "({0} * (1.f - {0}))",
+    "log1p": "log1pf({0})", "softplus": "rk::f_softplus({0})",
+    "gelu": "rk::f_gelu({0})", "silu": "rk::f_silu({0})",
+    "erf": "erff({0})",
+}
+_BINARY_C = {
+    "add": "({0} + {1})", "sub": "({0} - {1})", "mul": "({0} * {1})",
+    "div": "({0} / {1})", "min": "rk::nmin({0}, {1})",
+    "max": "rk::nmax({0}, {1})", "pow": "powf({0}, {1})",
+    "eq": "rk::f_cmp({0} == {1})", "neq": "rk::f_cmp({0} != {1})",
+    "lt": "rk::f_cmp({0} < {1})", "le": "rk::f_cmp({0} <= {1})",
+    "gt": "rk::f_cmp({0} > {1})", "ge": "rk::f_cmp({0} >= {1})",
+}
+_TERNARY_C = {
+    "where": "rk::f_where({0}, {1}, {2})",
+    "plus_mult": "({0} + {1} * {2})", "minus_mult": "({0} - {1} * {2})",
+}
+_CELL_C = {**_UNARY_C, **_BINARY_C, **_TERNARY_C}
+
+_CELL_VARIANT = {NO_AGG: 0, ROW_AGG: 1, COL_AGG: 2, FULL_AGG: 3}
+_ROW_VARIANT = {NO_AGG: 0, ROW_AGG: 1, COL_AGG: 2, FULL_AGG: 3,
+                COL_T_AGG: 4}
+
+#: narrow matmuls with at most this many output columns reduce each column
+#: with a warp butterfly; wider ones stage the row in shared memory
+_SHUFFLE_MM_MAX = 8
+#: static shared memory a Row CTA may use (floats)
+_SMEM_FLOATS = 48 * 1024 // 4
+
+
+@dataclass(frozen=True)
+class KernelSource:
+    """One generated kernel: its text plus the launch geometry the Python
+    wrapper needs (the skeleton reads the same constants from ``Prog``)."""
+    template: str          # "cell" | "magg" | "row"
+    text: str
+    domain: tuple          # (rows, cols) the kernel walks (rows: run time)
+    elems: int = 0         # reduced elements per partial (0: no partials)
+    lanes: int = 0         # row: lanes per row (32 or 1)
+    wpb: int = 0           # row: warps per CTA
+
+    @functools.cached_property
+    def key(self) -> str:
+        return hashlib.sha256(self.text.encode()).hexdigest()[:20]
+
+
+def _lit(v: float) -> str:
+    v = float(np.float32(v))
+    if math.isnan(v):
+        return "(NAN)"
+    if math.isinf(v):
+        return "(INFINITY)" if v > 0 else "(-INFINITY)"
+    return f"({v!r}f)"
+
+
+def root_shape(cplan: CPlan, nid: Optional[int] = None) -> tuple[int, int]:
+    """Shape of program value ``nid`` (default: the program root)."""
+    nid = cplan.prog_root if nid is None else nid
+    for (n, _op, _ins, shape, _attrs) in cplan.prog:
+        if n == nid:
+            return tuple(shape)
+    for b in cplan.binds:
+        if b.nid == nid:
+            return tuple(b.shape)
+    return tuple(cplan.main.shape)
+
+
+def _unsupported(cplan: CPlan, why: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{cplan.ttype.name} {cplan.variant} CPlan: {why}; the CUDA "
+        f"template cannot run it (no fallback for CUDA tensors)")
+
+
+def _header(template: str) -> list[str]:
+    return [f'#include "{template}.cuh"', ""]
+
+
+def _launcher(fn: str) -> list[str]:
+    return [
+        'extern "C" int repro_launch(void* const* binds, void* out, '
+        'void* part, long long m, int nblocks, double aux, void* stream, '
+        'int device) {',
+        f"  return {fn}<Prog>(binds, static_cast<float*>(out), "
+        "static_cast<float*>(part), m, nblocks, aux, stream, device);",
+        "}", ""]
+
+
+def _select(values: list[str], default: str) -> str:
+    """``k == 0 ? v0 : (k == 1 ? v1 : …)`` over per-root values."""
+    expr = default
+    for k in reversed(range(len(values))):
+        expr = f"(k == {k} ? {values[k]} : {expr})"
+    return expr
+
+
+# --------------------------------------------------------------------------
+# Cell and MAgg: the program evaluated at one cell (i, j) of the domain
+# --------------------------------------------------------------------------
+
+def _cell_body(cplan: CPlan, roots: list[int], dom: tuple[int, int]
+               ) -> list[str]:
+    M, N = dom
+    pos = {b.nid: k for k, b in enumerate(cplan.binds)}
+    shape_of = {b.nid: tuple(b.shape) for b in cplan.binds}
+    names: dict[tuple, str] = {}
+    lines: list[str] = []
+
+    def offset(shape, col_lo: int = 0, width: Optional[int] = None):
+        r, c = shape
+        w = c if width is None else width
+        if r not in (1, M) or w not in (1, N):
+            raise _unsupported(cplan, f"side of shape {shape} does not "
+                                      f"broadcast over the domain {dom}")
+        row = r == M and M > 1
+        col = w == N and N > 1
+        parts = []
+        if row:
+            parts.append(f"i * {c}")
+        if col:
+            parts.append("j")
+        if col_lo:
+            parts.append(str(col_lo))
+        return " + ".join(parts) if parts else "0"
+
+    def bind(nid: int) -> str:
+        key = ("b", nid)
+        if key not in names:
+            name = f"b{pos[nid]}"
+            lines.append(f"const float {name} = __ldg(b.p[{pos[nid]}] + "
+                         f"{offset(shape_of[nid])});")
+            names[key] = name
+        return names[key]
+
+    for idx, (nid, op, ins, shape, attrs) in enumerate(cplan.prog):
+        attrs = dict(attrs)
+        name = f"v{idx}"
+        if op == "idx":
+            kind, ref = ins[0]
+            if kind != "b":
+                raise _unsupported(cplan, "column slice of a computed value")
+            lo, hi = int(attrs["lo"]), int(attrs["hi"])
+            off = offset(shape_of[ref], lo, hi - lo)
+            lines.append(f"const float {name} = __ldg(b.p[{pos[ref]}] + "
+                         f"{off});")
+        elif op in _CELL_C and "axis" not in attrs:
+            args = [names[("n", r)] if k == "n" else
+                    bind(r) if k == "b" else _lit(r) for k, r in ins]
+            lines.append(f"const float {name} = "
+                         f"{_CELL_C[op].format(*args)};")
+        else:
+            raise _unsupported(cplan, f"op '{op}' inside a cell program")
+        names[("n", nid)] = name
+    for k, r in enumerate(roots):
+        val = names.get(("n", r)) or bind(r)
+        lines.append(f"r[{k}] = {val};")
+    return lines
+
+
+def _cell_domain(cplan: CPlan, roots: list[int]) -> tuple[int, int]:
+    shapes = {root_shape(cplan, r) for r in roots}
+    if len(shapes) != 1:
+        raise _unsupported(cplan, f"aggregate roots of different shapes "
+                                  f"{sorted(shapes)}")
+    return shapes.pop()
+
+
+def _cell_struct(cplan: CPlan, roots: list[int], aggs: list[str],
+                 variant: int, dom, fin: str) -> list[str]:
+    nb = len(cplan.binds)
+    body = _cell_body(cplan, roots, dom)
+    agg = AGG_CODE[aggs[0]]
+    # agg_of(e) indexes the reduced output: roots for MAgg, but columns
+    # for the col_agg combine — a single root aggregates every e alike
+    agg_of = "AGG" if len(roots) == 1 else \
+        _select([str(AGG_CODE[a]) for a in aggs], "0")
+    return [
+        "struct Prog {",
+        f"  static constexpr int NB = {nb}, N = {dom[1]}, K = {len(roots)};",
+        f"  static constexpr int VARIANT = {variant}, AGG = {agg}, "
+        f"MEAN = {int(aggs[0] == 'mean')};",
+        "  __device__ static __forceinline__ int agg_of(int k) {",
+        f"    return {agg_of};",
+        "  }",
+        "  __device__ static __forceinline__ float fin(int k, float a, "
+        "double aux) {",
+        f"    return {fin};",
+        "  }",
+        "  __device__ static __forceinline__ void eval("
+        "const rk::Binds<NB>& b, long long i, int j, float (&r)[K]) {",
+        *("    " + ln for ln in body),
+        "  }",
+        "};", ""]
+
+
+def cell_source(cplan: CPlan) -> KernelSource:
+    """The Cell template (single-root MAgg included: full_agg, K = 1)."""
+    variant = cplan.variant
+    if variant not in _CELL_VARIANT or cplan.extra:
+        raise _unsupported(cplan, "not a Cell variant")
+    roots = [cplan.prog_root]
+    dom = cplan.out_shape if variant == NO_AGG else \
+        _cell_domain(cplan, roots)
+    agg = cplan.agg_op or "sum"
+    fin = "a" if agg != "mean" else "a / (float)aux"
+    text = "\n".join(
+        ["// Cell template: " + _describe(cplan)] + _header("cell")
+        + _cell_struct(cplan, roots, [agg], _CELL_VARIANT[variant], dom,
+                       fin)
+        + _launcher("cell_launch"))
+    elems = {COL_AGG: dom[1], FULL_AGG: 1}.get(variant, 0)
+    return KernelSource("cell", text, tuple(dom), elems=elems)
+
+
+def magg_source(cplan: CPlan) -> KernelSource:
+    """The MAgg template: k full aggregates in one scan, out (k, 1)."""
+    if not cplan.extra:
+        raise _unsupported(cplan, "MAgg needs more than one root")
+    roots = [cplan.prog_root] + [r for r, _ in cplan.extra]
+    aggs = [cplan.agg_op] + [op for _, op in cplan.extra]
+    dom = _cell_domain(cplan, roots)
+    fin = _select(["a * (float)aux" if a == "mean" else "a" for a in aggs],
+                  "a")
+    text = "\n".join(
+        ["// MAgg template: " + _describe(cplan)] + _header("magg")
+        + _cell_struct(cplan, roots, aggs, _CELL_VARIANT[FULL_AGG], dom,
+                       fin)
+        + _launcher("magg_launch"))
+    return KernelSource("magg", text, tuple(dom), elems=len(roots))
+
+
+# --------------------------------------------------------------------------
+# Row: the program evaluated on one row, values lane-distributed
+# --------------------------------------------------------------------------
+
+class _RowEmitter:
+    """Writes the Row program body.  A value of width w is a ``float``
+    when w == 1 (the same bits on every lane of the row group) and a
+    register array ``float v[T]``, T = ceil(w / L), when w > 1 (element j
+    on lane j % L, slot j / L)."""
+
+    def __init__(self, cplan: CPlan, lanes: int):
+        self.cp = cplan
+        self.L = lanes
+        self.M = cplan.main.shape[0]
+        self.pos = {b.nid: k for k, b in enumerate(cplan.binds)}
+        self.shape_of = {b.nid: tuple(b.shape) for b in cplan.binds}
+        self.vals: dict[tuple, tuple[str, int]] = {}    # key -> (name, w)
+        self.lines: list[str] = []
+        self.smw = 1
+
+    # -- helpers -------------------------------------------------------------
+    def slots(self, w: int) -> int:
+        return -(-w // self.L)
+
+    def emit(self, *lines: str) -> None:
+        self.lines.extend(lines)
+
+    def elt(self, key_or_lit) -> tuple[str, int]:
+        """(C expression of element t, width) of a value reference."""
+        kind, ref = key_or_lit
+        if kind == "l":
+            return _lit(ref), 1
+        if kind == "b":
+            name, w = self.bind(ref)
+        else:
+            name, w = self.vals[("n", ref)]
+        return (name if w == 1 else f"{name}[t]"), w
+
+    def base(self, nid: int) -> str:
+        """Pointer to row i of an elementwise-read bind."""
+        r, c = self.shape_of[nid]
+        k = self.pos[nid]
+        if r == self.M and self.M > 1:
+            return f"b.p[{k}] + i * {c}"
+        if r == 1:
+            return f"b.p[{k}]"
+        raise _unsupported(self.cp, f"side of shape {(r, c)} read "
+                                    f"element-wise by a row program over "
+                                    f"{self.M} rows")
+
+    def load(self, name: str, base: str, w: int, lo: int = 0) -> None:
+        off = f" + {lo}" if lo else ""
+        if w == 1:
+            self.emit(f"const float {name} = __ldg({base}{off});")
+            return
+        self.emit(f"float {name}[{self.slots(w)}];",
+                  "#pragma unroll",
+                  f"for (int t = 0; t < {self.slots(w)}; ++t) {{",
+                  f"  const int j = t * {self.L} + sub;",
+                  f"  {name}[t] = j < {w} ? __ldg({base}{off} + j) : 0.f;",
+                  "}")
+
+    def bind(self, nid: int) -> tuple[str, int]:
+        key = ("b", nid)
+        if key not in self.vals:
+            name = f"b{self.pos[nid]}"
+            w = self.shape_of[nid][1]
+            self.load(name, self.base(nid), w)
+            self.vals[key] = (name, w)
+        return self.vals[key]
+
+    def stage(self, name: str, w: int) -> None:
+        """Write a row value to the warp's shared buffer sm[0:w)."""
+        self.smw = max(self.smw, w)
+        self.emit("__syncwarp();")
+        if w == 1:
+            self.emit(f"if (sub == 0) sm[0] = {name};")
+        else:
+            self.emit("#pragma unroll",
+                      f"for (int t = 0; t < {self.slots(w)}; ++t)",
+                      f"  if (t * 32 + sub < {w}) sm[t * 32 + sub] = "
+                      f"{name}[t];")
+        self.emit("__syncwarp();")
+
+    # -- ops -----------------------------------------------------------------
+    def cellwise(self, name: str, op: str, ins, width: int) -> None:
+        args = [self.elt(r) for r in ins]
+        widths = {w for _e, w in args if w > 1}
+        if len(widths) > 1 or (widths and widths != {width}):
+            raise _unsupported(self.cp, f"'{op}' over row values of widths "
+                                        f"{sorted(w for _e, w in args)}")
+        expr = _CELL_C[op].format(*(e for e, _w in args))
+        if width == 1:
+            self.emit(f"const float {name} = {expr};")
+        else:
+            self.emit(f"float {name}[{self.slots(width)}];",
+                      "#pragma unroll",
+                      f"for (int t = 0; t < {self.slots(width)}; ++t) "
+                      f"{name}[t] = {expr};")
+
+    def row_agg(self, name: str, op: str, ref, width: int) -> None:
+        x, w = self.elt(ref)
+        a = AGG_CODE[op]
+        if w == 1:
+            expr = {"sum_sq": f"({x} * {x})"}.get(op, x)
+            self.emit(f"const float {name} = {expr};")
+            return
+        self.emit(f"float {name};", "{",
+                  f"  float s = rk::agg_init({a});",
+                  "#pragma unroll",
+                  f"  for (int t = 0; t < {self.slots(w)}; ++t)",
+                  f"    if (t * {self.L} + sub < {w}) "
+                  f"s = rk::agg_add({a}, s, {x});",
+                  f"  {name} = rk::lane_reduce<{self.L}>({a}, s);",
+                  "}")
+        if op == "mean":
+            self.emit(f"{name} = {name} / {float(w)!r}f;")
+
+    def matmul(self, name: str, ins, shape, attrs: dict) -> None:
+        if attrs.get("ta", False):
+            raise _unsupported(self.cp, "transposed row operand in a "
+                                        "row-program matmul")
+        (ka, ra), (kb, rb) = ins
+        if kb != "b":
+            raise _unsupported(self.cp, "matmul against a computed matrix")
+        a, k = self.elt((ka, ra))
+        a = a.replace("[t]", "")
+        c = shape[1]
+        tb = bool(attrs.get("tb", False))
+        if self.shape_of[rb] != ((c, k) if tb else (k, c)) or k < 2:
+            raise _unsupported(self.cp, f"matmul side {self.shape_of[rb]} "
+                                        f"for a ({k}) row @ ({c}) columns")
+        B = f"b.p[{self.pos[rb]}]"
+        at = (lambda q, jc: f"{B} + {jc} * {k} + {q}") if tb else \
+            (lambda q, jc: f"{B} + {q} * {c} + {jc}")
+        ta = self.slots(k)
+        if c <= _SHUFFLE_MM_MAX:
+            # one butterfly per output column: every lane gets the sum
+            decl = f"float {name} = 0.f;" if c == 1 else \
+                f"float {name}[{self.slots(c)}] = {{}};"
+            store = f"{name} = s;" if c == 1 else \
+                f"if (jj % 32 == sub) {name}[jj / 32] = s;"
+            self.emit(decl,
+                      "#pragma unroll",
+                      f"for (int jj = 0; jj < {c}; ++jj) {{",
+                      "  float s = 0.f;",
+                      "#pragma unroll",
+                      f"  for (int t = 0; t < {ta}; ++t) {{",
+                      "    const int q = t * 32 + sub;",
+                      f"    if (q < {k}) s = fmaf({a}[t], "
+                      f"__ldg({at('q', 'jj')}), s);",
+                      "  }",
+                      "  s = rk::lane_reduce<32>(rk::AGG_SUM, s);",
+                      f"  {store}",
+                      "}")
+            return
+        # wide output: the row sits in shared memory, lanes take columns
+        self.stage(a, k)
+        self.emit(f"float {name}[{self.slots(c)}];",
+                  "#pragma unroll",
+                  f"for (int t = 0; t < {self.slots(c)}; ++t) {{",
+                  "  const int jc = t * 32 + sub;",
+                  "  float s = 0.f;",
+                  f"  if (jc < {c})",
+                  f"    for (int q = 0; q < {k}; ++q) "
+                  f"s = fmaf(sm[q], __ldg({at('q', 'jc')}), s);",
+                  f"  {name}[t] = s;",
+                  "}")
+
+    def idx(self, name: str, ref, lo: int, hi: int) -> None:
+        w = hi - lo
+        kind, r = ref
+        if kind == "b":
+            self.load(name, self.base(r), w, lo)
+            return
+        src, sw = self.vals[("n", r)]
+        if sw == 1:
+            self.emit(f"const float {name} = {src};")
+            return
+        self.stage(src, sw)
+        if w == 1:
+            self.emit(f"const float {name} = sm[{lo}];")
+        else:
+            self.emit(f"float {name}[{self.slots(w)}];",
+                      "#pragma unroll",
+                      f"for (int t = 0; t < {self.slots(w)}; ++t) {{",
+                      f"  const int j = t * {self.L} + sub;",
+                      f"  {name}[t] = j < {w} ? sm[{lo} + j] : 0.f;",
+                      "}")
+
+    # -- program -------------------------------------------------------------
+    def program(self) -> None:
+        for pos, (nid, op, ins, shape, attrs) in enumerate(self.cp.prog):
+            attrs = dict(attrs)
+            name = f"v{pos}"
+            width = int(shape[1])
+            if shape[0] not in (1, self.M):
+                raise _unsupported(self.cp, f"program value of shape "
+                                            f"{shape} is not a row value")
+            if op == "matmul":
+                self.matmul(name, ins, shape, attrs)
+            elif op in AGG_OPS and "axis" in attrs:
+                if attrs["axis"] != "row":
+                    raise _unsupported(self.cp, f"{attrs['axis']} "
+                                                f"aggregate inside a program")
+                self.row_agg(name, op, ins[0], width)
+            elif op == "idx":
+                self.idx(name, ins[0], int(attrs["lo"]), int(attrs["hi"]))
+            elif op in _CELL_C:
+                self.cellwise(name, op, ins, width)
+            else:
+                raise _unsupported(self.cp, f"op '{op}' inside a row "
+                                            f"program")
+            self.vals[("n", nid)] = (name, width)
+
+    def copy_out(self, dst: str, nid: int) -> int:
+        kind = "n" if ("n", nid) in self.vals else "b"
+        x, w = self.elt((kind, nid))
+        if w == 1:
+            self.emit(f"{dst}[0] = {x};")
+        else:
+            self.emit("#pragma unroll",
+                      f"for (int t = 0; t < {self.slots(w)}; ++t) "
+                      f"{dst}[t] = {x};")
+        return w
+
+
+def _row_lanes(cplan: CPlan) -> int:
+    """32 lanes (one warp) per row when any row value is a vector; one
+    thread per row when every value is a per-row scalar."""
+    if cplan.variant == COL_T_AGG:
+        return 32
+    for b in cplan.binds:
+        if b.shape[1] > 1:
+            return 32
+    for (_nid, op, _ins, shape, _attrs) in cplan.prog:
+        if op in ("matmul", "idx") or shape[1] > 1:
+            return 32
+    return 1
+
+
+def row_source(cplan: CPlan) -> KernelSource:
+    """The Row template, all five variants."""
+    variant = cplan.variant
+    if variant not in _ROW_VARIANT:
+        raise _unsupported(cplan, "not a Row variant")
+    M = cplan.main.shape[0]
+    if root_shape(cplan)[0] != M:
+        raise _unsupported(cplan, f"root of shape {root_shape(cplan)} is "
+                                  f"not a value per row of the {M}-row main")
+    lanes = _row_lanes(cplan)
+    em = _RowEmitter(cplan, lanes)
+    em.program()
+    C = em.copy_out("r", cplan.prog_root)
+    if variant == NO_AGG and tuple(cplan.out_shape) != (M, C):
+        raise _unsupported(cplan, f"output {cplan.out_shape} is not the "
+                                  f"root's ({M}, {C})")
+    KC = em.copy_out("c", cplan.close_nid) if variant == COL_T_AGG else 0
+    if variant == COL_T_AGG:
+        em.smw = max(em.smw, KC + C)
+    slots = em.slots
+    tr, tk = slots(C), max(1, slots(KC))
+    te = {COL_AGG: tr, COL_T_AGG: -(-KC * C // 32)}.get(variant, 1)
+    wpb = min(8, _SMEM_FLOATS // em.smw)
+    if wpb < 1:
+        raise _unsupported(cplan, f"row staging of {em.smw} floats exceeds "
+                                  f"shared memory")
+    agg = "sum" if variant == COL_T_AGG else (cplan.agg_op or "sum")
+    mean = agg == "mean" and variant in (ROW_AGG, COL_AGG, FULL_AGG)
+    elems = {COL_AGG: C, FULL_AGG: 1, COL_T_AGG: KC * C}.get(variant, 0)
+    lines = [
+        "// Row template: " + _describe(cplan), *_header("row"),
+        "struct Prog {",
+        f"  static constexpr int NB = {len(cplan.binds)}, L = {lanes}, "
+        f"WPB = {wpb}, SMW = {em.smw};",
+        f"  static constexpr int C = {C}, KC = {KC}, TR = {tr}, TK = {tk}, "
+        f"TE = {te};",
+        f"  static constexpr int VARIANT = {_ROW_VARIANT[variant]}, "
+        f"AGG = {AGG_CODE[agg]}, MEAN = {int(mean)};",
+        "  __device__ static __forceinline__ int agg_of(int) "
+        "{ return AGG; }",
+        "  __device__ static __forceinline__ float fin(int, float a, "
+        "double aux) { return MEAN ? a / (float)aux : a; }",
+        "  __device__ static __forceinline__ void eval("
+        "const rk::Binds<NB>& b, long long i, int sub, float* sm, "
+        "float (&r)[TR], float (&c)[TK]) {",
+        *("    " + ln for ln in em.lines),
+        "  }",
+        "};", "",
+        *_launcher("row_launch")]
+    return KernelSource("row", "\n".join(lines),
+                        (cplan.main.shape[0], C), elems=elems, lanes=lanes,
+                        wpb=wpb)
+
+
+# --------------------------------------------------------------------------
+# routing (the dense dispatch of kernels/ops.py)
+# --------------------------------------------------------------------------
+
+def _describe(cplan: CPlan) -> str:
+    # widths only: the row count must not enter the text (one build per m)
+    return (f"{cplan.ttype.name} {cplan.variant} agg={cplan.agg_op or '-'} "
+            f"bind widths={[b.shape[1] for b in cplan.binds]} "
+            f"ops={[op for (_n, op, *_r) in cplan.prog]}")
+
+
+#: generated sources by CPlan object (the staged plan function hands the
+#: same CPlan to every call) and by structural CPlan hash; bounded, and
+#: the text is pure in the CPlan, so a hit is always right
+_BY_OBJECT: dict[int, tuple[CPlan, KernelSource]] = {}
+_BY_HASH: dict[str, KernelSource] = {}
+_MEMO_MAX = 4096
+
+
+def source_for(cplan: CPlan) -> KernelSource:
+    """The kernel source :func:`repro_torch.kernels.ops.execute` would
+    launch for this CPlan over dense CUDA operands (memoized)."""
+    hit = _BY_OBJECT.get(id(cplan))
+    if hit is not None and hit[0] is cplan:
+        return hit[1]
+    key = cplan.cache_key()
+    src = _BY_HASH.get(key)
+    if src is None:
+        src = _generate(cplan)
+    if len(_BY_OBJECT) >= _MEMO_MAX:
+        _BY_OBJECT.clear()
+        _BY_HASH.clear()
+    _BY_HASH[key] = src
+    _BY_OBJECT[id(cplan)] = (cplan, src)
+    return src
+
+
+def _generate(cplan: CPlan) -> KernelSource:
+    if cplan.extra:
+        return magg_source(cplan)
+    if cplan.ttype in (TType.CELL, TType.MAGG):
+        return cell_source(cplan)
+    if cplan.ttype == TType.ROW:
+        return row_source(cplan)
+    raise _unsupported(cplan, "no CUDA template (Outer over a dense main "
+                              "runs the torch oracle)")

@@ -1,0 +1,153 @@
+"""The kernel sweep: small expressions whose CPlans, built by the planner
+itself, drive every variant of the Cell, MAgg and Row kernels.
+
+``chip_smoke.py`` holds each generated CUDA kernel against its plain
+version on these CPlans; the CPU tests hold the plain versions against the
+reference's Pallas kernels on the same expressions.  Expressions take the
+IR module as their first argument, so the tests can build the same
+expression with the reference's IR and plan it there.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Callable, Optional
+
+from repro_torch.core import cost, cplan, explore, ir, select, templates
+
+
+def _operands(m: int, n: int) -> dict[str, tuple[int, int]]:
+    return {"X": (m, n), "Y": (m, n), "v": (m, 1), "B1": (n, 1),
+            "B4": (n, 4), "B256": (n, 256), "Y4": (m, 4)}
+
+
+@dataclass(frozen=True)
+class Case:
+    name: str
+    template: str                 # kernel that runs it: cell | magg | row
+    expr: Callable                # expr(ir, **operands) -> Expr | tuple
+    operands: tuple[str, ...]     # names from _operands
+    #: template forced at the output root ("CELL" / "ROW" / "MAGG"), or
+    #: None for the planner's own choice (the last fused operator)
+    want: Optional[str]
+    #: fewest main columns the case plans at (a narrow matmul needs two)
+    min_n: int = 1
+
+    def shapes(self, m: int, n: int) -> dict[str, tuple[int, int]]:
+        all_ = _operands(m, n)
+        return {k: all_[k] for k in self.operands}
+
+
+def _cell_chain(ir, X, Y, v):
+    return ir.abs_(X) * Y + v * 2.0
+
+
+def _cell(axis: Optional[str], agg: Optional[str]):
+    if axis is None:
+        return lambda ir, X, Y, v: _cell_chain(ir, X, Y, v)
+    return lambda ir, X, Y, v: _cell_chain(ir, X, Y, v)._agg(agg, axis)
+
+
+def _softmax(ir, X, B4):
+    Z = X @ B4
+    E = ir.exp(Z - Z.rowmaxs())
+    return E / E.rowsums()
+
+
+def cases() -> list[Case]:
+    """Every Cell variant × sum/min/max/mean, single-root MAgg, k = 2 and
+    k = 3 MAgg with mixed aggregates, every Row variant with narrow
+    matmuls of 1, 4 and 256 columns and in-program rowsums/rowmaxs,
+    column slices (``idx``) of sides and of computed row values, and a
+    Cell sum of non-negative terms (a lost partial cannot cancel out)."""
+    xyv = ("X", "Y", "v")
+    out = [Case("cell/no_agg", "cell", _cell(None, None), xyv, None)]
+    for axis in ("row", "col", "full"):
+        for agg in ("sum", "min", "max", "mean"):
+            out.append(Case(f"cell/{axis}_agg_{agg}", "cell",
+                            _cell(axis, agg), xyv, "CELL"))
+    out += [
+        Case("cell/full_agg_abs_sum", "cell",
+             lambda ir, X, Y, v: ir.abs_(_cell_chain(ir, X, Y, v)).sum(),
+             xyv, "CELL"),
+        Case("cell/magg_single", "cell",
+             lambda ir, X, Y: (X * Y).sum(), ("X", "Y"), "MAGG"),
+        Case("magg/k2_sum_max", "magg",
+             lambda ir, X, Y: ((X * Y).sum(), (X ** 2).max_()),
+             ("X", "Y"), None),
+        Case("magg/k3_min_mean_sum", "magg",
+             lambda ir, X, Y: ((X * Y).min_(), (X ** 2).mean(),
+                               ir.abs_(Y).sum()),
+             ("X", "Y"), None),
+        Case("row/no_agg_mm1", "row",
+             lambda ir, X, B1, v: ir.relu(1.0 - v * (X @ B1)),
+             ("X", "B1", "v"), "ROW"),
+        Case("row/no_agg_mm4", "row",
+             lambda ir, X, B4, v: ir.exp(X @ B4) * v,
+             ("X", "B4", "v"), "ROW"),
+        Case("row/no_agg_mm256", "row",
+             lambda ir, X, B256: ir.tanh(X @ B256) * 0.5,
+             ("X", "B256"), "ROW"),
+        Case("row/no_agg_rowsums_rowmaxs", "row", _softmax,
+             ("X", "B4"), None),
+        Case("row/row_agg_sum", "row",
+             lambda ir, X, B4: ((X @ B4) * 2.0).rowsums(),
+             ("X", "B4"), None),
+        Case("row/row_agg_max", "row",
+             lambda ir, X, B4: ir.sigmoid(X @ B4)._agg("max", "row"),
+             ("X", "B4"), None),
+        Case("row/col_agg_sum", "row",
+             lambda ir, X, v: (ir.abs_(X) * v).colsums(),
+             ("X", "v"), "ROW"),
+        Case("row/col_agg_mean", "row",
+             lambda ir, X, v: (X * v - 1.0)._agg("mean", "col"),
+             ("X", "v"), "ROW"),
+        Case("row/full_agg", "row",
+             lambda ir, X, B4: ((X @ B4) ** 2).sum(),
+             ("X", "B4"), "ROW"),
+        Case("row/col_t_agg_mm4", "row",
+             lambda ir, X, B4, Y4: X.T @ (Y4 * (X @ B4)),
+             ("X", "B4", "Y4"), "ROW"),
+        Case("row/col_t_agg_mm1", "row",
+             lambda ir, X, B1: X.T @ ir.relu(X @ B1),
+             ("X", "B1"), "ROW"),
+        Case("row/full_agg_max", "row",
+             lambda ir, X, B4: ir.tanh(X @ B4)._agg("max", "full"),
+             ("X", "B4"), "ROW"),
+        Case("row/col_agg_min_mm4", "row",
+             lambda ir, X, B4: (X @ B4)._agg("min", "col"),
+             ("X", "B4"), "ROW"),
+        Case("row/idx_computed_row_mean", "row",
+             lambda ir, X, B4: ir.exp(X @ B4).cols(1, 3)._agg("mean", "row"),
+             ("X", "B4"), None),
+        Case("row/idx_side", "row",
+             lambda ir, X, B4: X.cols(0, 4) * (X @ B4),
+             ("X", "B4"), None, min_n=4),
+        Case("cell/idx_where", "cell",
+             lambda ir, X, Y: ir.where(X.cols(1, X.shape[1]) > 0.0,
+                                       Y.cols(0, Y.shape[1] - 1), 1.0),
+             ("X", "Y"), None, min_n=2),
+    ]
+    return [replace(c, min_n=max(c.min_n, 2)) if c.template == "row" else c
+            for c in out]
+
+
+def fused_cplan(case: Case, m: int, n: int):
+    """Plan ``case`` at (m, n) with the port's planner; returns (cplan,
+    {bind nid: operand name})."""
+    exprs = {k: ir.matrix(k, s) for k, s in case.shapes(m, n).items()}
+    outs = case.expr(ir, **exprs)
+    g = ir.Graph.build(list(outs) if isinstance(outs, tuple) else [outs])
+    if case.want is not None:
+        memo = explore.explore(g)
+        root = g.outputs[0]
+        want = templates.TType[case.want]
+        entry = next(e for e in memo.entries(root.nid)
+                     if e.ttype == want and e.can_root)
+        spec = cost._build_spec(g, memo, root.nid, entry, set())
+    else:
+        p = select.plan(g, "gen")
+        spec = [s for s in p.specs if getattr(s, "fused", False)][-1]
+    cp = cplan.build_cplan(g, spec)
+    names = {node.nid: node.name for node in g.inputs()}
+    return cp, {b.nid: names[b.nid] for b in cp.binds}

@@ -1,0 +1,149 @@
+"""The port's fused regions of the paper algorithms, with their operand
+shapes: L2SVM's from ``repro_torch.algos.l2svm``; mlogreg's and kmeans'
+(not ported yet as algorithms) re-declared over the port's IR with the
+expressions of ``repro/algos/mlogreg.py`` and ``repro/algos/kmeans.py``.
+Imports no JAX, so the card-only tests can use it too."""
+
+import functools
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from repro_torch.algos import l2svm
+from repro_torch.core import FusionContext, fused
+from repro_torch.core import ir as pir
+
+
+@functools.cache
+def chip_smoke():
+    """The repository's ``chip_smoke.py`` as a module (its kernel check's
+    limit and its planted fault)."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _softmax(X, B):
+    Z = X @ B
+    E = pir.exp(Z - Z.rowmaxs())
+    return E / E.rowsums()
+
+
+@fused
+def _probs(X, B):
+    return _softmax(X, B)
+
+
+@fused
+def _nll_obj_reg(X, B, Y, lam):
+    P = _softmax(X, B)
+    return (0.0 - (Y * pir.log(P + 1e-30)).sum()
+            + 0.5 * lam * (B ** 2).sum())
+
+
+@fused
+def _hvp(X, v, P):
+    Q = P * (X @ v)
+    return X.T @ (Q - P * Q.rowsums())
+
+
+@fused
+def _mlogreg_grad(X, P, Y):
+    return X.T @ (P - Y)
+
+
+@fused
+def _nll_terms(P, Y):
+    return (Y * pir.log(P + 1e-30)).sum()
+
+
+@fused
+def _fit_terms(X, B, Y):
+    return (B * (X.T @ Y)).sum()
+
+
+@fused
+def _sq_rowsums(X):
+    return (X ** 2).rowsums()
+
+
+@fused
+def _min_dist(XC, xsq, csq):
+    D = xsq - 2.0 * XC + csq
+    return D._agg("min", "row")
+
+
+def regions(m: int, n: int, k: int = 5) -> dict:
+    """name -> (port Fused, {operand: shape})."""
+    X, w, col, lam = (m, n), (n, 1), (m, 1), (1, 1)
+    B, P = (n, k), (m, k)
+    return {
+        "l2svm/hinge": (l2svm._hinge, dict(X=X, w=w, y=col)),
+        "l2svm/grad": (l2svm._grad, dict(X=X, out=col, y=col, w=w,
+                                         lam=lam)),
+        "l2svm/search_terms": (l2svm._search_terms, dict(out=col, yXs=col)),
+        "l2svm/objective": (l2svm._objective, dict(out=col, w=w)),
+        "l2svm/objective_full": (l2svm._objective_full,
+                                 dict(X=X, w=w, y=col, lam=lam)),
+        "mlogreg/probs": (_probs, dict(X=X, B=B)),
+        "mlogreg/nll_obj_reg": (_nll_obj_reg, dict(X=X, B=B, Y=P, lam=lam)),
+        "mlogreg/hvp": (_hvp, dict(X=X, v=B, P=P)),
+        "mlogreg/grad": (_mlogreg_grad, dict(X=X, P=P, Y=P)),
+        "mlogreg/nll_terms": (_nll_terms, dict(P=P, Y=P)),
+        "mlogreg/fit_terms": (_fit_terms, dict(X=X, B=B, Y=P)),
+        "kmeans/sq_rowsums": (_sq_rowsums, dict(X=(m, 50))),
+        "kmeans/min_dist": (_min_dist, dict(XC=(m, 5), xsq=col,
+                                            csq=(1, 5))),
+    }
+
+
+def inputs(shapes: dict, seed: int = 0) -> dict[str, np.ndarray]:
+    """Seeded numpy operands (positive P-like operands stay positive so
+    log() is defined)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, shape in shapes.items():
+        v = rng.normal(size=shape).astype(np.float32) * 0.5
+        if name in ("P", "Y", "out"):
+            v = np.abs(v) + 0.05
+        out[name] = v
+    return out
+
+
+def as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
+
+
+#: inputs whose gradient of the summed outputs the parity tests compare
+GRADS = {
+    "l2svm/hinge": ("X", "w", "y"),
+    "l2svm/objective_full": ("X", "w", "lam"),
+    "l2svm/grad": ("X", "out", "w", "lam"),
+    "l2svm/search_terms": ("yXs",),
+    "l2svm/objective": ("out", "w"),
+    "mlogreg/nll_obj_reg": ("X", "B", "lam"),
+    "mlogreg/probs": ("B",),
+    "mlogreg/hvp": ("v",),
+    "mlogreg/fit_terms": ("X", "B", "Y"),
+}
+
+
+def run_port(region, vals: dict, grad_wrt=(), mode: str = "gen",
+             kernels: str = "cuda", device: str = "cpu"):
+    """(outputs, {name: grad}) of the port's Compiled on ``device``, as
+    numpy arrays."""
+    ctx = FusionContext(mode=mode, kernels=kernels, device=device)
+    compiled = region.trace(**vals).plan(context=ctx).compile()
+    args = {k: torch.tensor(v, device=device, requires_grad=k in grad_wrt)
+            for k, v in vals.items()}
+    outs = as_tuple(compiled(**args))
+    grads = {}
+    if grad_wrt:
+        total = sum(o.sum() for o in outs)
+        gs = torch.autograd.grad(total, [args[g] for g in grad_wrt])
+        grads = {g: v.cpu().numpy() for g, v in zip(grad_wrt, gs)}
+    return tuple(o.detach().cpu().numpy() for o in outs), grads
