@@ -4,7 +4,8 @@
 Run from the repository root on a machine with an NVIDIA H100 and the CUDA
 toolkit:
 
-    python3 chip_smoke.py            # X of 10,000,000 x 100 on the main path
+    python3 chip_smoke.py   # L2SVM on X 10,000,000 x 100, ALS-CG on a BCSR
+                            # of 480,256 x 17,792 (the Netflix shape)
 
 Phases, each reported on its own lines:
 
@@ -28,7 +29,20 @@ Phases, each reported on its own lines:
 6. timing: per main-path CPlan, the kernel's and its plain version's
    median time with CUDA events, beside the bound (bytes over 3.35 TB/s or
    fp32 flops over 67 TFLOP/s, the larger);
-7. one JSON line with every kernel, the card line, and the final
+7. ALS-CG: the Outer kernel's sweep (``right_mm`` / ``full_agg`` over BCSR
+   mains, ``repro_torch.kernels.sweep.outer_cases``) against its plain
+   version, with a planted fault (``right_mm`` skips the middle block of
+   every block row; ``full_agg`` drops a partial) that must fail; a BCSR
+   shaped like the paper's Netflix matrix (480,189 x 17,770 padded to
+   480,256 x 17,792, bs 128, block density 0.25, planted rank 8, noise
+   0.1) built on the card from a seeded ``torch.Generator``; the ALS
+   CPlans at that shape against plain; ``repro_torch.algos.als_cg.run``
+   (rank 20, 6 outer x 5 inner iterations) with ``kernels="cuda"``,
+   counters set to 0 just before it, its loss trace against
+   ``kernels="never"`` and against a planted-fault run; the dense-mask
+   hand baseline at a reduced 12,800 x 8,192; a profile; per-CPlan times
+   (U update, V update, loss) beside their bounds;
+8. one JSON line with every kernel, the card line, and the final
    ``{"ok": true, ...}`` line.
 
 Any failed check raises; the script then prints the traceback and exits 1
@@ -65,13 +79,31 @@ EPS32 = 2.0 ** -23            # fp32 machine epsilon
 #: partials is off by about its value / P (P is in the thousands at the
 #: sweep's 2,000,003 rows), far above the limit
 KERNEL_ULPS = 16
-#: objective traces (kernels / torch-eager / hand torch): relative; the
-#: line search carries reduction-order differences over 5 iterations
+#: objective and loss traces (kernels / torch-eager / hand torch):
+#: relative; L2SVM's line search and ALS-CG's CG steps carry
+#: reduction-order differences over the iterations
 TRACE_RTOL = 1e-5
 #: sweep cases at M_SWEEP rows whose planted fault (one partial dropped)
 #: must fail the kernel check: sums of non-negative terms, one per kernel
-PLANTED = ("cell/full_agg_abs_sum", "magg/k3_min_mean_sum", "row/full_agg")
+PLANTED = ("cell/full_agg_abs_sum", "magg/k3_min_mean_sum", "row/full_agg",
+           "outer/right_mm_bs128_r20_d1.0", "outer/full_agg_loss")
 PLANT = "#define RK_PLANTED_FAULT 1\n"
+
+#: ALS-CG main path: the Netflix ratings shape (480,189 users x 17,770
+#: movies) padded to the block size, block density 0.25 (data.ratings'
+#: default), planted rank 8, noise 0.1; rank 20, 6 outer x 5 inner
+ALS_SHAPE = (480_189, 17_770)
+ALS_BS = 128
+ALS_DENSITY = 0.25
+ALS_RANK = 20
+ALS_ITERS = 6
+ALS_INNER = 5
+#: the dense-mask hand baseline densifies X (34 GB at the full shape): it
+#: runs at this reduced shape, beside the gen path on the same matrix
+ALS_HAND_SHAPE = (12_800, 8_192)
+#: hand vs gen ALS trace: the reference's own tolerance between its hand
+#: baseline and the fused path (tests/test_algos.py, 5e-2)
+ALS_HAND_RTOL = 5e-2
 
 KERNELS = {   # name -> (skeleton source, the TPU kernel it replaces)
     "cell": ("src/repro_torch/kernels/csrc/cell.cuh",
@@ -80,6 +112,8 @@ KERNELS = {   # name -> (skeleton source, the TPU kernel it replaces)
              "src/repro/kernels/multiagg.py:20"),
     "row": ("src/repro_torch/kernels/csrc/row.cuh",
             "src/repro/kernels/rowwise.py:25"),
+    "outer": ("src/repro_torch/kernels/csrc/outer.cuh",
+              "src/repro/kernels/outerprod.py:31"),
 }
 
 
@@ -150,6 +184,114 @@ STEP_OPS = {"sign", "round", "floor", "ceil", "neq0", "eq", "neq", "lt", "le",
             "gt", "ge"}
 
 
+def _is_t(x) -> bool:
+    import torch
+    return isinstance(x, torch.Tensor)
+
+
+def _mag(x):
+    return x.abs() if _is_t(x) else abs(x)
+
+
+def _reduce_scale(op, v, s, axis):
+    """The bound of an aggregate of v (carrying s) along ``axis``."""
+    import torch
+    from repro_torch.kernels import ref
+    s = s if _is_t(s) else torch.zeros_like(v)
+    if op in ("min", "max"):
+        return (ref.eval_node(op, [v], {"axis": axis}).abs()
+                + ref.eval_node("max", [s], {"axis": axis}))
+    if op == "sum_sq":
+        return ref.eval_node("sum", [v * v + 2 * v.abs() * s],
+                             {"axis": axis})
+    return ref.eval_node(op, [v.abs() + s], {"axis": axis})
+
+
+def _matmul_scale(a, sa, b, sb):
+    out = a.abs() @ b.abs()
+    if _is_t(sa):
+        out = out + sa @ b.abs()
+    if _is_t(sb):
+        out = out + a.abs() @ sb
+    return out
+
+
+def _smooth_scale(op, xs, ss, val, attrs):
+    import torch
+    from repro_torch.kernels import ref
+    leaves = [x.detach().expand(val.shape).clone().requires_grad_(True)
+              if _is_t(x) and _is_t(s) else x for x, s in zip(xs, ss)]
+    want = [x for x in leaves if _is_t(x) and x.requires_grad]
+    out = val.abs()
+    if want:
+        with torch.enable_grad():
+            grads = torch.autograd.grad(
+                ref.eval_node(op, leaves, attrs).sum(), want)
+        carried = iter(s for x, s in zip(leaves, ss)
+                       if _is_t(x) and x.requires_grad)
+        for g in grads:
+            out = out + torch.nan_to_num(g.abs() * next(carried))
+    return out
+
+
+def _op_scale(op, xs, ss, val, attrs):
+    """s(v) of one program op from its inputs xs and their bounds ss."""
+    from repro_torch.kernels import ref
+    if op in ref._AGG_FN and "axis" in attrs:
+        return _reduce_scale(op, xs[0], ss[0], attrs["axis"])
+    if op == "matmul":
+        a, b = xs
+        sa, sb = ss
+        if attrs.get("ta"):
+            a, sa = a.T, (sa.T if _is_t(sa) else sa)
+        if attrs.get("tb"):
+            b, sb = b.T, (sb.T if _is_t(sb) else sb)
+        return _matmul_scale(a, sa, b, sb)
+    if op == "t":
+        return ss[0].T if _is_t(ss[0]) else ss[0]
+    if op == "idx":
+        return ss[0][:, attrs["lo"]:attrs["hi"]] if _is_t(ss[0]) else ss[0]
+    if op in STEP_OPS:
+        return val.abs()
+    if op in ("relu", "abs", "neg"):
+        return val.abs() + ss[0]
+    if op in ("add", "sub", "min", "max"):
+        return val.abs() + ss[0] + ss[1]
+    if op == "mul":
+        return val.abs() + _mag(xs[1]) * ss[0] + _mag(xs[0]) * ss[1]
+    if op == "div":
+        return val.abs() + (ss[0] + val.abs() * ss[1]) / _mag(xs[1])
+    if op in ("plus_mult", "minus_mult"):
+        return (val.abs() + ss[0] + _mag(xs[2]) * ss[1]
+                + _mag(xs[1]) * ss[2])
+    if op == "where":
+        return val.abs() + ref.eval_node("where", [xs[0], *ss[1:]], {})
+    return _smooth_scale(op, xs, ss, val, attrs)
+
+
+def _program_scales(cplan, read, outer_mm=None):
+    """(values, bounds) of every program node; ``read(nid)`` gives bound
+    inputs (exact, s = 0); ``outer_mm`` = (nid, value, bound) stands in for
+    the Outer template's per-block product."""
+    from repro_torch.kernels import ref
+    vals, scales = {}, {}
+
+    def get(kind, r):
+        if kind == "n":
+            return vals[r], scales[r]
+        return (read(r) if kind == "b" else r), 0.0
+
+    for (nid, op, ins, _shape, attrs) in cplan.prog:
+        if outer_mm is not None and nid == outer_mm[0]:
+            vals[nid], scales[nid] = outer_mm[1], outer_mm[2]
+            continue
+        xs, ss = zip(*[get(k, r) for k, r in ins])
+        attrs = dict(attrs)
+        vals[nid] = ref.eval_node(op, list(xs), attrs)
+        scales[nid] = _op_scale(op, list(xs), list(ss), vals[nid], attrs)
+    return lambda nid: get("n" if nid in vals else "b", nid)
+
+
 def error_scale(cplan, env):
     """Per output element, the size its fp32 rounding is held against: a
     first-order running error bound of the plain computation in units of
@@ -159,115 +301,88 @@ def error_scale(cplan, env):
     derivatives (|b| s(a) + |a| s(b) for a*b, |A||B| + s(A)|B| + |A|s(B)
     for a matmul, sum |t| + sum s(t) for a sum, |f'(x)| s(x) for a smooth
     f); piecewise-constant ops count as exact.  The template's own
-    reduction closes the bound."""
+    reduction closes the bound.  Over a BCSR main the same bound is taken
+    per non-zero block (:func:`bcsr_error_scale`)."""
     import torch
     from repro_torch.core.cplan import (COL_AGG, COL_T_AGG, FULL_AGG,
                                         NO_AGG, ROW_AGG)
-    from repro_torch.kernels import ref
-
-    is_t = lambda x: isinstance(x, torch.Tensor)
-    mag = lambda x: x.abs() if is_t(x) else abs(x)
-
-    def reduce(op, v, s, axis):
-        s = s if is_t(s) else torch.zeros_like(v)
-        if op in ("min", "max"):
-            return (ref.eval_node(op, [v], {"axis": axis}).abs()
-                    + ref.eval_node("max", [s], {"axis": axis}))
-        if op == "sum_sq":
-            return ref.eval_node("sum", [v * v + 2 * v.abs() * s],
-                                 {"axis": axis})
-        return ref.eval_node(op, [v.abs() + s], {"axis": axis})
-
-    def matmul(a, sa, b, sb):
-        out = a.abs() @ b.abs()
-        if is_t(sa):
-            out = out + sa @ b.abs()
-        if is_t(sb):
-            out = out + a.abs() @ sb
-        return out
-
-    def smooth(op, xs, ss, val, attrs):
-        leaves = [x.detach().expand(val.shape).clone().requires_grad_(True)
-                  if is_t(x) and is_t(s) else x for x, s in zip(xs, ss)]
-        want = [x for x in leaves if is_t(x) and x.requires_grad]
-        out = val.abs()
-        if want:
-            with torch.enable_grad():
-                grads = torch.autograd.grad(
-                    ref.eval_node(op, leaves, attrs).sum(), want)
-            carried = iter(s for x, s in zip(leaves, ss)
-                           if is_t(x) and x.requires_grad)
-            for g in grads:
-                out = out + torch.nan_to_num(g.abs() * next(carried))
-        return out
-
-    def bound(op, xs, ss, val, attrs):
-        if op in ref._AGG_FN and "axis" in attrs:
-            return reduce(op, xs[0], ss[0], attrs["axis"])
-        if op == "matmul":
-            a, b = xs
-            sa, sb = ss
-            if attrs.get("ta"):
-                a, sa = a.T, (sa.T if is_t(sa) else sa)
-            if attrs.get("tb"):
-                b, sb = b.T, (sb.T if is_t(sb) else sb)
-            return matmul(a, sa, b, sb)
-        if op == "t":
-            return ss[0].T if is_t(ss[0]) else ss[0]
-        if op == "idx":
-            return ss[0][:, attrs["lo"]:attrs["hi"]] if is_t(ss[0]) \
-                else ss[0]
-        if op in STEP_OPS:
-            return val.abs()
-        if op in ("relu", "abs", "neg"):
-            return val.abs() + ss[0]
-        if op in ("add", "sub", "min", "max"):
-            return val.abs() + ss[0] + ss[1]
-        if op == "mul":
-            return val.abs() + mag(xs[1]) * ss[0] + mag(xs[0]) * ss[1]
-        if op == "div":
-            return val.abs() + (ss[0] + val.abs() * ss[1]) / mag(xs[1])
-        if op in ("plus_mult", "minus_mult"):
-            return (val.abs() + ss[0] + mag(xs[2]) * ss[1]
-                    + mag(xs[1]) * ss[2])
-        if op == "where":
-            return val.abs() + ref.eval_node("where", [xs[0], *ss[1:]], {})
-        return smooth(op, xs, ss, val, attrs)
-
-    vals, scales = {}, {}
-
-    def get(kind, r):
-        if kind == "n":
-            return vals[r], scales[r]
-        return (env[r] if kind == "b" else r), 0.0
-
-    for (nid, op, ins, _shape, attrs) in cplan.prog:
-        xs, ss = zip(*[get(k, r) for k, r in ins])
-        attrs = dict(attrs)
-        vals[nid] = ref.eval_node(op, list(xs), attrs)
-        scales[nid] = bound(op, list(xs), list(ss), vals[nid], attrs)
-    root = lambda nid: get("n" if nid in vals else "b", nid)
-
+    from repro_torch.kernels.blocksparse import BCSR
+    if isinstance(env[cplan.main.nid], BCSR):
+        return bcsr_error_scale(cplan, env)
+    root = _program_scales(cplan, lambda nid: env[nid])
     if cplan.extra:
         roots = [(cplan.prog_root, cplan.agg_op)] + list(cplan.extra)
-        return torch.cat([reduce(op, *root(r), "full").reshape(1, 1)
+        return torch.cat([_reduce_scale(op, *root(r), "full").reshape(1, 1)
                           for r, op in roots])
     v, s = root(cplan.prog_root)
     if cplan.variant == NO_AGG:
-        return s if is_t(s) else torch.zeros_like(v)
+        return s if _is_t(s) else torch.zeros_like(v)
     if cplan.variant == COL_T_AGG:
         c, sc = root(cplan.close_nid)
-        return matmul(c.T, sc.T if is_t(sc) else sc, v, s)
+        return _matmul_scale(c.T, sc.T if _is_t(sc) else sc, v, s)
     axis = {FULL_AGG: "full", ROW_AGG: "row", COL_AGG: "col"}[cplan.variant]
-    return reduce(cplan.agg_op, v, s, axis)
+    return _reduce_scale(cplan.agg_op, v, s, axis)
+
+
+def bcsr_error_scale(cplan, env, chunk: int = 4096):
+    """:func:`error_scale` of an Outer ``right_mm`` / ``full_agg`` CPlan
+    over a BCSR main, block by block in chunks of ``chunk`` blocks (the
+    values are as large as X): the per-block product U_b V_bᵀ carries
+    |U_b||V_b|ᵀ, the chain its ops' bounds, and the close sums |v| + s
+    against |closer| per block row (right_mm) or over everything
+    (full_agg)."""
+    import torch
+    from repro_torch.core.cplan import FULL_AGG, RIGHT_MM
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.blocksparse import BCSR
+    X = env[cplan.main.nid]
+    bs, (m, n) = X.bs, X.shape
+    kind = {b.kind: b.nid for b in cplan.binds}
+    fu, fv = env[kind["factor_u"]], env[kind["factor_v"]]
+    mm = next(nid for (nid, op, *_r) in cplan.prog if op == "matmul")
+    if cplan.variant == RIGHT_MM:
+        closer = ops._as_dense(env[cplan.close_nid])
+        closer = (closer.T if cplan.close_tb else closer).abs()
+        out = torch.zeros((m // bs, bs, closer.shape[1]),
+                          dtype=closer.dtype, device=closer.device)
+    elif cplan.variant == FULL_AGG and cplan.agg_op in ("sum", "min",
+                                                        "max"):
+        parts = []
+    else:
+        raise NotImplementedError(f"error scale of {cplan.variant}")
+    for c0 in range(0, X.nblocks, chunk):
+        sub = BCSR(X.data[c0:c0 + chunk], X.rows[c0:c0 + chunk],
+                   X.cols[c0:c0 + chunk], X.shape, bs)
+        ub = ops._gather_blocks(fu, sub.rows, bs, 0)
+        vb = ops._gather_blocks(fv, sub.cols, bs, 0).transpose(1, 2)
+        root = _program_scales(cplan, ops._block_env(cplan, env, sub),
+                               (mm, torch.bmm(ub, vb),
+                                torch.bmm(ub.abs(), vb.abs())))
+        v, s = root(cplan.prog_root)
+        s = s if _is_t(s) else torch.zeros_like(v)
+        if cplan.variant == RIGHT_MM:
+            cb = ops._gather_blocks(closer, sub.cols, bs, 0)
+            out.index_add_(0, sub.rows.long(), torch.bmm(v.abs() + s, cb))
+        elif cplan.agg_op == "sum":
+            parts.append((v.abs() + s).sum())
+        else:
+            parts.append(torch.stack([
+                ops._block_agg(v, cplan.agg_op).reshape(()), s.max()]))
+    if cplan.variant == RIGHT_MM:
+        return out.reshape(m, -1)
+    if cplan.agg_op == "sum":
+        return torch.stack(parts).sum().reshape(1, 1)
+    p = torch.stack(parts)
+    return (ops._block_agg(p[:, 0], cplan.agg_op).abs()
+            + p[:, 1].max()).reshape(1, 1)
 
 
 def measure(cplan, env, got, label: str) -> tuple[float, float]:
     """(max |got - plain|, its largest share of the per-element limit);
     raises on a shape or non-finite mismatch."""
     import torch
-    from repro_torch.kernels import ref
-    exp = ref.execute_dense(cplan, env)
+    from repro_torch.kernels import ops
+    exp = ops.execute(cplan, env, kernels="never")
     torch.cuda.synchronize()
     if tuple(got.shape) != tuple(exp.shape):
         raise AssertionError(f"{label}: shape {tuple(got.shape)} != "
@@ -299,10 +414,11 @@ def compare(cplan, env, label: str) -> tuple[float, float]:
 
 
 def planted(src):
-    """``src`` built with the fault planted in ``rk::combine`` (it drops
-    the middle partial); a source without partials is returned as is."""
-    return dataclasses.replace(src, text=PLANT + src.text) if src.elems \
-        else src
+    """``src`` built with the planted fault: ``rk::combine`` drops the
+    middle partial, the Outer ``right_mm`` skips the middle block of every
+    block row; a source with neither is returned as is."""
+    return dataclasses.replace(src, text=PLANT + src.text) \
+        if src.elems or src.template == "outer" else src
 
 
 @contextlib.contextmanager
@@ -310,7 +426,7 @@ def planted_fault():
     """Every reducing kernel launched inside runs its planted build."""
     from repro_torch.kernels import cuda_src
     orig = cuda_src.source_for
-    cuda_src.source_for = lambda cp: planted(orig(cp))
+    cuda_src.source_for = lambda cp, bs=None: planted(orig(cp, bs))
     try:
         yield
     finally:
@@ -366,6 +482,9 @@ def bound_ms(cplan, env, out) -> tuple[float, str]:
     """Least time for the same work: each distinct input read once and the
     output written once over HBM bandwidth, or the program's fp32 flops
     over the fp32 peak — the larger, and which one it is."""
+    from repro_torch.kernels.blocksparse import BCSR
+    if isinstance(env[cplan.main.nid], BCSR):
+        return outer_bound_ms(cplan, env, out)
     seen, nbytes = set(), out.numel() * 4
     for t in env.values():
         if t.data_ptr() not in seen:
@@ -389,10 +508,35 @@ def bound_ms(cplan, env, out) -> tuple[float, str]:
         (t_flops, "operations")
 
 
-def profile_main_path(l2svm, X, y) -> None:
-    """Where the time goes: one more ``kernels="cuda"`` run (plans already
-    cached) under ``torch.profiler``; device busy time per kernel name and
-    the idle share of the host-clock wall time (profiler on)."""
+def outer_bound_ms(cplan, env, out) -> tuple[float, str]:
+    """:func:`bound_ms` of an Outer CPlan over a BCSR main, counting what
+    this matrix needs: bytes are the nb non-zero blocks of X with their
+    block indices and block-row pointer, each distinct dense operand (U,
+    V, closer, sides) and the output; flops per block are 2 bs² r for
+    U_b V_bᵀ, 2 bs² k for the right_mm close and bs² per chain op."""
+    X = env[cplan.main.nid]
+    nb, bs = X.nblocks, X.bs
+    nbytes = (nb * bs * bs + 2 * nb + X.rowptr.numel()) * 4 \
+        + out.numel() * 4
+    seen = set()
+    for b in cplan.binds[1:]:
+        t = env[b.nid]
+        if t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            nbytes += t.numel() * 4
+    r = next(b.shape[1] for b in cplan.binds if b.kind == "factor_u")
+    ops_per_cell = sum(op != "matmul" for (_n, op, *_r) in cplan.prog)
+    k = out.shape[1] if cplan.variant == "right_mm" else 0
+    flops = nb * bs * bs * (2 * r + 2 * k + ops_per_cell)
+    t_bytes, t_flops = nbytes / HBM_BW * 1e3, flops / FP32_PEAK * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_flops else \
+        (t_flops, "operations")
+
+
+def profile_run(label: str, fn) -> None:
+    """Where the time goes: one more run of ``fn`` (plans already cached)
+    under ``torch.profiler``; device busy time per kernel name and the
+    idle share of the host-clock wall time (profiler on)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]):   # tracer start-up
@@ -400,18 +544,122 @@ def profile_main_path(l2svm, X, y) -> None:
         torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        l2svm.run(X, y, max_iter=ITERS, kernels="cuda")
+        fn()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     events = sorted(prof.key_averages(),
                     key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    log(f"[profile] l2svm.run kernels=cuda, {ITERS} iterations: wall "
-        f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, idle share "
-        f"{1 - busy_ms / wall_ms:.3f}")
+    log(f"[profile] {label}: wall {wall_ms:.2f} ms, device busy "
+        f"{busy_ms:.2f} ms, idle share {1 - busy_ms / wall_ms:.3f}")
     for e in events[:12]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"x{e.count:<4d} {e.key[:90]}")
+
+
+# --------------------------------------------------------------------------
+# ALS-CG helpers
+# --------------------------------------------------------------------------
+
+def padded(shape, bs: int = ALS_BS) -> tuple[int, int]:
+    return tuple(-(-d // bs) * bs for d in shape)
+
+
+def netflix_like(shape, seed: int = 0):
+    """A BCSR ratings matrix built on the card from a seeded
+    ``torch.Generator``, block row by block row: ``shape`` padded to
+    ALS_BS, each block present with probability ALS_DENSITY (block (0, 0)
+    always), values a planted rank-8 product plus 0.1 noise, zero in the
+    padding rows and columns (what ``data.ratings`` draws with numpy,
+    which would need a dense m x n array)."""
+    import torch
+    from repro_torch.kernels.blocksparse import BCSR
+    bs = ALS_BS
+    (m0, n0), (m, n) = shape, padded(shape)
+    mb, nbc = m // bs, n // bs
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mask = torch.rand((mb, nbc), generator=g, device="cuda") < ALS_DENSITY
+    mask[0, 0] = True
+    rows, cols = torch.nonzero(mask, as_tuple=True)      # row-major
+    Ut = torch.randn((m, 8), generator=g, device="cuda") / math.sqrt(8)
+    Vt = torch.randn((n, 8), generator=g, device="cuda") / math.sqrt(8)
+    Ut[m0:] = 0.0
+    Vt[n0:] = 0.0
+    live_r = (torch.arange(m, device="cuda") < m0).float().reshape(mb, bs, 1)
+    live_c = (torch.arange(n, device="cuda") < n0).float().reshape(nbc, 1,
+                                                                    bs)
+    data = torch.empty((rows.numel(), bs, bs), device="cuda")
+    ptr = torch.searchsorted(rows, torch.arange(mb + 1, device="cuda"))
+    ptr = ptr.tolist()
+    step = 256                                 # block rows per chunk
+    for r0 in range(0, mb, step):
+        a, b = ptr[r0], ptr[min(r0 + step, mb)]
+        if a == b:
+            continue
+        ri, ci = rows[a:b], cols[a:b]
+        blk = torch.bmm(Ut.reshape(mb, bs, 8)[ri],
+                        Vt.reshape(nbc, bs, 8)[ci].transpose(1, 2))
+        blk += 0.1 * torch.randn(blk.shape, generator=g, device="cuda")
+        data[a:b] = blk * live_r[ri] * live_c[ci]
+    return BCSR(data, rows.to(torch.int32), cols.to(torch.int32), (m, n),
+                bs)
+
+
+def outer_case_env(case, vals, names):
+    """An Outer sweep case's numpy operands on the card (X as BCSR)."""
+    import torch
+    from repro_torch.kernels.blocksparse import BCSR
+    return {nid: (BCSR.from_dense(torch.tensor(vals[n], device="cuda"),
+                                  case.bs) if n == "X"
+                  else torch.tensor(vals[n], device="cuda"))
+            for nid, n in names.items()}
+
+
+def meta_bcsr(shape):
+    """A BCSR of ``shape`` at ALS_DENSITY with no data (planning needs
+    shapes and block sparsity only)."""
+    import torch
+    from repro_torch.kernels.blocksparse import BCSR
+    bs = ALS_BS
+    nb = max(1, round(ALS_DENSITY * (shape[0] // bs) * (shape[1] // bs)))
+    idx = torch.empty(nb, dtype=torch.int32, device="meta")
+    return BCSR(torch.empty((nb, bs, bs), device="meta"), idx, idx, shape,
+                bs)
+
+
+def als_cplans(X, XT, rank: int = ALS_RANK):
+    """The Outer CPlans of one ALS iteration: ``_wsq_mm`` over X (the U
+    update), over Xᵀ (the V update) and ``_loss_terms``; X may be a
+    :func:`meta_bcsr`."""
+    import torch
+    from repro_torch.algos import als_cg
+    from repro_torch.core import FusionContext
+    from repro_torch.core.codegen import compile_plan
+    m, n = X.shape
+    U = torch.empty((m, rank), device="meta")
+    V = torch.empty((n, rank), device="meta")
+    out = []
+    with FusionContext():
+        for label, region, args in (("_wsq_mm U-update", als_cg._wsq_mm,
+                                     (X, U, V)),
+                                    ("_wsq_mm V-update", als_cg._wsq_mm,
+                                     (XT, V, U)),
+                                    ("_loss_terms", als_cg._loss_terms,
+                                     (X, U, V))):
+            (cp,) = compile_plan(region.trace(*args).plan().eplan).cplans()
+            out.append((label, cp))
+    return out
+
+
+def als_env(cplan, Xs, gen, rank: int = ALS_RANK):
+    """Operands of an ALS CPlan on the card: the BCSR main, U and V drawn
+    as the algorithm draws its start (0.1 x normal)."""
+    import torch
+    env = {}
+    for b in cplan.binds:
+        env[b.nid] = Xs if b.kind == "main" else 0.1 * torch.randn(
+            tuple(b.shape), generator=gen, device="cuda")
+    return env
 
 
 # --------------------------------------------------------------------------
@@ -431,8 +679,10 @@ def run() -> None:
     import repro_torch
     from repro_torch.algos import l2svm
     from repro_torch.kernels import (build, cellwise, cuda_src, multiagg,
-                                     ops, ref, rowwise, sweep)
-    counters = {"cell": cellwise, "magg": multiagg, "row": rowwise}
+                                     ops, outerprod, ref, rowwise, sweep)
+    from repro_torch.kernels.blocksparse import BCSR
+    counters = {"cell": cellwise, "magg": multiagg, "row": rowwise,
+                "outer": outerprod}
     wrappers = {"cell": cellwise.cell, "magg": multiagg.multiagg,
                 "row": rowwise.row}
     card = card_line()
@@ -462,6 +712,24 @@ def run() -> None:
                and p[1] == M_SWEEP] + [cp for _r, cp in main_cps]:
         src = planted(cuda_src.source_for(cp))
         sources[src.key] = src
+    # the Outer kernel: its sweep, the ALS CPlans at the main path's shape
+    # and at the hand baseline's, each sound and planted
+    outer_planned = []
+    for i, c in enumerate(sweep.outer_cases()):
+        vals = sweep.outer_values(c, seed=100 + i)
+        sp = BCSR.from_dense(vals["X"], c.bs).block_sparsity
+        outer_planned.append((c, vals, *sweep.fused_cplan(
+            c, *c.shape, sparsity={"X": sp})))
+    outer_srcs = [(c.name, cp, c.bs) for c, _v, cp, _n in outer_planned]
+    for shape in (padded(ALS_SHAPE), padded(ALS_HAND_SHAPE)):
+        Xm = meta_bcsr(shape)
+        outer_srcs += [(label, cp, ALS_BS)
+                       for label, cp in als_cplans(Xm, meta_bcsr(shape[::-1]))]
+    for name, cp, bs in outer_srcs:
+        src = cuda_src.source_for(cp, bs)
+        sources[src.key] = src
+        if name in PLANTED or not name.startswith("outer/"):
+            sources[planted(src).key] = planted(src)
     t_plan = time.perf_counter() - t0
     build.build_all(sources.values())
     t_build = time.perf_counter() - t0 - t_plan
@@ -496,6 +764,28 @@ def run() -> None:
         if not share > 1.0:
             raise AssertionError(f"planted fault in {c.name} passed the "
                                  f"kernel check")
+
+    for c, vals, cp, names in outer_planned:
+        env = outer_case_env(c, vals, names)
+        err, share = compare(cp, env, c.name)
+        worst["outer"] = max(worst["outer"], share)
+        log(f"[check] {c.name:30s} {c.shape[0]:>5d}x{c.shape[1]:<5d} "
+            f"bs {c.bs:<3d} r {c.r:<2d} {env[cp.main.nid].nblocks:>3d} "
+            f"blocks {cp.variant:9s} max|kernel-plain| {err:.3e} = "
+            f"{share:.3g} x limit")
+        if c.name in PLANTED:
+            with planted_fault():
+                got = ops.execute(cp, env, kernels="cuda")
+            err, share = measure(cp, env, got, f"planted {c.name}")
+            what = "middle blocks skipped" if c.variant == "right_mm" \
+                else "one partial dropped"
+            log(f"[check] planted fault ({what}) {c.name}: "
+                f"max|kernel-plain| {err:.3e} = {share:.3g} x limit")
+            if not share > 1.0:
+                raise AssertionError(f"planted fault in {c.name} passed "
+                                     f"the kernel check")
+    log(f"[check] outer sweep passed: {len(outer_planned)} CPlans; largest "
+        f"share of the limit {worst['outer']:.3g}")
 
     # 4. the main path's CPlans at the main path's shapes -------------------
     big = {(m_main, N_MAIN): 0.3 * torch.randn((m_main, N_MAIN),
@@ -532,7 +822,7 @@ def run() -> None:
         f"iterations, kernels=cuda: {t_cuda:.2f} s host clock (planning "
         f"included); launches {json.dumps(launches)}")
     log(f"[main] objective trace (kernels=cuda): {objs}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in ("cell", "magg", "row") if launches[k] == 0]
     if missing:
         raise AssertionError(f"main path never launched: {missing}")
     if tuple(w.shape) != (N_MAIN, 1) or not bool(torch.isfinite(w).all()):
@@ -560,7 +850,8 @@ def run() -> None:
         f"{rel_fault:.3e}")
     if not rel_fault > TRACE_RTOL:
         raise AssertionError("planted fault passed the trace check")
-    profile_main_path(l2svm, X, y)
+    profile_run(f"l2svm.run kernels=cuda, {ITERS} iterations",
+                lambda: l2svm.run(X, y, max_iter=ITERS, kernels="cuda"))
     del X, y, w, _w2, _w3, _w4
 
     # 6. timing at the main path's shapes ----------------------------------
@@ -589,7 +880,14 @@ def run() -> None:
             f"{ms:.4f} ms (device {dev_ms}) plain {plain_ms:.4f} ms "
             f"(device {dev_plain_ms}) bound {b_ms:.4f} ms ({b_by})")
 
-    # 7. result lines --------------------------------------------------------
+    del big, envs
+    torch.cuda.empty_cache()
+
+    # 7. ALS-CG on the Netflix-shaped BCSR -----------------------------------
+    als = als_phase(counters, launches, main_err)
+    per_kernel["outer"] = als
+
+    # 8. result lines --------------------------------------------------------
     rows = []
     for k, (src, replaces) in KERNELS.items():
         agg = per_kernel[k]
@@ -600,13 +898,136 @@ def run() -> None:
             "bound_ms": agg["bound_ms"],
             "bound_by": max(agg["bound_by"], key=agg["bound_by"].get),
             "library_ms": None,
-            "per": "one L2SVM iteration (sum over its CPlans)",
+            "per": ("one call of each ALS-CG CPlan (sum over U update, V "
+                    "update, loss)" if k == "outer" else
+                    "one L2SVM iteration (sum over its CPlans)"),
             "parts": agg["parts"]})
     log(json.dumps({"kernels": rows}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def als_phase(counters, launches, main_err) -> dict:
+    """ALS-CG at the main path's shape: its CPlans against plain, the run
+    with ``kernels="cuda"`` (launch counts into ``launches``), its trace
+    against ``kernels="never"`` and a planted fault, the hand baseline at
+    the reduced shape, a profile, and per-CPlan times; returns the Outer
+    kernel's timing record."""
+    import torch
+    from repro_torch.algos import als_cg
+    from repro_torch.kernels import outerprod
+    t0 = time.perf_counter()
+    X = netflix_like(ALS_SHAPE, seed=0)
+    torch.cuda.synchronize()
+    m, n = X.shape
+    log(f"[als] X {ALS_SHAPE[0]}x{ALS_SHAPE[1]} padded to {m}x{n}, bs "
+        f"{X.bs}: {X.nblocks} blocks (block density "
+        f"{X.block_sparsity:.4f}), {X.data.numel() * 4 / 1e9:.2f} GB; built "
+        f"on the card in {time.perf_counter() - t0:.1f} s")
+
+    # the main path
+    run = lambda **kw: als_cg.run(X, rank=ALS_RANK, max_iter=ALS_ITERS,
+                                  max_inner=ALS_INNER, **kw)
+    torch.cuda.synchronize()
+    for mod in counters.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    U, V, losses = run(kernels="cuda")
+    torch.cuda.synchronize()
+    t_cuda = time.perf_counter() - t0
+    launches["outer"] = outerprod.launches
+    log(f"[als] als_cg.run rank {ALS_RANK}, {ALS_ITERS} x {ALS_INNER} "
+        f"iterations, kernels=cuda: {t_cuda:.2f} s host clock (planning "
+        f"included); launches "
+        + json.dumps({k: mod.launches for k, mod in counters.items()}))
+    log(f"[als] loss trace (kernels=cuda): {losses}")
+    if outerprod.launches == 0:
+        raise AssertionError("ALS main path never launched the outer kernel")
+    if tuple(U.shape) != (m, ALS_RANK) or tuple(V.shape) != (n, ALS_RANK) \
+            or not bool(torch.isfinite(U).all() & torch.isfinite(V).all()):
+        raise AssertionError("ALS main path: U, V not finite of their shape")
+    del U, V
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _u, _v, losses_plain = run(kernels="never")
+    torch.cuda.synchronize()
+    log(f"[als] kernels=never: {time.perf_counter() - t0:.2f} s, peak "
+        f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB "
+        f"(X and X^T resident); trace {losses_plain}")
+    del _u, _v
+    with planted_fault():
+        _u, _v, losses_fault = run(kernels="cuda")
+    del _u, _v
+    rel = trace_rel(losses, losses_plain)
+    rel_fault = trace_rel(losses_fault, losses_plain)
+    log(f"[als] planted fault (right_mm skips the middle block of every "
+        f"block row, full_agg drops a partial): trace {losses_fault}")
+    log(f"[als] max relative trace difference vs never: sound {rel:.3e}, "
+        f"planted {rel_fault:.3e} (tolerance {TRACE_RTOL:g})")
+    # checked at the end of the phase, so one run reports every reading
+    failed = []
+    if not (len(losses_plain) == ALS_ITERS and rel <= TRACE_RTOL):
+        failed.append("ALS main path: loss traces disagree")
+    if not rel_fault > TRACE_RTOL:
+        failed.append("planted fault passed the ALS trace check")
+    profile_run(f"als_cg.run kernels=cuda, rank {ALS_RANK}, {ALS_ITERS} x "
+                f"{ALS_INNER} iterations", lambda: run(kernels="cuda"))
+
+    # the dense-mask hand baseline, at the reduced shape
+    Xh = netflix_like(ALS_HAND_SHAPE, seed=1)
+    kw = dict(rank=ALS_RANK, max_iter=ALS_ITERS, max_inner=ALS_INNER)
+    _u, _v, l_gen = als_cg.run(Xh, kernels="cuda", **kw)
+    _u, _v, l_hand = als_cg.run(Xh, mode="hand", **kw)
+    rel_hand = trace_rel(l_gen, l_hand)
+    log(f"[als] reduced {Xh.shape[0]}x{Xh.shape[1]} ({Xh.nblocks} blocks): "
+        f"gen (kernels=cuda) {l_gen}; hand {l_hand}; max relative "
+        f"difference {rel_hand:.3e} (tolerance {ALS_HAND_RTOL:g})")
+    if not rel_hand <= ALS_HAND_RTOL:
+        failed.append("ALS hand baseline disagrees with gen")
+    del Xh, _u, _v
+
+    # the ALS CPlans at the main path's shapes against plain
+    XT = X.T                # the runs above built and dropped their own
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    cps = als_cplans(X, XT)
+    envs = []
+    for label, cp in cps:
+        env = als_env(cp, XT if label.endswith("V-update") else X, gen)
+        err, share = compare(cp, env, f"main-path {label}")
+        main_err["outer"] = max(main_err["outer"], err)
+        envs.append(env)
+        log(f"[check] main path {label:22s} outer {cp.variant:9s} binds "
+            f"{[tuple(b.shape) for b in cp.binds]} max|kernel-plain| "
+            f"{err:.3e} = {share:.3g} x limit")
+
+    # timing at the main path's shapes
+    rec = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {},
+           "parts": []}
+    for (label, cp), env in zip(cps, envs):
+        kernel = lambda: outerprod.outer(cp, env)
+        plain = lambda: outerprod.outer_plain(cp, env)
+        ms, plain_ms = time_ms(kernel), time_ms(plain)
+        dev_ms, dev_plain_ms = device_ms(kernel), device_ms(plain)
+        b_ms, b_by = bound_ms(cp, env, plain())
+        rec["ms"] += ms
+        rec["plain_ms"] += plain_ms
+        rec["bound_ms"] += b_ms
+        rec["bound_by"][b_by] = rec["bound_by"].get(b_by, 0) + 1
+        rec["parts"].append({"region": label, "variant": cp.variant,
+                             "binds": [list(b.shape) for b in cp.binds],
+                             "nblocks": env[cp.main.nid].nblocks,
+                             "ms": ms, "plain_ms": plain_ms,
+                             "device_ms": dev_ms,
+                             "plain_device_ms": dev_plain_ms,
+                             "bound_ms": b_ms, "bound_by": b_by})
+        log(f"[time] {label:22s} outer {cp.variant:9s} kernel {ms:.4f} ms "
+            f"(device {dev_ms}) plain {plain_ms:.4f} ms (device "
+            f"{dev_plain_ms}) bound {b_ms:.4f} ms ({b_by})")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return rec
 
 
 def main() -> int:

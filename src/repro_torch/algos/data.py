@@ -6,7 +6,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from repro_torch.interop import to_torch
+from repro_torch.interop import resolve_device, to_torch
+from repro_torch.kernels.blocksparse import BCSR
 
 
 def classification(m: int, n: int, k: int = 2, seed: int = 0,
@@ -23,3 +24,18 @@ def classification(m: int, n: int, k: int = 2, seed: int = 0,
     Y = np.eye(k, dtype=np.float32)[y_idx]
     y_pm = (2.0 * (y_idx == 0) - 1.0).astype(np.float32).reshape(m, 1)
     return to_torch((X, Y, y_pm), device)
+
+
+def ratings(m: int, n: int, rank: int = 8, bs: int = 128,
+            block_density: float = 0.25, seed: int = 0, device="cuda"):
+    """Low-rank block-sparse rating matrix (ALS-CG input) as a BCSR on
+    ``device``: the reference's draws, so the same blocks and values."""
+    rng = np.random.default_rng(seed)
+    mb, nb = m // bs, n // bs
+    Ut = rng.normal(size=(m, rank)).astype(np.float32) / np.sqrt(rank)
+    Vt = rng.normal(size=(n, rank)).astype(np.float32) / np.sqrt(rank)
+    mask = rng.random((mb, nb)) < block_density
+    mask.flat[0] = True
+    dense = (Ut @ Vt.T + 0.1 * rng.normal(size=(m, n))).astype(np.float32)
+    dense *= np.kron(mask, np.ones((bs, bs), np.float32))
+    return BCSR.from_dense(dense, bs=bs).to(resolve_device(device))

@@ -24,7 +24,9 @@ region executes generated fused operators in both directions.
 on the context's device — the card unless the context says
 ``device="cpu"``; asking for the card without one raises.
 
-Operands may be 2-D matrices, 1-D vectors, or 0-D scalars; non-2-D inputs
+Operands may be 2-D matrices (dense, or block-sparse
+:class:`~repro_torch.kernels.blocksparse.BCSR`), 1-D vectors, or 0-D
+scalars; non-2-D inputs
 are canonicalized to column / 1×1 matrices for planning.  **Round-trip
 rule:** when a call passes any 1-D/0-D operand, outputs of shape ``(n, 1)``
 are returned as 1-D ``(n,)`` and ``(1, 1)`` outputs as 0-D scalars; calls
@@ -41,6 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.interop import resolve_device
+from repro_torch.kernels.blocksparse import BCSR
 from . import ir
 from .codegen import CompiledPlan, compile_plan, freed_intermediates
 from .context import FusionContext, current_context, require_local
@@ -62,6 +65,8 @@ def _canon_shape(name: str, v) -> tuple[tuple[int, int], int]:
     """(canonical 2-D shape, original ndim) of one operand: a 1-D vector
     of length n plans as an (n, 1) column, a 0-D / python scalar as
     (1, 1); ranks above 2 raise :class:`FusionInputError`."""
+    if isinstance(v, BCSR):
+        return tuple(v.shape), 2
     if isinstance(v, (int, float)):
         return (1, 1), 0
     if not hasattr(v, "shape"):
@@ -79,9 +84,12 @@ def _canon_shape(name: str, v) -> tuple[tuple[int, int], int]:
         f"argument '{name}': expected 0-D, 1-D or 2-D, got shape {shape}")
 
 
-def _canon_value(name: str, v, device: torch.device) -> torch.Tensor:
+def _canon_value(name: str, v, device: torch.device):
     """The operand as a contiguous fp32 (2-D) tensor on ``device``;
-    tensors keep their autograd history."""
+    tensors keep their autograd history.  A BCSR moves to ``device`` and
+    stays sparse."""
+    if isinstance(v, BCSR):
+        return v.to(device)
     shape, _nd = _canon_shape(name, v)
     if isinstance(v, torch.Tensor):
         t = v.to(device=device, dtype=torch.float32)
@@ -102,16 +110,24 @@ def _uncanon_output(out):
 
 def _as_expr_inputs(args: dict[str, object],
                     sparsity: dict[str, float]) -> dict[str, ir.Expr]:
+    """IR inputs; a BCSR operand's sparsity defaults to its block
+    sparsity."""
     return {name: ir.matrix(name, _canon_shape(name, v)[0],
-                            sparsity=sparsity.get(name, 1.0))
+                            sparsity=sparsity.get(
+                                name, v.block_sparsity
+                                if isinstance(v, BCSR) else 1.0))
             for name, v in args.items()}
 
 
 def _signature(args: dict[str, object], ctx: FusionContext):
     sig: list = [ctx.key()]
     for name, v in args.items():
-        shape, nd = _canon_shape(name, v)
-        sig.append((name, "dense", shape, nd))
+        if isinstance(v, BCSR):
+            sig.append((name, "bcsr", v.shape, v.bs,
+                        round(v.block_sparsity, 4)))
+        else:
+            shape, nd = _canon_shape(name, v)
+            sig.append((name, "dense", shape, nd))
     return tuple(sig)
 
 
@@ -439,15 +455,20 @@ class Compiled:
         return bound
 
     def __call__(self, *args, **kwargs):
-        """Execute on concrete operands (positional or by name).  Any
-        1-D/0-D operand puts the call in "vector world": outputs
-        round-trip back through :func:`_uncanon_output`."""
+        """Execute on concrete operands (positional or by name).  Dense
+        calls run through the ``torch.autograd.Function``; a call with any
+        BCSR operand takes the direct forward-only dispatch.  Any 1-D/0-D
+        operand puts the call in "vector world": outputs round-trip back
+        through :func:`_uncanon_output`."""
         bound = self._bind(args, kwargs)
         vector_world = any(
             _canon_shape(n, v)[1] < 2 for n, v in bound.items())
         names = self.planned.traced.in_names
         arrs = [_canon_value(n, bound[n], self.device) for n in names]
-        outs = _PlannedFunction.apply(self, *arrs)
+        if any(isinstance(a, BCSR) for a in arrs):
+            outs = self._run_plain(arrs)
+        else:
+            outs = _PlannedFunction.apply(self, *arrs)
         if vector_world:
             if isinstance(outs, tuple):
                 return tuple(_uncanon_output(o) for o in outs)
@@ -474,7 +495,7 @@ class Fused:
 
     def trace(self, *args, **kwargs) -> Traced:
         """Stage 1: trace with abstract or concrete operands (anything with
-        ``.shape`` — arrays, tensors — or python scalars)."""
+        ``.shape`` — arrays, tensors, BCSR — or python scalars)."""
         bound = dict(zip(self.names, args))
         bound.update(kwargs)
         exprs = _as_expr_inputs(bound, self.sparsity)
@@ -482,7 +503,8 @@ class Fused:
         if not isinstance(outs, (tuple, list)):
             outs = (outs,)
         graph = ir.Graph.build(list(outs))
-        meta = {name: {"shape": _canon_shape(name, v)[0], "format": "dense",
+        meta = {name: {"shape": _canon_shape(name, v)[0],
+                       "format": "bcsr" if isinstance(v, BCSR) else "dense",
                        "sparsity": exprs[name].node.sparsity}
                 for name, v in bound.items()}
         return Traced(getattr(self.fn, "__name__", "<expr>"), graph,

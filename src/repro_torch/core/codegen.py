@@ -1,5 +1,5 @@
-"""Code generation & runtime integration (paper §2.1-2.2), dense and on one
-device.
+"""Code generation & runtime integration (paper §2.1-2.2) on one device,
+over dense and BCSR operands.
 
 Turns selected plans into executable operators and whole ExecPlans into
 callables.  Two cache layers memoize the generated code, as in the
@@ -34,6 +34,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
+from repro_torch.kernels.blocksparse import BCSR
 from .cost import FusedOpSpec
 from .cplan import CPlan, build_cplan
 from .ir import Graph, Node
@@ -220,10 +221,23 @@ class GeneratedOp:
 
 
 def _eval_basic(graph: Graph, node: Node, env: dict, lits: dict):
-    """Basic (unfused) operator over dense tensors; a plain large product
-    stays ``torch.matmul``.  Results are contiguous (kernel operands)."""
+    """Basic (unfused) operator, sparse-format aware; a plain large product
+    stays ``torch.matmul``.  A BCSR left matmul operand runs the block
+    product (``ta``: over ``BCSR.T``, exact and O(nnz), never densified), a
+    BCSR times a dense operand of its shape stays BCSR; anything else is
+    densified.  Dense results are contiguous (kernel operands)."""
     ins = [lits[i.nid] if i.op == "lit" else env[i.nid]
            for i in node.inputs]
+    if node.is_matmul and isinstance(ins[0], BCSR):
+        b = ins[1].todense() if isinstance(ins[1], BCSR) else ins[1]
+        b = b.T if node.tb else b
+        a = ins[0].T if node.ta else ins[0]
+        return kops.bcsr_matmul(a, b.contiguous())
+    if node.op == "mul" and isinstance(ins[0], BCSR) \
+            and not isinstance(ins[1], BCSR) \
+            and tuple(ins[1].shape) == ins[0].shape:
+        return kops.bcsr_mul_dense(ins[0], ins[1])
+    ins = [v.todense() if isinstance(v, BCSR) else v for v in ins]
     return kref.eval_node(node.op, ins, node.attrs).contiguous()
 
 

@@ -34,12 +34,12 @@ KERNEL_MODES = ("never", "cuda")
 
 def require_local(layout) -> None:
     """The port plans and runs on one device: distributed layouts wait for
-    the distributed-segments slice (ROADMAP.md queue A item 10)."""
+    the distributed-segments slice (ROADMAP.md queue A item 5)."""
     if layout is not None:
         raise NotImplementedError(
             "repro_torch runs on one device: layout=None is the only "
             "layout this port supports yet (distributed segments are "
-            "ROADMAP.md queue A item 10)")
+            "ROADMAP.md queue A item 5)")
 
 
 @dataclass(frozen=True)

@@ -40,7 +40,7 @@ class DistParams:
 
     Derived from a ``FusionLayout`` by the reference's
     ``layout_cost_params`` (the port has no layout module yet, ROADMAP.md
-    queue A item 10): the mesh's data/FSDP
+    queue A item 5): the mesh's data/FSDP
     axes become the row-shard group, and per graph-input shard factors are
     read off the layout's PartitionSpec trees (``row_factor``: dim-0,
     ``col_factor``: dim-1).  With this set, :func:`spec_cost` prices every

@@ -1,12 +1,15 @@
 """Operands carried across packages: the system has no weights, so what
 crosses is data and the iterate.  :func:`to_torch` turns numpy arrays (or
 arrays produced by another framework and converted to numpy) into
-contiguous fp32 tensors on a device."""
+contiguous fp32 tensors on a device; :func:`to_bcsr` carries a block-sparse
+matrix across (the reference's ``BCSR`` or anything with its attributes)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch.kernels.blocksparse import BCSR
 
 
 def resolve_device(device) -> torch.device:
@@ -31,3 +34,18 @@ def to_torch(values, device="cuda"):
         return values.to(device=device, dtype=torch.float32).contiguous()
     return torch.as_tensor(np.ascontiguousarray(values, dtype=np.float32),
                            device=device)
+
+
+def to_bcsr(x, device="cuda"):
+    """The port's :class:`~repro_torch.kernels.blocksparse.BCSR` on
+    ``device`` from any object with numpy-convertible ``data`` (nb, bs,
+    bs) fp32, ``rows`` / ``cols`` (nb,) block indices sorted row-major,
+    and a ``shape`` and ``bs``: the reference's BCSR (duck-typed, nothing
+    of its package is imported) or the port's own."""
+    device = resolve_device(device)
+    if isinstance(x, BCSR):
+        return x.to(device)
+    idx = lambda a: torch.as_tensor(np.array(a, dtype=np.int32),
+                                    device=device)
+    return BCSR(to_torch(np.array(x.data, dtype=np.float32), device),
+                idx(x.rows), idx(x.cols), tuple(x.shape), int(x.bs))

@@ -33,7 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
-_LOADED: dict[str, ctypes._CFuncPtr] = {}
+_LOADED: dict[tuple, ctypes._CFuncPtr] = {}
 
 
 def nvcc_path() -> str:
@@ -103,19 +103,30 @@ def build_all(sources: Iterable[KernelSource]) -> list[Path]:
     return paths
 
 
-def launcher(src: KernelSource):
-    """The loaded ``repro_launch`` of this source, building it if needed."""
+#: argument types of the two launcher ABIs: ``repro_launch`` (Cell, MAgg,
+#: Row: bind pointers, out, part, m, nblocks, aux) and
+#: ``repro_launch_outer`` (Outer: bind pointers, the BCSR's data, cols and
+#: block-row pointer, the closer, out, part, m, n, nblocks, bs, r, k)
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    "repro_launch": [ctypes.POINTER(_P), _P, _P, _LL, _I, ctypes.c_double,
+                     _P, _I],
+    "repro_launch_outer": [ctypes.POINTER(_P), _P, _P, _P, _P, _P, _P, _LL,
+                           _LL, _I, _I, _I, _I, _P, _I],
+}
+
+
+def launcher(src: KernelSource, symbol: str = "repro_launch"):
+    """The loaded launcher ``symbol`` of this source, building it if
+    needed."""
     with _LOCK:
-        fn = _LOADED.get(src.key)
+        fn = _LOADED.get((src.key, symbol))
         if fn is None:
             (path,) = build_all([src])
-            lib = ctypes.CDLL(str(path))
-            fn = lib.repro_launch
-            fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                           ctypes.c_double, ctypes.c_void_p, ctypes.c_int]
+            fn = getattr(ctypes.CDLL(str(path)), symbol)
+            fn.argtypes = _ARGTYPES[symbol]
             fn.restype = ctypes.c_int
-            _LOADED[src.key] = fn
+            _LOADED[(src.key, symbol)] = fn
     return fn
 
 
@@ -174,3 +185,30 @@ def launch(src: KernelSource, binds: list[torch.Tensor], out: torch.Tensor,
     if rc != 0:
         raise RuntimeError(f"{src.template} kernel launch failed: "
                            f"cudaError {rc} ({library_path(src).name})")
+
+
+def launch_outer(src: KernelSource, binds: list[torch.Tensor],
+                 xdata: torch.Tensor, cols: torch.Tensor,
+                 rowptr: torch.Tensor, closer: Optional[torch.Tensor],
+                 out: torch.Tensor, part: Optional[torch.Tensor], m: int,
+                 n: int, nblocks: int, bs: int, r: int, k: int) -> None:
+    """Launch the Outer kernel (one CTA per block row) on the current
+    stream; raises when the launcher reports an error, including block
+    size, rank or closer width other than the compiled ones."""
+    for name, t in (("cols", cols), ("rowptr", rowptr)):
+        if t.dtype != torch.int32 or not t.is_contiguous() \
+                or t.device != out.device:
+            raise ValueError(f"BCSR {name}: contiguous int32 on "
+                             f"{out.device} expected")
+    fn = launcher(src, "repro_launch_outer")
+    dev = out.device
+    ptrs = (ctypes.c_void_p * len(binds))(*[t.data_ptr() for t in binds])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(ptrs, xdata.data_ptr(), cols.data_ptr(), rowptr.data_ptr(),
+            closer.data_ptr() if closer is not None else None,
+            out.data_ptr(), part.data_ptr() if part is not None else None,
+            int(m), int(n), int(nblocks), int(bs), int(r), int(k), stream,
+            dev.index)
+    if rc != 0:
+        raise RuntimeError(f"outer kernel launch failed: cudaError {rc} "
+                           f"({library_path(src).name})")

@@ -9,9 +9,12 @@ module writes, per CPlan, a ``struct Prog`` holding
 * the program's ``__device__`` body — one C statement per CNode, using the
   op table of :mod:`repro_torch.kernels.ref` (mirrored in ``common.cuh``),
 * the compile-time widths (domain width N, root/closer widths, number of
-  aggregate roots K) and the variant / aggregation codes,
+  aggregate roots K; for Outer the block size, rank and closer width) and
+  the variant / aggregation codes,
 
-plus an ``extern "C" repro_launch`` that instantiates the skeleton.  The
+plus an ``extern "C"`` launcher that instantiates the skeleton
+(``repro_launch``; ``repro_launch_outer`` for Outer, whose kernel also
+takes the BCSR's block indices and is generated per block size).  The
 row count m stays a run-time argument, so one build serves every m.  The
 text names values by program position, never by IR node id, so
 structurally equal CPlans from different traces give byte-identical
@@ -33,7 +36,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch.core.cplan import (CPlan, COL_AGG, COL_T_AGG, FULL_AGG,
-                                    NO_AGG, ROW_AGG)
+                                    NO_AGG, RIGHT_MM, ROW_AGG)
 from repro_torch.core.ir import AGG_OPS
 from repro_torch.core.templates import TType
 
@@ -81,7 +84,7 @@ _SMEM_FLOATS = 48 * 1024 // 4
 class KernelSource:
     """One generated kernel: its text plus the launch geometry the Python
     wrapper needs (the skeleton reads the same constants from ``Prog``)."""
-    template: str          # "cell" | "magg" | "row"
+    template: str          # "cell" | "magg" | "row" | "outer"
     text: str
     domain: tuple          # (rows, cols) the kernel walks (rows: run time)
     elems: int = 0         # reduced elements per partial (0: no partials)
@@ -573,6 +576,136 @@ def row_source(cplan: CPlan) -> KernelSource:
 
 
 # --------------------------------------------------------------------------
+# Outer: the program evaluated at one cell of one non-zero block
+# --------------------------------------------------------------------------
+
+_OUTER_VARIANT = {RIGHT_MM: 0, FULL_AGG: 1}
+#: block sizes the Outer skeleton tiles (16 × 16 threads, (bs/16)² cells
+#: each) and the shared memory a CTA may opt into (bytes)
+_OUTER_BS_MAX = 128
+_OUTER_SMEM_MAX = 227 * 1024
+
+
+def _outer_mm_nid(cplan: CPlan) -> int:
+    for (nid, op, _ins, _shape, _attrs) in cplan.prog:
+        if op == "matmul":
+            return nid
+    return -1
+
+
+def _outer_body(cplan: CPlan) -> list[str]:
+    """One statement per program node at cell (i, j) of block b: the X
+    block value is ``x``, the outer product ``U_b V_bᵀ`` at the cell is
+    ``s``, sides are read at the cell's global (gi, gj)."""
+    m, n = cplan.main.shape
+    pos = {b.nid: k for k, b in enumerate(cplan.binds)}
+    shape_of = {b.nid: tuple(b.shape) for b in cplan.binds}
+    mm = _outer_mm_nid(cplan)
+    names: dict[tuple, str] = {("b", cplan.main.nid): "x", ("n", mm): "s"}
+    lines: list[str] = []
+
+    def bind(nid: int) -> str:
+        key = ("b", nid)
+        if key not in names:
+            r, c = shape_of[nid]
+            if (r, c) == (1, 1):
+                off = "0"
+            elif (r, c) == (m, n):
+                off = "gi * n + gj"
+            elif c == 1 and r == m:
+                off = "gi"
+            elif r == 1 and c == n:
+                off = "gj"
+            else:
+                raise _unsupported(cplan, f"side of shape {(r, c)} against "
+                                          f"the sparse main {(m, n)}")
+            name = f"b{pos[nid]}"
+            lines.append(f"const float {name} = __ldg(b.p[{pos[nid]}] + "
+                         f"{off});")
+            names[key] = name
+        return names[key]
+
+    for idx, (nid, op, ins, _shape, attrs) in enumerate(cplan.prog):
+        if nid == mm:
+            continue
+        if op not in _CELL_C or "axis" in dict(attrs):
+            raise _unsupported(cplan, f"op '{op}' inside an outer program")
+        args = [names[("n", r)] if k == "n" else
+                bind(r) if k == "b" else _lit(r) for k, r in ins]
+        name = f"v{idx}"
+        lines.append(f"const float {name} = {_CELL_C[op].format(*args)};")
+        names[("n", nid)] = name
+    root = cplan.prog_root
+    lines.append(f"return {names.get(('n', root)) or bind(root)};")
+    return lines
+
+
+def outer_source(cplan: CPlan, bs: int) -> KernelSource:
+    """The Outer template, ``right_mm`` and ``full_agg``, over a BCSR main
+    of block size ``bs`` (a multiple of 16, at most 128)."""
+    variant = cplan.variant
+    if cplan.ttype != TType.OUTER or variant not in _OUTER_VARIANT \
+            or cplan.extra:
+        raise _unsupported(cplan, "not an Outer right_mm / full_agg")
+    if bs % 16 or not 16 <= bs <= _OUTER_BS_MAX:
+        raise _unsupported(cplan, f"block size {bs} (the skeleton tiles "
+                                  f"multiples of 16 up to {_OUTER_BS_MAX})")
+    kinds = [b.kind for b in cplan.binds]
+    if "factor_u" not in kinds or "factor_v" not in kinds:
+        raise _unsupported(cplan, "no U @ t(V) factor pair")
+    ub, vb = kinds.index("factor_u"), kinds.index("factor_v")
+    m, n = cplan.main.shape
+    r = cplan.binds[ub].shape[1]
+    if cplan.binds[ub].shape != (m, r) or cplan.binds[vb].shape != (n, r):
+        raise _unsupported(cplan, f"factors {cplan.binds[ub].shape} and "
+                                  f"{cplan.binds[vb].shape} are not U (m,r) "
+                                  f"and V (n,r)")
+    k = 0
+    if variant == RIGHT_MM:
+        if cplan.close_nid not in {b.nid for b in cplan.binds}:
+            raise _unsupported(cplan, "closer computed inside the program")
+        k = root_shape(cplan, cplan.close_nid)[0 if cplan.close_tb else 1]
+        agg = "sum"
+    else:
+        agg = cplan.agg_op
+        if agg not in ("sum", "min", "max"):
+            raise _unsupported(cplan, f"full aggregate '{agg}' over blocks")
+    smem = 4 * (2 * r * bs + (bs * k + bs * (bs + 1) if variant == RIGHT_MM
+                              else 256))
+    if smem > _OUTER_SMEM_MAX:
+        raise _unsupported(cplan, f"{smem} bytes of shared memory at bs={bs},"
+                                  f" r={r}, k={k}")
+    body = _outer_body(cplan)
+    lines = [
+        "// Outer template: " + _describe(cplan), *_header("outer"),
+        "struct Prog {",
+        f"  static constexpr int NB = {len(cplan.binds)}, BS = {bs}, "
+        f"R = {r}, K = {k}, UB = {ub}, VB = {vb};",
+        f"  static constexpr int VARIANT = {_OUTER_VARIANT[variant]}, "
+        f"AGG = {AGG_CODE[agg]};",
+        "  __device__ static __forceinline__ int agg_of(int) "
+        "{ return AGG; }",
+        "  __device__ static __forceinline__ float fin(int, float a, "
+        "double) { return a; }",
+        "  __device__ static __forceinline__ float eval("
+        "const rk::Binds<NB>& b, float x, float s, long long gi, "
+        "long long gj, long long n) {",
+        *("    " + ln for ln in body),
+        "  }",
+        "};", "",
+        'extern "C" int repro_launch_outer(void* const* binds, '
+        "const void* xdata, const void* cols, const void* rowptr, "
+        "const void* closer, void* out, void* part, long long m, "
+        "long long n, int nblocks, int bs, int r, int k, void* stream, "
+        "int device) {",
+        "  return outer_launch<Prog>(binds, xdata, cols, rowptr, closer, "
+        "out, part, m, n, nblocks, bs, r, k, stream, device);",
+        "}", ""]
+    return KernelSource("outer", "\n".join(lines), (m, n),
+                        elems=1 if variant == FULL_AGG else 0)
+
+
+# --------------------------------------------------------------------------
 # routing (the dense dispatch of kernels/ops.py)
 # --------------------------------------------------------------------------
 
@@ -586,30 +719,33 @@ def _describe(cplan: CPlan) -> str:
 #: generated sources by CPlan object (the staged plan function hands the
 #: same CPlan to every call) and by structural CPlan hash; bounded, and
 #: the text is pure in the CPlan, so a hit is always right
-_BY_OBJECT: dict[int, tuple[CPlan, KernelSource]] = {}
-_BY_HASH: dict[str, KernelSource] = {}
+_BY_OBJECT: dict[tuple, tuple[CPlan, KernelSource]] = {}
+_BY_HASH: dict[tuple, KernelSource] = {}
 _MEMO_MAX = 4096
 
 
-def source_for(cplan: CPlan) -> KernelSource:
+def source_for(cplan: CPlan, bs: Optional[int] = None) -> KernelSource:
     """The kernel source :func:`repro_torch.kernels.ops.execute` would
-    launch for this CPlan over dense CUDA operands (memoized)."""
-    hit = _BY_OBJECT.get(id(cplan))
+    launch for this CPlan over CUDA operands (memoized): dense operands, or
+    with ``bs``, a BCSR main of that block size."""
+    hit = _BY_OBJECT.get((id(cplan), bs))
     if hit is not None and hit[0] is cplan:
         return hit[1]
-    key = cplan.cache_key()
+    key = (cplan.cache_key(), bs)
     src = _BY_HASH.get(key)
     if src is None:
-        src = _generate(cplan)
+        src = _generate(cplan, bs)
     if len(_BY_OBJECT) >= _MEMO_MAX:
         _BY_OBJECT.clear()
         _BY_HASH.clear()
     _BY_HASH[key] = src
-    _BY_OBJECT[id(cplan)] = (cplan, src)
+    _BY_OBJECT[(id(cplan), bs)] = (cplan, src)
     return src
 
 
-def _generate(cplan: CPlan) -> KernelSource:
+def _generate(cplan: CPlan, bs: Optional[int]) -> KernelSource:
+    if bs is not None:
+        return outer_source(cplan, bs)
     if cplan.extra:
         return magg_source(cplan)
     if cplan.ttype in (TType.CELL, TType.MAGG):

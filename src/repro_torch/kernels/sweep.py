@@ -1,5 +1,6 @@
 """The kernel sweep: small expressions whose CPlans, built by the planner
-itself, drive every variant of the Cell, MAgg and Row kernels.
+itself, drive every variant of the Cell, MAgg and Row kernels, and the
+Outer kernel's ``right_mm`` and ``full_agg`` over block-sparse mains.
 
 ``chip_smoke.py`` holds each generated CUDA kernel against its plain
 version on these CPlans; the CPU tests hold the plain versions against the
@@ -12,6 +13,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from typing import Callable, Optional
+
+import numpy as np
 
 from repro_torch.core import cost, cplan, explore, ir, select, templates
 
@@ -132,10 +135,12 @@ def cases() -> list[Case]:
             for c in out]
 
 
-def fused_cplan(case: Case, m: int, n: int):
-    """Plan ``case`` at (m, n) with the port's planner; returns (cplan,
-    {bind nid: operand name})."""
-    exprs = {k: ir.matrix(k, s) for k, s in case.shapes(m, n).items()}
+def fused_cplan(case, m: int, n: int, sparsity: Optional[dict] = None):
+    """Plan ``case`` at (m, n) with the port's planner (``sparsity``: per
+    operand, default 1.0); returns (cplan, {bind nid: operand name})."""
+    sparsity = sparsity or {}
+    exprs = {k: ir.matrix(k, s, sparsity=sparsity.get(k, 1.0))
+             for k, s in case.shapes(m, n).items()}
     outs = case.expr(ir, **exprs)
     g = ir.Graph.build(list(outs) if isinstance(outs, tuple) else [outs])
     if case.want is not None:
@@ -151,3 +156,92 @@ def fused_cplan(case: Case, m: int, n: int):
     cp = cplan.build_cplan(g, spec)
     names = {node.nid: node.name for node in g.inputs()}
     return cp, {b.nid: names[b.nid] for b in cp.binds}
+
+
+# --------------------------------------------------------------------------
+# Outer: block SDDMM over a BCSR main
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class OuterCase:
+    """One Outer CPlan over a BCSR main X of ``grid`` (block rows, block
+    cols) blocks of ``bs``: ``((X≠0) ⊙ (U Vᵀ)) [⊙ S] @ V`` (``right_mm``)
+    or its sum (``full_agg``); ``loss`` is ALS's Σ((X≠0)⊙(UVᵀ) − X)²."""
+    name: str
+    variant: str                  # "right_mm" | "full_agg"
+    bs: int
+    grid: tuple[int, int]
+    density: float                # block density; 0.0: one forced block
+    r: int
+    #: side S: "col" (m,1), "row" (1,n), "scalar" (1,1), "full" (m,n)
+    side: Optional[str] = None
+    empty_rows: tuple[int, ...] = ()
+    loss: bool = False
+    template: str = "outer"
+    want: str = "OUTER"
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.grid[0] * self.bs, self.grid[1] * self.bs
+
+    def shapes(self, m: int, n: int) -> dict[str, tuple[int, int]]:
+        out = {"X": (m, n), "U": (m, self.r), "V": (n, self.r)}
+        if self.side is not None:
+            out["S"] = {"col": (m, 1), "row": (1, n), "scalar": (1, 1),
+                        "full": (m, n)}[self.side]
+        return out
+
+    def expr(self, ir, X, U, V, S=None):
+        c = ir.neq0(X) * (U @ V.T)
+        if self.loss:
+            return ((c - X) ** 2).sum()
+        if S is not None:
+            c = c * S
+        return c @ V if self.variant == "right_mm" else c.sum()
+
+
+def outer_cases() -> list[OuterCase]:
+    """``right_mm`` and ``full_agg`` at bs 16 and 128, rank 8 and 20, block
+    densities 0.0 (one forced block), 0.3 and 1.0; a grid with empty block
+    rows; one case each with an (m,1), (1,n), (1,1) and (m,n) side; the
+    ALS loss chain (a sum of non-negative terms)."""
+    out = []
+    for variant in ("right_mm", "full_agg"):
+        for bs, grid in ((128, (4, 3)), (16, (8, 9))):
+            for r in (8, 20):
+                for d in (0.0, 0.3, 1.0):
+                    out.append(OuterCase(f"outer/{variant}_bs{bs}_r{r}_d{d}",
+                                         variant, bs, grid, d, r))
+        out.append(OuterCase(f"outer/{variant}_empty_rows", variant, 128,
+                             (5, 3), 0.7, 20, empty_rows=(1, 3)))
+    out += [
+        OuterCase("outer/right_mm_side_col", "right_mm", 128, (4, 3), 0.5,
+                  20, side="col"),
+        OuterCase("outer/full_agg_side_row", "full_agg", 128, (4, 3), 0.5,
+                  20, side="row"),
+        OuterCase("outer/right_mm_side_scalar", "right_mm", 16, (8, 9), 0.5,
+                  8, side="scalar"),
+        OuterCase("outer/full_agg_side_full", "full_agg", 128, (4, 3), 0.5,
+                  20, side="full"),
+        OuterCase("outer/full_agg_loss", "full_agg", 128, (4, 3), 0.7, 20,
+                  loss=True),
+    ]
+    return out
+
+
+def outer_values(case: OuterCase, seed: int = 0) -> dict[str, np.ndarray]:
+    """Seeded numpy operands of ``case``: X dense (m, n), zero outside its
+    non-zero blocks, plus U, V and the side."""
+    rng = np.random.default_rng(seed)
+    mb, nbc = case.grid
+    mask = rng.random((mb, nbc)) < case.density
+    mask[list(case.empty_rows), :] = False
+    mask.flat[0] = True
+    m, n = case.shape
+    vals = {"X": (rng.normal(size=(m, n))
+                  * np.kron(mask, np.ones((case.bs, case.bs)))
+                  ).astype(np.float32)}
+    for k, s in case.shapes(m, n).items():
+        if k != "X":
+            vals[k] = (rng.normal(size=s) * 0.5).astype(np.float32)
+    return vals

@@ -75,11 +75,17 @@ def test_explain_reports_plan_and_execution():
 
 def test_port_imports_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.algos.l2svm, "
+            "repro_torch.algos.als_cg, repro_torch.algos.data, "
+            "repro_torch.interop, repro_torch.kernels.blocksparse, "
+            "repro_torch.kernels.outerprod, repro_torch.kernels.cuda_src, "
             "repro_torch.kernels.ops, repro_torch.kernels.build, "
             "repro_torch.kernels.sweep, repro_torch.core.api\n"
-            "from repro_torch.kernels import sweep\n"
+            "from repro_torch.kernels import cuda_src, sweep\n"
             "for c in sweep.cases():\n"
             "    sweep.fused_cplan(c, 8, 4)\n"
+            "for c in sweep.outer_cases():\n"
+            "    cp, _ = sweep.fused_cplan(c, *c.shape, {'X': 0.5})\n"
+            "    cuda_src.source_for(cp, c.bs)\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "print(bad)\nsys.exit(1 if bad else 0)\n")

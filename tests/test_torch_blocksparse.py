@@ -1,0 +1,107 @@
+"""The port's BCSR (``repro_torch.kernels.blocksparse``) against the JAX
+reference's: ``from_dense``, ``todense``, ``.T``, ``pad_to_blocks``, the
+block-row pointer, the carrier ``interop.to_bcsr`` and ``data.ratings``,
+on seeded numpy inputs.  The index arrays and block data must be the
+reference's exactly (bit for bit)."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro.algos import data as ref_data
+from repro.kernels import blocksparse as rbs
+from repro_torch.algos import data
+from repro_torch.interop import to_bcsr
+from repro_torch.kernels.blocksparse import BCSR, pad_to_blocks
+
+torch.set_num_threads(1)
+
+
+def _dense(grid, bs, density, seed, empty_rows=()):
+    rng = np.random.default_rng(seed)
+    mask = rng.random(grid) < density
+    mask[list(empty_rows), :] = False
+    dense = rng.normal(size=(grid[0] * bs, grid[1] * bs)).astype(np.float32)
+    return dense * np.kron(mask, np.ones((bs, bs), np.float32))
+
+
+def _same(port: BCSR, ref) -> None:
+    assert port.shape == tuple(ref.shape) and port.bs == ref.bs
+    assert port.rows.dtype == torch.int32 and port.cols.dtype == torch.int32
+    np.testing.assert_array_equal(port.rows.numpy(), np.asarray(ref.rows))
+    np.testing.assert_array_equal(port.cols.numpy(), np.asarray(ref.cols))
+    np.testing.assert_array_equal(port.data.numpy(), np.asarray(ref.data))
+
+
+CASES = [((3, 4), 128, 0.4, ()), ((2, 2), 128, 1.0, ()),
+         ((5, 3), 16, 0.5, (1, 3)), ((4, 6), 16, 0.0, ()),
+         ((6, 5), 32, 0.3, (0,))]
+
+
+@pytest.mark.parametrize("grid,bs,density,empty", CASES)
+def test_from_dense_todense_and_transpose_match_reference(grid, bs,
+                                                          density, empty):
+    dense = _dense(grid, bs, density, seed=sum(grid) + bs, empty_rows=empty)
+    ref = rbs.BCSR.from_dense(dense, bs=bs)
+    port = BCSR.from_dense(dense, bs=bs)
+    _same(port, ref)
+    assert port.nblocks == ref.nblocks >= 1
+    assert port.block_sparsity == ref.block_sparsity
+    assert port.nnz_fraction() == ref.nnz_fraction()
+    np.testing.assert_array_equal(port.todense().numpy(),
+                                  np.asarray(ref.todense()))
+    _same(port.T, ref.T)
+    np.testing.assert_array_equal(port.T.todense().numpy(), dense.T)
+
+
+@pytest.mark.parametrize("grid,bs,density,empty", CASES)
+def test_transpose_stays_row_major_and_rowptr_bounds_each_block_row(
+        grid, bs, density, empty):
+    port = BCSR.from_dense(_dense(grid, bs, density, seed=7,
+                                  empty_rows=empty), bs=bs)
+    for x in (port, port.T):
+        key = x.rows.long() * (x.shape[1] // bs) + x.cols.long()
+        assert bool((key[1:] > key[:-1]).all())          # strictly sorted
+        mb = x.shape[0] // bs
+        rp = x.rowptr
+        assert rp.dtype == torch.int32 and tuple(rp.shape) == (mb + 1,)
+        assert int(rp[0]) == 0 and int(rp[-1]) == x.nblocks
+        counts = torch.bincount(x.rows.long(), minlength=mb)
+        assert torch.equal((rp[1:] - rp[:-1]).long(), counts)
+        assert x.rowptr is rp                            # kept on the object
+
+
+def test_empty_matrix_keeps_one_block():
+    dense = np.zeros((256, 384), np.float32)
+    _same(BCSR.from_dense(dense, bs=128), rbs.BCSR.from_dense(dense, 128))
+
+
+@pytest.mark.parametrize("shape,bs", [((130, 257), 128), ((128, 128), 128),
+                                      ((17, 3), 16)])
+def test_pad_to_blocks_matches_reference(shape, bs):
+    x = np.random.default_rng(1).normal(size=shape).astype(np.float32)
+    got = pad_to_blocks(x, bs)
+    want = np.asarray(rbs.pad_to_blocks(x, bs))
+    assert tuple(got.shape) == want.shape
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(pad_to_blocks(torch.tensor(x), bs).numpy(),
+                                  want)
+
+
+def test_ratings_match_reference_exactly():
+    ref = ref_data.ratings(384, 256, rank=4, bs=128, block_density=0.5,
+                           seed=6)
+    port = data.ratings(384, 256, rank=4, bs=128, block_density=0.5, seed=6,
+                        device="cpu")
+    _same(port, ref)
+
+
+def test_to_bcsr_carries_the_reference_and_moves_devices():
+    ref = ref_data.ratings(256, 384, rank=3, bs=128, block_density=0.6,
+                           seed=2)
+    port = to_bcsr(ref, device="cpu")
+    _same(port, ref)
+    assert to_bcsr(port, device="cpu") is port
+    assert port.to("cpu") is port
+    moved = port.to("meta")
+    assert moved.device.type == "meta" and moved.shape == port.shape

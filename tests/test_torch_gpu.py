@@ -1,8 +1,9 @@
 """The generated CUDA kernels on the card: each sweep case against its
-plain version on the same CUDA tensors, bit-for-bit repeatability (no
-float atomics), every L2SVM / mlogreg / kmeans region forward and planned
-backward on the card against the CPU, and L2SVM on the card against the
-CPU.  Marked ``gpu``; without a card every test skips.  Imports no JAX
+plain version on the same CUDA tensors (the Outer kernel's over BCSR
+mains too), bit-for-bit repeatability (no float atomics), every L2SVM /
+mlogreg / kmeans region forward and planned backward on the card against
+the CPU, L2SVM and ALS-CG on the card against the CPU, and the Outer
+kernel launched exactly for a BCSR on the card.  Marked ``gpu``; without a card every test skips.  Imports no JAX
 (the machine with the card has none):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -12,11 +13,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.algos import data, l2svm
+from repro_torch.algos import als_cg, data, l2svm
 from repro_torch.core import FusionContext
 from repro_torch.core.codegen import compile_plan
 from repro_torch.kernels import (build, cellwise, cuda_src, multiagg, ops,
-                                 rowwise, sweep)
+                                 outerprod, rowwise, sweep)
+from repro_torch.kernels.blocksparse import BCSR
 
 from torch_regions import GRADS, chip_smoke, inputs, regions, run_port
 
@@ -45,9 +47,44 @@ def card():
         cplans += compile_plan(planned.eplan).cplans()
         if fn in GRADS_FNS:
             cplans += compile_plan(planned.backward().eplan).cplans()
-    build.build_all({s.key: s for s in map(cuda_src.source_for, cplans)}
-                    .values())
+    srcs = [cuda_src.source_for(cp) for cp in cplans]
+    srcs += [cuda_src.source_for(_outer_plan(c)[0], c.bs)
+             for c in sweep.outer_cases()]
+    X = data.ratings(*ALS_SHAPE, rank=4, seed=6, device="cpu")
+    srcs += [cuda_src.source_for(cp, X.bs) for cp in _als_cplans(X)]
+    build.build_all({s.key: s for s in srcs}.values())
     return torch.device("cuda")
+
+
+ALS_SHAPE = (768, 512)
+
+
+def _outer_plan(case, seed=11):
+    vals = sweep.outer_values(case, seed)
+    cp, names = sweep.fused_cplan(case, *case.shape, sparsity={
+        "X": BCSR.from_dense(vals["X"], case.bs).block_sparsity})
+    return cp, names, vals
+
+
+def _outer_env(case, names, vals, device):
+    return {nid: (BCSR.from_dense(torch.tensor(vals[n], device=device),
+                                  case.bs) if n == "X"
+                  else torch.tensor(vals[n], device=device))
+            for nid, n in names.items()}
+
+
+def _als_cplans(X, rank=4):
+    m, n = X.shape
+    U = torch.empty((m, rank), device="meta")
+    V = torch.empty((n, rank), device="meta")
+    out = []
+    for region, args in ((als_cg._wsq_mm, (X, U, V)),
+                         (als_cg._wsq_mm, (X.T, V, U)),
+                         (als_cg._loss_terms, (X, U, V))):
+        planned = region.trace(*args).plan(
+            context=FusionContext(device="cpu"))
+        out += compile_plan(planned.eplan).cplans()
+    return out
 
 
 def _env(case, shape, names, device, seed=11):
@@ -104,3 +141,55 @@ def test_region_forward_and_gradient_on_the_card(card, name):
     for a, b in zip(got + tuple(got_g.values()),
                     want + tuple(want_g.values())):
         np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", [pytest.param(c, id=c.name)
+                                  for c in sweep.outer_cases()])
+def test_outer_kernel_matches_plain(card, case):
+    """The Outer kernel against ``outer_plain`` on the same CUDA tensors,
+    at ``chip_smoke.py``'s limit; it launches exactly once."""
+    cp, names, vals = _outer_plan(case)
+    env = _outer_env(case, names, vals, card)
+    before = outerprod.launches
+    got = ops.execute(cp, env, kernels="cuda")
+    assert outerprod.launches == before + 1
+    err, share = chip_smoke().measure(cp, env, got, case.name)
+    assert share <= 1.0, f"max |kernel - plain| {err:.3e}, {share:.3g} x limit"
+
+
+@pytest.mark.parametrize("name,what", [
+    ("outer/right_mm_bs128_r20_d1.0", "outer"),
+    ("outer/full_agg_loss", "outer"),
+    ("outer/right_mm_empty_rows", "bcsr_matmul")])
+def test_sparse_results_repeat_bit_for_bit(card, name, what):
+    """No float atomics: the Outer kernel walks each block row in order
+    and folds partials in order; the block product sums each block row in
+    order."""
+    case = next(c for c in sweep.outer_cases() if c.name == name)
+    cp, names, vals = _outer_plan(case)
+    env = _outer_env(case, names, vals, card)
+    if what == "bcsr_matmul":
+        X, v = env[cp.main.nid], torch.tensor(vals["V"], device=card)
+        run = lambda: ops.bcsr_matmul(X, v)
+    else:
+        run = lambda: ops.execute(cp, env, kernels="cuda")
+    assert torch.equal(run(), run())
+
+
+def test_outer_launches_exactly_for_a_bcsr_on_the_card(card):
+    """``als_cg.run`` on the card launches the Outer kernel and matches the
+    CPU; ``ops.execute`` over a CPU BCSR never launches it."""
+    X = data.ratings(*ALS_SHAPE, rank=4, seed=6, device="cpu")
+    before = outerprod.launches
+    _u, _v, gpu = als_cg.run(X, rank=4, max_iter=2, max_inner=2,
+                             kernels="cuda", device="cuda")
+    assert outerprod.launches > before
+    mid = outerprod.launches
+    _u, _v, cpu = als_cg.run(X, rank=4, max_iter=2, max_inner=2,
+                             kernels="cuda", device="cpu")
+    case = next(c for c in sweep.outer_cases()
+                if c.name == "outer/full_agg_loss")
+    cp, names, vals = _outer_plan(case)
+    ops.execute(cp, _outer_env(case, names, vals, "cpu"), kernels="cuda")
+    assert outerprod.launches == mid
+    np.testing.assert_allclose(gpu, cpu, rtol=1e-5)

@@ -155,10 +155,12 @@ def test_wrappers_never_fall_back_off_the_cpu():
 
 
 def test_sparse_operands_wait_for_the_sparse_slice():
+    """BCSR is ported; a compressed (CLA) or any other non-tensor operand
+    is refused with its ROADMAP item."""
     case = next(c for c in sweep.cases() if c.name == "cell/no_agg")
     cp, names = sweep.fused_cplan(case, 8, 3)
     env = {nid: object() for nid in names}
-    with pytest.raises(NotImplementedError, match="queue A item 8"):
+    with pytest.raises(NotImplementedError, match="queue A item 3"):
         ops.execute(cp, env, kernels="cuda")
 
 

@@ -16,7 +16,8 @@ from repro_torch.core import FusionContext, TPU_V5E, fusion_mode
 from repro_torch.core.select import MultiAggSpec
 from repro_torch.hw import H100_SXM, TPU_V5E as HW_TPU_V5E
 
-from torch_harness import regions
+from torch_harness import ALS_REFERENCE, regions
+from torch_regions import ALS_REGIONS
 
 torch.set_num_threads(1)
 
@@ -105,7 +106,57 @@ def test_planning_default_is_the_reference_tpu_constants():
 def test_layout_is_refused_with_the_roadmap_item():
     ref, port, shapes = REGIONS["l2svm/hinge"]
     traced = port.trace(**_zeros(shapes))
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
+    with pytest.raises(NotImplementedError, match="queue A item 5"):
         traced.plan(layout=object())
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
+    with pytest.raises(NotImplementedError, match="queue A item 5"):
         FusionContext(layout=object()).key()
+
+
+def _bcsr_pair(shape, bs, nb):
+    """A reference and a port BCSR of ``shape`` with ``nb`` blocks and no
+    data (planning reads shapes and block sparsity only)."""
+    import jax
+    from repro.kernels.blocksparse import BCSR as RBCSR
+    from repro_torch.kernels.blocksparse import BCSR
+    idx = lambda: jax.ShapeDtypeStruct((nb,), np.int32)
+    ref = RBCSR(jax.ShapeDtypeStruct((nb, bs, bs), np.float32), idx(), idx(),
+                shape, bs)
+    meta = torch.empty(nb, dtype=torch.int32, device="meta")
+    port = BCSR(torch.empty((nb, bs, bs), device="meta"), meta, meta, shape,
+                bs)
+    return ref, port
+
+
+#: ALS-CG at the paper's Netflix shape (480,189 x 17,770 padded to bs 128,
+#: block density 0.25) and its transpose (the V update), and a small grid
+ALS_SHAPES = {"netflix": ((480_256, 17_792), 130_382),
+              "netflix_t": ((17_792, 480_256), 130_382),
+              "small": ((384, 256), 4)}
+
+
+@pytest.mark.parametrize("shape_name", sorted(ALS_SHAPES))
+@pytest.mark.parametrize("name", sorted(ALS_REGIONS))
+def test_als_regions_plan_as_the_reference_over_bcsr(name, shape_name):
+    """Same fused-operator signatures, cost, template, variant and
+    ``main.exploit`` as the reference, with X a BCSR."""
+    from repro.core.cplan import build_cplan as ref_build_cplan
+    from repro_torch.core.codegen import compile_plan
+    (m, n), nb = ALS_SHAPES[shape_name]
+    xr, xt = _bcsr_pair((m, n), 128, nb)
+    U, V = np.zeros((m, 20), np.float32), np.zeros((n, 20), np.float32)
+    with ref_fusion_mode("gen"):
+        rp = ALS_REFERENCE[name].trace(xr, U, V).plan()
+    pp = ALS_REGIONS[name].trace(xt, U, V).plan(
+        context=FusionContext(device="cpu"))
+    assert pp.explain()["inputs"]["X"]["format"] == "bcsr"
+    assert pp.explain()["inputs"]["X"]["sparsity"] == \
+        rp.explain()["inputs"]["X"]["sparsity"]
+    assert pp.fused_signatures() == rp.fused_signatures()
+    assert pp.cost == pytest.approx(rp.cost, rel=1e-12)
+    rcps = [ref_build_cplan(rp.eplan.graph, s)
+            for s in rp.eplan.fused_specs()]
+    pcps = compile_plan(pp.eplan).cplans()
+    assert [(c.ttype.name, c.variant, c.main.exploit) for c in pcps] == \
+        [(c.ttype.name, c.variant, c.main.exploit) for c in rcps]
+    assert [c.cache_key() for c in pcps] == [c.cache_key() for c in rcps]
+    assert pcps[0].ttype.name == "OUTER" and pcps[0].main.exploit

@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from repro.algos import als_cg as ref_als_cg
 from repro.algos import kmeans as ref_kmeans
 from repro.algos import l2svm as ref_l2svm
 from repro.algos import mlogreg as ref_mlogreg
@@ -47,17 +48,23 @@ REFERENCE = {
 }
 
 
+ALS_REFERENCE = {"als/wsq_mm": ref_als_cg._wsq_mm,
+                 "als/loss_terms": ref_als_cg._loss_terms}
+
+
 def regions(m: int, n: int, k: int = 5) -> dict:
     """name -> (reference Fused, port Fused, {operand: shape})."""
     return {name: (REFERENCE[name], fn, shapes)
             for name, (fn, shapes) in port.regions(m, n, k).items()}
 
 
-def reference_cplan(case, m: int, n: int):
+def reference_cplan(case, m: int, n: int, sparsity=None):
     """The reference's counterpart of ``repro_torch.kernels.sweep.
     fused_cplan``: ``case`` planned at (m, n) with the JAX package's
     planner; returns (cplan, {bind nid: operand name})."""
-    exprs = {k: ir.matrix(k, s) for k, s in case.shapes(m, n).items()}
+    sparsity = sparsity or {}
+    exprs = {k: ir.matrix(k, s, sparsity=sparsity.get(k, 1.0))
+             for k, s in case.shapes(m, n).items()}
     outs = case.expr(ir, **exprs)
     g = ir.Graph.build(list(outs) if isinstance(outs, tuple) else [outs])
     if case.want is not None:

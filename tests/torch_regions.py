@@ -11,7 +11,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.algos import l2svm
+from repro_torch.algos import als_cg, l2svm
 from repro_torch.core import FusionContext, fused
 from repro_torch.core import ir as pir
 
@@ -99,6 +99,11 @@ def regions(m: int, n: int, k: int = 5) -> dict:
         "kmeans/min_dist": (_min_dist, dict(XC=(m, 5), xsq=col,
                                             csq=(1, 5))),
     }
+
+
+#: ALS-CG's regions, planned over a BCSR X (m, n) with U (m, r), V (n, r)
+ALS_REGIONS = {"als/wsq_mm": als_cg._wsq_mm,
+               "als/loss_terms": als_cg._loss_terms}
 
 
 def inputs(shapes: dict, seed: int = 0) -> dict[str, np.ndarray]:
