@@ -6,6 +6,10 @@ toolkit:
 
     python3 chip_smoke.py   # L2SVM on X 10,000,000 x 100, ALS-CG on a BCSR
                             # of 480,256 x 17,792 (the Netflix shape)
+    python3 chip_smoke.py --times   # only phase 5's and 7's profiles and
+                                    # per-CPlan times, no checks: copied
+                                    # into another checkout, it measures
+                                    # that tree's package the same way
 
 Phases, each reported on its own lines:
 
@@ -31,12 +35,15 @@ Phases, each reported on its own lines:
    fp32 flops over 67 TFLOP/s, the larger);
 7. ALS-CG: the Outer kernel's sweep (``right_mm`` / ``full_agg`` over BCSR
    mains, ``repro_torch.kernels.sweep.outer_cases``) against its plain
-   version, with a planted fault (``right_mm`` skips the middle block of
-   every block row; ``full_agg`` drops a partial) that must fail; a BCSR
+   version, with planted faults that must fail (``right_mm`` skips the
+   middle block of every block row; ``full_agg`` drops a partial; the
+   ``right_mm`` fold drops the middle piece of every row cut into pieces,
+   on the long-row cases); a BCSR
    shaped like the paper's Netflix matrix (480,189 x 17,770 padded to
    480,256 x 17,792, bs 128, block density 0.25, planted rank 8, noise
    0.1) built on the card from a seeded ``torch.Generator``; the ALS
-   CPlans at that shape against plain; ``repro_torch.algos.als_cg.run``
+   CPlans at that shape against plain (the V update's also with the fold
+   fault planted, which must fail); ``repro_torch.algos.als_cg.run``
    (rank 20, 6 outer x 5 inner iterations) with ``kernels="cuda"``,
    counters set to 0 just before it, its loss trace against
    ``kernels="never"`` and against a planted-fault run; the dense-mask
@@ -88,6 +95,12 @@ TRACE_RTOL = 1e-5
 PLANTED = ("cell/full_agg_abs_sum", "magg/k3_min_mean_sum", "row/full_agg",
            "outer/right_mm_bs128_r20_d1.0", "outer/full_agg_loss")
 PLANT = "#define RK_PLANTED_FAULT 1\n"
+#: Outer cases whose planted fold fault (the middle piece of every row of
+#: two or more pieces dropped) must fail the kernel check; the main path's
+#: V update must fail it too
+PLANTED_FOLD = ("outer/right_mm_long_rows_bs16",
+                "outer/right_mm_long_rows_bs128")
+PLANT_FOLD = "#define RK_PLANTED_FOLD 1\n"
 
 #: ALS-CG main path: the Netflix ratings shape (480,189 users x 17,770
 #: movies) padded to the block size, block density 0.25 (data.ratings'
@@ -413,20 +426,26 @@ def compare(cplan, env, label: str) -> tuple[float, float]:
     return err, share
 
 
-def planted(src):
-    """``src`` built with the planted fault: ``rk::combine`` drops the
+def planted(src, fold: bool = False):
+    """``src`` built with a planted fault: ``rk::combine`` drops the
     middle partial, the Outer ``right_mm`` skips the middle block of every
-    block row; a source with neither is returned as is."""
+    block row; with ``fold``, the Outer ``right_mm`` fold drops the middle
+    piece of every row of two or more pieces instead.  A source with no
+    such step is returned as is."""
+    if fold:
+        return dataclasses.replace(src, text=PLANT_FOLD + src.text) \
+            if src.template == "outer" and not src.elems else src
     return dataclasses.replace(src, text=PLANT + src.text) \
         if src.elems or src.template == "outer" else src
 
 
 @contextlib.contextmanager
-def planted_fault():
-    """Every reducing kernel launched inside runs its planted build."""
+def planted_fault(fold: bool = False):
+    """Every reducing kernel launched inside runs its planted build (with
+    ``fold``: the fold fault)."""
     from repro_torch.kernels import cuda_src
     orig = cuda_src.source_for
-    cuda_src.source_for = lambda cp, bs=None: planted(orig(cp, bs))
+    cuda_src.source_for = lambda cp, bs=None: planted(orig(cp, bs), fold)
     try:
         yield
     finally:
@@ -462,19 +481,40 @@ def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
     return statistics.median(per)
 
 
+#: idle host time at each end of a profiler step that is read: without
+#: it, the first calls' kernels could be missing from the trace
+PROFILE_PAD_S = 0.05
+
+
 def device_ms(fn, reps: int = 10):
     """Device time per call from a ``torch.profiler`` trace: the self
     device time of every kernel the calls launched, summed, over ``reps``;
-    None when the trace holds no device time."""
+    None when the trace holds no device time.  A first profiler step runs
+    ``fn`` once and is discarded, and the step that is read is padded with
+    ``PROFILE_PAD_S`` of idle time at each end.  A kernel launched a number
+    of times that is not a multiple of ``reps`` is logged: the trace lost
+    some of its launches."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        time.sleep(PROFILE_PAD_S)
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
+        time.sleep(PROFILE_PAD_S)
+        prof.step()
+    events = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    lost = [f"{e.key[:40]} x{e.count}" for e in events if e.count % reps]
+    if lost:
+        log(f"[time] launches missing from a {reps}-call trace: {lost}")
+    total_us = sum(e.self_device_time_total for e in events)
     return total_us / 1e3 / reps if total_us > 0 else None
 
 
@@ -538,15 +578,20 @@ def profile_run(label: str, fn) -> None:
     under ``torch.profiler``; device busy time per kernel name and the
     idle share of the host-clock wall time (profiler on)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]):   # tracer start-up
-        torch.zeros(1, device="cuda").add_(1)
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        torch.zeros(1, device="cuda").add_(1)    # tracer start-up, discarded
         torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        prof.step()
+        time.sleep(PROFILE_PAD_S)
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_PAD_S)
+        prof.step()
     events = sorted(prof.key_averages(),
                     key=lambda e: -e.self_device_time_total)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
@@ -662,6 +707,75 @@ def als_env(cplan, Xs, gen, rank: int = ALS_RANK):
     return env
 
 
+def time_part(label, kname, cp, env, kernel, plain, out) -> dict:
+    """One main-path CPlan's times (CUDA events and device, kernel and
+    plain) beside its bound, logged as a ``[time]`` line."""
+    ms, plain_ms = time_ms(kernel), time_ms(plain)
+    dev_ms, dev_plain_ms = device_ms(kernel), device_ms(plain)
+    b_ms, b_by = bound_ms(cp, env, out)
+    log(f"[time] {label:22s} {kname:5s} {cp.variant:9s} kernel {ms:.4f} ms "
+        f"(device {dev_ms}) plain {plain_ms:.4f} ms (device "
+        f"{dev_plain_ms}) bound {b_ms:.4f} ms ({b_by})")
+    return {"region": label, "variant": cp.variant,
+            "binds": [list(b.shape) for b in cp.binds], "ms": ms,
+            "plain_ms": plain_ms, "device_ms": dev_ms,
+            "plain_device_ms": dev_plain_ms, "bound_ms": b_ms,
+            "bound_by": b_by}
+
+
+def add_part(rec: dict, part: dict) -> None:
+    for key in ("ms", "plain_ms", "bound_ms"):
+        rec[key] += part[key]
+    rec["bound_by"][part["bound_by"]] = \
+        rec["bound_by"].get(part["bound_by"], 0) + 1
+    rec["parts"].append(part)
+
+
+def new_record() -> dict:
+    return {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {},
+            "parts": []}
+
+
+def dense_times(main_cps, envs) -> dict:
+    """The L2SVM main path's CPlans timed: a record per kernel."""
+    from repro_torch.kernels import cellwise, multiagg, ref, rowwise
+    wrappers = {"cell": cellwise.cell, "magg": multiagg.multiagg,
+                "row": rowwise.row}
+    per_kernel = {k: new_record() for k in KERNELS}
+    for (region, cp), env in zip(main_cps, envs):
+        kname = kernel_name(cp)
+        add_part(per_kernel[kname], time_part(
+            region, kname, cp, env, lambda: wrappers[kname](cp, env),
+            lambda: ref.execute_dense(cp, env), ref.execute_dense(cp, env)))
+    return per_kernel
+
+
+def outer_times(cps, envs) -> dict:
+    """The ALS CPlans timed: the Outer kernel's record."""
+    from repro_torch.kernels import outerprod
+    rec = new_record()
+    for (label, cp), env in zip(cps, envs):
+        part = time_part(label, "outer", cp, env,
+                         lambda: outerprod.outer(cp, env),
+                         lambda: outerprod.outer_plain(cp, env),
+                         outerprod.outer_plain(cp, env))
+        part["nblocks"] = env[cp.main.nid].nblocks
+        add_part(rec, part)
+    return rec
+
+
+def l2svm_data(m: int):
+    """The L2SVM main path's X (m, N_MAIN) and labels from a planted w,
+    drawn on the card from a seeded ``torch.Generator``."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(0)
+    X = torch.randn((m, N_MAIN), generator=g, device="cuda")
+    w_true = torch.randn((N_MAIN, 1), generator=g, device="cuda")
+    noise = torch.randn((m, 1), generator=g, device="cuda")
+    y = torch.where(X @ w_true + 0.5 * noise >= 0, 1.0, -1.0)
+    return X, y
+
+
 # --------------------------------------------------------------------------
 # phases
 # --------------------------------------------------------------------------
@@ -679,12 +793,10 @@ def run() -> None:
     import repro_torch
     from repro_torch.algos import l2svm
     from repro_torch.kernels import (build, cellwise, cuda_src, multiagg,
-                                     ops, outerprod, ref, rowwise, sweep)
+                                     ops, outerprod, rowwise, sweep)
     from repro_torch.kernels.blocksparse import BCSR
     counters = {"cell": cellwise, "magg": multiagg, "row": rowwise,
                 "outer": outerprod}
-    wrappers = {"cell": cellwise.cell, "magg": multiagg.multiagg,
-                "row": rowwise.row}
     card = card_line()
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} repro_torch {repro_torch.__version__}")
@@ -730,6 +842,8 @@ def run() -> None:
         sources[src.key] = src
         if name in PLANTED or not name.startswith("outer/"):
             sources[planted(src).key] = planted(src)
+        if name in PLANTED_FOLD or name == "_wsq_mm V-update":
+            sources[planted(src, True).key] = planted(src, True)
     t_plan = time.perf_counter() - t0
     build.build_all(sources.values())
     t_build = time.perf_counter() - t0 - t_plan
@@ -773,12 +887,15 @@ def run() -> None:
             f"bs {c.bs:<3d} r {c.r:<2d} {env[cp.main.nid].nblocks:>3d} "
             f"blocks {cp.variant:9s} max|kernel-plain| {err:.3e} = "
             f"{share:.3g} x limit")
-        if c.name in PLANTED:
-            with planted_fault():
+        for fold in (False, True):
+            if c.name not in (PLANTED_FOLD if fold else PLANTED):
+                continue
+            with planted_fault(fold):
                 got = ops.execute(cp, env, kernels="cuda")
             err, share = measure(cp, env, got, f"planted {c.name}")
-            what = "middle blocks skipped" if c.variant == "right_mm" \
-                else "one partial dropped"
+            what = ("middle pieces dropped in the fold" if fold else
+                    "middle blocks skipped" if c.variant == "right_mm"
+                    else "one partial dropped")
             log(f"[check] planted fault ({what}) {c.name}: "
                 f"max|kernel-plain| {err:.3e} = {share:.3g} x limit")
             if not share > 1.0:
@@ -804,12 +921,7 @@ def run() -> None:
             f"max|kernel-plain| {err:.3e} = {share:.3g} x limit")
 
     # 5. the main path -------------------------------------------------------
-    g = torch.Generator(device="cuda").manual_seed(0)
-    X = torch.randn((m_main, N_MAIN), generator=g, device="cuda")
-    w_true = torch.randn((N_MAIN, 1), generator=g, device="cuda")
-    noise = torch.randn((m_main, 1), generator=g, device="cuda")
-    y = torch.where(X @ w_true + 0.5 * noise >= 0, 1.0, -1.0)
-    del noise
+    X, y = l2svm_data(m_main)
     torch.cuda.synchronize()
     for mod in counters.values():
         mod.launches = 0
@@ -855,31 +967,7 @@ def run() -> None:
     del X, y, w, _w2, _w3, _w4
 
     # 6. timing at the main path's shapes ----------------------------------
-    per_kernel = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                      "bound_by": {}, "parts": []} for k in KERNELS}
-    for (region, cp), env in zip(main_cps, envs):
-        kname = kernel_name(cp)
-        out = ref.execute_dense(cp, env)
-        kernel = lambda: wrappers[kname](cp, env)
-        plain = lambda: ref.execute_dense(cp, env)
-        ms, plain_ms = time_ms(kernel), time_ms(plain)
-        dev_ms, dev_plain_ms = device_ms(kernel), device_ms(plain)
-        b_ms, b_by = bound_ms(cp, env, out)
-        agg = per_kernel[kname]
-        agg["ms"] += ms
-        agg["plain_ms"] += plain_ms
-        agg["bound_ms"] += b_ms
-        agg["bound_by"][b_by] = agg["bound_by"].get(b_by, 0) + 1
-        agg["parts"].append({"region": region, "variant": cp.variant,
-                             "binds": [list(b.shape) for b in cp.binds],
-                             "ms": ms, "plain_ms": plain_ms,
-                             "device_ms": dev_ms,
-                             "plain_device_ms": dev_plain_ms,
-                             "bound_ms": b_ms, "bound_by": b_by})
-        log(f"[time] {region:22s} {kname:4s} {cp.variant:9s} kernel "
-            f"{ms:.4f} ms (device {dev_ms}) plain {plain_ms:.4f} ms "
-            f"(device {dev_plain_ms}) bound {b_ms:.4f} ms ({b_by})")
-
+    per_kernel = dense_times(main_cps, envs)
     del big, envs
     torch.cuda.empty_cache()
 
@@ -918,6 +1006,7 @@ def als_phase(counters, launches, main_err) -> dict:
     import torch
     from repro_torch.algos import als_cg
     from repro_torch.kernels import outerprod
+    from repro_torch.kernels.blocksparse import PIECE_BLOCKS
     t0 = time.perf_counter()
     X = netflix_like(ALS_SHAPE, seed=0)
     torch.cuda.synchronize()
@@ -990,6 +1079,9 @@ def als_phase(counters, launches, main_err) -> dict:
 
     # the ALS CPlans at the main path's shapes against plain
     XT = X.T                # the runs above built and dropped their own
+    log(f"[als] Outer grid: {X.pieces.table.shape[0]} pieces over X's "
+        f"{m // X.bs} block rows, {XT.pieces.table.shape[0]} over X^T's "
+        f"{n // X.bs} (at most {PIECE_BLOCKS} blocks each)")
     gen = torch.Generator(device="cuda").manual_seed(4321)
     cps = als_cplans(X, XT)
     envs = []
@@ -1001,38 +1093,77 @@ def als_phase(counters, launches, main_err) -> dict:
         log(f"[check] main path {label:22s} outer {cp.variant:9s} binds "
             f"{[tuple(b.shape) for b in cp.binds]} max|kernel-plain| "
             f"{err:.3e} = {share:.3g} x limit")
+        if label.endswith("V-update"):
+            with planted_fault(fold=True):
+                got = outerprod.outer(cp, env)
+            err, share = measure(cp, env, got, f"planted fold {label}")
+            del got
+            log(f"[check] planted fault (middle pieces dropped in the "
+                f"fold) main path {label}: max|kernel-plain| {err:.3e} = "
+                f"{share:.3g} x limit")
+            if not share > 1.0:
+                failed.append(f"planted fold fault in {label} passed the "
+                              f"kernel check")
 
     # timing at the main path's shapes
-    rec = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {},
-           "parts": []}
-    for (label, cp), env in zip(cps, envs):
-        kernel = lambda: outerprod.outer(cp, env)
-        plain = lambda: outerprod.outer_plain(cp, env)
-        ms, plain_ms = time_ms(kernel), time_ms(plain)
-        dev_ms, dev_plain_ms = device_ms(kernel), device_ms(plain)
-        b_ms, b_by = bound_ms(cp, env, plain())
-        rec["ms"] += ms
-        rec["plain_ms"] += plain_ms
-        rec["bound_ms"] += b_ms
-        rec["bound_by"][b_by] = rec["bound_by"].get(b_by, 0) + 1
-        rec["parts"].append({"region": label, "variant": cp.variant,
-                             "binds": [list(b.shape) for b in cp.binds],
-                             "nblocks": env[cp.main.nid].nblocks,
-                             "ms": ms, "plain_ms": plain_ms,
-                             "device_ms": dev_ms,
-                             "plain_device_ms": dev_plain_ms,
-                             "bound_ms": b_ms, "bound_by": b_by})
-        log(f"[time] {label:22s} outer {cp.variant:9s} kernel {ms:.4f} ms "
-            f"(device {dev_ms}) plain {plain_ms:.4f} ms (device "
-            f"{dev_plain_ms}) bound {b_ms:.4f} ms ({b_by})")
+    rec = outer_times(cps, envs)
     if failed:
         raise AssertionError("; ".join(failed))
     return rec
 
 
+def times_only() -> None:
+    """``--times``: the readings of speed only, to compare two trees of the
+    port on one card: the profiles of both main paths and the times of
+    their CPlans, with no checks and no result line.  Copied into an older
+    checkout, the script reads that checkout's package the same way."""
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.algos import als_cg, l2svm
+    from repro_torch.kernels import build, cuda_src
+    log(f"[env] {ROOT} torch {torch.__version__}; nvidia-smi: "
+        f"{card_line()}")
+    main_cps = main_path_cplans(M_MAIN, N_MAIN)
+    shape = padded(ALS_SHAPE)
+    meta = als_cplans(meta_bcsr(shape), meta_bcsr(shape[::-1]))
+    srcs = [cuda_src.source_for(cp) for _r, cp in main_cps] + \
+        [cuda_src.source_for(cp, ALS_BS) for _l, cp in meta]
+    build.build_all({s.key: s for s in srcs}.values())
+
+    X, y = l2svm_data(M_MAIN)
+    l2svm.run(X, y, max_iter=ITERS, kernels="cuda")       # plans cached
+    profile_run(f"l2svm.run kernels=cuda, {ITERS} iterations",
+                lambda: l2svm.run(X, y, max_iter=ITERS, kernels="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(1234)
+    envs = [random_env(cp, gen, {(M_MAIN, N_MAIN): X}) for _r, cp in main_cps]
+    dense_times(main_cps, envs)
+    del X, y, envs
+    torch.cuda.empty_cache()
+
+    Xs = netflix_like(ALS_SHAPE, seed=0)
+    run = lambda: als_cg.run(Xs, rank=ALS_RANK, max_iter=ALS_ITERS,
+                             max_inner=ALS_INNER, kernels="cuda")
+    run()                                                   # plans cached
+    profile_run(f"als_cg.run kernels=cuda, rank {ALS_RANK}, {ALS_ITERS} x "
+                f"{ALS_INNER} iterations", run)
+    XT = Xs.T
+    gen = torch.Generator(device="cuda").manual_seed(4321)
+    cps = als_cplans(Xs, XT)
+    outer_times(cps, [als_env(cp, XT if label.endswith("V-update") else Xs,
+                              gen) for label, cp in cps])
+    log(card_line())
+
+
 def main() -> int:
+    args = sys.argv[1:]
+    if args not in ([], ["--times"]):
+        print("usage: python3 chip_smoke.py [--times]", file=sys.stderr)
+        return 2
     try:
-        run()
+        times_only() if args else run()
     except Exception:                 # noqa: BLE001 - report, exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -4,8 +4,9 @@ The reference keeps a sparse matrix as square (bs × bs) blocks, only the
 non-zero ones, sorted row-major (``repro/kernels/blocksparse.py``); the
 port keeps the same arrays, bit for bit, in torch tensors on any device.
 Sparsity exploitation happens at block granularity: the Outer kernel
-(``csrc/outer.cuh``) walks the blocks of one block row per CTA through
-:attr:`BCSR.rowptr`, the block-row pointer.
+(``csrc/outer.cuh``) gives each CTA one *piece* of :attr:`BCSR.pieces`, a
+run of at most :data:`PIECE_BLOCKS` consecutive blocks of one block row,
+cut from :attr:`BCSR.rowptr`, the block-row pointer.
 
 CLA compression (``DictCompressed``) and the block-row partition for
 distributed segments (``ShardedBCSR``, ``partition_block_rows``) are not
@@ -15,13 +16,28 @@ ported yet (ROADMAP queue A item 3).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 DEFAULT_BLOCK = 128
+#: most blocks in one piece of the Outer kernel's grid.  Xᵀ of the ALS
+#: configuration has 139 block rows of ≈940 blocks on 132 SMs with two
+#: CTAs each: one CTA per row left the last wave to a few SMs.  At 32 a
+#: row of Xᵀ splits into ≈30 pieces (≈4,200 in all, ≈16 per CTA slot), so
+#: the tail is a small share; a piece's fixed cost (its U rows, one (bs ×
+#: k) partial written and folded) stays ≈2 % of its blocks' bytes.
+PIECE_BLOCKS = 32
+
+
+class Pieces(NamedTuple):
+    """The Outer kernel's grid over a BCSR (see :attr:`BCSR.pieces`)."""
+    #: (npieces, 3) int32: block row, first block, end block (exclusive)
+    table: torch.Tensor
+    #: (mb + 1,) int32: the pieces of block row i are ``ptr[i]:ptr[i + 1]``
+    ptr: torch.Tensor
 
 
 def _tensor(x) -> torch.Tensor:
@@ -45,6 +61,9 @@ class BCSR:
     #: block-row pointer (mb + 1,) int32, computed once (see :attr:`rowptr`)
     _rowptr: Optional[torch.Tensor] = field(default=None, repr=False,
                                             compare=False)
+    #: the piece table, computed once (see :attr:`pieces`)
+    _pieces: Optional[Pieces] = field(default=None, repr=False,
+                                      compare=False)
 
     def __post_init__(self) -> None:
         self.shape = (int(self.shape[0]), int(self.shape[1]))
@@ -81,14 +100,40 @@ class BCSR:
                 self.rows.contiguous(), bounds).to(torch.int32)
         return self._rowptr
 
+    @property
+    def pieces(self) -> Pieces:
+        """Block row i of L blocks splits into P = max(1, ⌈L / C⌉) pieces
+        of near-equal length (C = :data:`PIECE_BLOCKS`), in block order;
+        piece q covers blocks ``rowptr[i] + ⌊qL/P⌋ : rowptr[i] +
+        ⌊(q+1)L/P⌋``.  An empty row has one empty piece.  Computed from
+        :attr:`rowptr` by torch ops on its device on first use and kept on
+        the object."""
+        if self._pieces is None:
+            rp = self.rowptr.long()
+            lens = rp[1:] - rp[:-1]
+            per = torch.clamp((lens + PIECE_BLOCKS - 1) // PIECE_BLOCKS,
+                              min=1)
+            ptr = torch.cat([per.new_zeros(1), torch.cumsum(per, 0)])
+            row = torch.repeat_interleave(
+                torch.arange(lens.numel(), device=rp.device), per)
+            q = torch.arange(row.numel(), device=rp.device) - ptr[row]
+            first = rp[row] + q * lens[row] // per[row]
+            end = rp[row] + (q + 1) * lens[row] // per[row]
+            self._pieces = Pieces(
+                torch.stack([row, first, end], 1).to(torch.int32)
+                .contiguous(), ptr.to(torch.int32))
+        return self._pieces
+
     def to(self, device) -> "BCSR":
         """This matrix on ``device`` (itself when it is already there)."""
         device = torch.device(device)
         if self.data.device == device:
             return self
         rp = self._rowptr.to(device) if self._rowptr is not None else None
+        pc = Pieces(*(t.to(device) for t in self._pieces)) \
+            if self._pieces is not None else None
         return BCSR(self.data.to(device), self.rows.to(device),
-                    self.cols.to(device), self.shape, self.bs, rp)
+                    self.cols.to(device), self.shape, self.bs, rp, pc)
 
     # -- conversion -----------------------------------------------------------
     @staticmethod

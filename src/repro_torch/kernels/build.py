@@ -106,13 +106,14 @@ def build_all(sources: Iterable[KernelSource]) -> list[Path]:
 #: argument types of the two launcher ABIs: ``repro_launch`` (Cell, MAgg,
 #: Row: bind pointers, out, part, m, nblocks, aux) and
 #: ``repro_launch_outer`` (Outer: bind pointers, the BCSR's data, cols and
-#: block-row pointer, the closer, out, part, m, n, nblocks, bs, r, k)
+#: block-row pointer, its piece table, piece pointer and piece count, the
+#: closer, out, part, m, n, nblocks, bs, r, k)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "repro_launch": [ctypes.POINTER(_P), _P, _P, _LL, _I, ctypes.c_double,
                      _P, _I],
-    "repro_launch_outer": [ctypes.POINTER(_P), _P, _P, _P, _P, _P, _P, _LL,
-                           _LL, _I, _I, _I, _I, _P, _I],
+    "repro_launch_outer": [ctypes.POINTER(_P), _P, _P, _P, _P, _P, _LL, _P,
+                           _P, _P, _LL, _LL, _I, _I, _I, _I, _P, _I],
 }
 
 
@@ -189,13 +190,16 @@ def launch(src: KernelSource, binds: list[torch.Tensor], out: torch.Tensor,
 
 def launch_outer(src: KernelSource, binds: list[torch.Tensor],
                  xdata: torch.Tensor, cols: torch.Tensor,
-                 rowptr: torch.Tensor, closer: Optional[torch.Tensor],
-                 out: torch.Tensor, part: Optional[torch.Tensor], m: int,
-                 n: int, nblocks: int, bs: int, r: int, k: int) -> None:
-    """Launch the Outer kernel (one CTA per block row) on the current
-    stream; raises when the launcher reports an error, including block
-    size, rank or closer width other than the compiled ones."""
-    for name, t in (("cols", cols), ("rowptr", rowptr)):
+                 rowptr: torch.Tensor, pieces, closer: Optional[torch.Tensor],
+                 out: torch.Tensor, part: torch.Tensor, m: int, n: int,
+                 nblocks: int, bs: int, r: int, k: int) -> None:
+    """Launch the Outer kernel (one CTA per piece of ``pieces``, a
+    :class:`~repro_torch.kernels.blocksparse.Pieces`) and its fold on the
+    current stream; raises when the launcher reports an error, including
+    block size, rank or closer width other than the compiled ones."""
+    for name, t in (("cols", cols), ("rowptr", rowptr),
+                    ("piece table", pieces.table),
+                    ("piece pointer", pieces.ptr)):
         if t.dtype != torch.int32 or not t.is_contiguous() \
                 or t.device != out.device:
             raise ValueError(f"BCSR {name}: contiguous int32 on "
@@ -205,10 +209,11 @@ def launch_outer(src: KernelSource, binds: list[torch.Tensor],
     ptrs = (ctypes.c_void_p * len(binds))(*[t.data_ptr() for t in binds])
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(ptrs, xdata.data_ptr(), cols.data_ptr(), rowptr.data_ptr(),
+            pieces.table.data_ptr(), pieces.ptr.data_ptr(),
+            int(pieces.table.shape[0]),
             closer.data_ptr() if closer is not None else None,
-            out.data_ptr(), part.data_ptr() if part is not None else None,
-            int(m), int(n), int(nblocks), int(bs), int(r), int(k), stream,
-            dev.index)
+            out.data_ptr(), part.data_ptr(), int(m), int(n), int(nblocks),
+            int(bs), int(r), int(k), stream, dev.index)
     if rc != 0:
         raise RuntimeError(f"outer kernel launch failed: cudaError {rc} "
                            f"({library_path(src).name})")

@@ -580,10 +580,59 @@ def row_source(cplan: CPlan) -> KernelSource:
 # --------------------------------------------------------------------------
 
 _OUTER_VARIANT = {RIGHT_MM: 0, FULL_AGG: 1}
-#: block sizes the Outer skeleton tiles (16 × 16 threads, (bs/16)² cells
-#: each) and the shared memory a CTA may opt into (bytes)
+#: block sizes the Outer skeleton takes (multiples of 16 up to this) and
+#: the shared memory a CTA may opt into (bytes)
 _OUTER_BS_MAX = 128
 _OUTER_SMEM_MAX = 227 * 1024
+#: depth of the Outer kernel's cp.async ring of column slices: two slices
+#: in flight while one is computed; at bs 128, rank 20 the ring leaves room
+#: for two CTAs per SM
+_OUTER_STAGES = 3
+
+
+#: rows of a block each thread of the Outer kernel takes, per variant:
+#: every V value it reads from shared memory serves this many cells.
+#: right_mm keeps 2K running sums per row in registers besides U's row, so
+#: at two rows it spills past the 128 registers two CTAs per SM allow
+_OUTER_RPT = {RIGHT_MM: 1, FULL_AGG: 2}
+
+
+@dataclass(frozen=True)
+class OuterLayout:
+    """The Outer kernel's CTA (``csrc/outer.cuh`` checks it again):
+    ``threads`` = (bs / ``rpt``) × ``stripes``; thread t takes rows
+    t % (bs / rpt) + q bs / rpt (q < rpt) of a block and column stripe
+    t // (bs / rpt); X is staged in column slices of ``sc`` (each stripe a
+    whole number of float4 groups of every slice) through a ring of
+    ``stages``; ``smem`` bytes of dynamic shared memory (the ring, reused
+    at the end of a piece to add the stripes' sums)."""
+    threads: int
+    rpt: int
+    stripes: int
+    sc: int
+    stages: int
+    smem: int
+
+
+def outer_layout(bs: int, r: int, k: int, variant: str,
+                 close_is_v: bool) -> OuterLayout:
+    """The layout at block size ``bs``, rank ``r``, closer width ``k`` (0
+    for ``full_agg``); ``close_is_v``: the closer panel is V's, staged
+    once.  Raises when it needs more shared memory than a CTA may have."""
+    rpt = _OUTER_RPT[variant]
+    rb = bs // rpt
+    h = next(h for h in (8, 4, 2, 1) if rb * h <= 256 and (bs // 4) % h == 0)
+    sc = next(c for c in (32, 16, 8, 4) if bs % c == 0 and c % (4 * h) == 0)
+    pad4 = lambda w: -(-w // 4) * 4
+    stage = bs * (sc + 4) + sc * pad4(r) + (
+        sc * pad4(k) if variant == RIGHT_MM and not close_is_v else 0)
+    red = h * bs * k if variant == RIGHT_MM else rb * h
+    smem = 4 * max(_OUTER_STAGES * stage, red)
+    if smem > _OUTER_SMEM_MAX:
+        raise NotImplementedError(
+            f"Outer kernel: {smem} bytes of shared memory at bs={bs}, r={r},"
+            f" k={k} (a CTA may have {_OUTER_SMEM_MAX})")
+    return OuterLayout(rb * h, rpt, h, sc, _OUTER_STAGES, smem)
 
 
 def _outer_mm_nid(cplan: CPlan) -> int:
@@ -661,20 +710,22 @@ def outer_source(cplan: CPlan, bs: int) -> KernelSource:
                                   f"{cplan.binds[vb].shape} are not U (m,r) "
                                   f"and V (n,r)")
     k = 0
+    close_is_v = False
     if variant == RIGHT_MM:
         if cplan.close_nid not in {b.nid for b in cplan.binds}:
             raise _unsupported(cplan, "closer computed inside the program")
         k = root_shape(cplan, cplan.close_nid)[0 if cplan.close_tb else 1]
+        close_is_v = (cplan.close_nid == cplan.binds[vb].nid
+                      and not cplan.close_tb)
         agg = "sum"
     else:
         agg = cplan.agg_op
         if agg not in ("sum", "min", "max"):
             raise _unsupported(cplan, f"full aggregate '{agg}' over blocks")
-    smem = 4 * (2 * r * bs + (bs * k + bs * (bs + 1) if variant == RIGHT_MM
-                              else 256))
-    if smem > _OUTER_SMEM_MAX:
-        raise _unsupported(cplan, f"{smem} bytes of shared memory at bs={bs},"
-                                  f" r={r}, k={k}")
+    try:
+        lay = outer_layout(bs, r, k, variant, close_is_v)
+    except NotImplementedError as e:
+        raise _unsupported(cplan, str(e)) from None
     body = _outer_body(cplan)
     lines = [
         "// Outer template: " + _describe(cplan), *_header("outer"),
@@ -683,6 +734,10 @@ def outer_source(cplan: CPlan, bs: int) -> KernelSource:
         f"R = {r}, K = {k}, UB = {ub}, VB = {vb};",
         f"  static constexpr int VARIANT = {_OUTER_VARIANT[variant]}, "
         f"AGG = {AGG_CODE[agg]};",
+        f"  static constexpr int THREADS = {lay.threads}, RPT = {lay.rpt}, "
+        f"SC = {lay.sc}, STAGES = {lay.stages}, SMEM = {lay.smem};",
+        f"  static constexpr bool CLOSE_IS_V = "
+        f"{'true' if close_is_v else 'false'};",
         "  __device__ static __forceinline__ int agg_of(int) "
         "{ return AGG; }",
         "  __device__ static __forceinline__ float fin(int, float a, "
@@ -695,11 +750,13 @@ def outer_source(cplan: CPlan, bs: int) -> KernelSource:
         "};", "",
         'extern "C" int repro_launch_outer(void* const* binds, '
         "const void* xdata, const void* cols, const void* rowptr, "
+        "const void* pieces, const void* pieceptr, long long npieces, "
         "const void* closer, void* out, void* part, long long m, "
         "long long n, int nblocks, int bs, int r, int k, void* stream, "
         "int device) {",
-        "  return outer_launch<Prog>(binds, xdata, cols, rowptr, closer, "
-        "out, part, m, n, nblocks, bs, r, k, stream, device);",
+        "  return outer_launch<Prog>(binds, xdata, cols, rowptr, pieces, "
+        "pieceptr, npieces, closer, out, part, m, n, nblocks, bs, r, k, "
+        "stream, device);",
         "}", ""]
     return KernelSource("outer", "\n".join(lines), (m, n),
                         elems=1 if variant == FULL_AGG else 0)

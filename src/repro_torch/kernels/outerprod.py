@@ -13,8 +13,11 @@ the X block and the sides, and
 Work is ∝ non-zero blocks, never m × n.  The kernel source is generated
 per CPlan and block size (:func:`repro_torch.kernels.cuda_src.
 outer_source`) over ``csrc/outer.cuh``; see its header for the design and
-what bounds it on the card.  :func:`outer` launches it for a BCSR on the
-card and takes :func:`outer_plain` only for one on the CPU.
+what bounds it on the card.  Its grid runs over the BCSR's pieces
+(:attr:`~repro_torch.kernels.blocksparse.BCSR.pieces`); the partials of a
+row's pieces are folded in order in the same call.  :func:`outer`
+launches it for a BCSR on the card and takes :func:`outer_plain` only for
+one on the CPU.
 """
 
 from __future__ import annotations
@@ -57,6 +60,9 @@ def outer_plain(cplan: CPlan, env: dict) -> torch.Tensor:
 
 
 def _dense_operand(t, device: torch.device, what: str) -> torch.Tensor:
+    """``t`` checked (fp32, contiguous, on ``device``); a view that does
+    not start on a 16-byte boundary is copied, since the kernel stages its
+    operands with 16-byte copies."""
     t = t.todense() if isinstance(t, BCSR) else t
     if not isinstance(t, torch.Tensor) or t.device != device:
         raise ValueError(f"{what} is not a tensor on {device}")
@@ -64,7 +70,7 @@ def _dense_operand(t, device: torch.device, what: str) -> torch.Tensor:
         raise TypeError(f"{what}: {t.dtype}, the kernel takes float32")
     if not t.is_contiguous():
         raise ValueError(f"{what} is not contiguous")
-    return t
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def outer(cplan: CPlan, env: dict) -> torch.Tensor:
@@ -94,19 +100,28 @@ def outer(cplan: CPlan, env: dict) -> torch.Tensor:
                                  f"{tuple(t.shape)} != planned "
                                  f"{tuple(b.shape)}")
         binds.append(t)
-    r = binds[[b.kind for b in cplan.binds].index("factor_u")].shape[1]
+    kinds = [b.kind for b in cplan.binds]
+    r = binds[kinds.index("factor_u")].shape[1]
+    pieces = X.pieces
+    npieces = pieces.table.shape[0]
     closer, k = None, 0
     if cplan.variant == RIGHT_MM:
-        closer = _dense_operand(env[cplan.close_nid], dev, "closer")
-        if cplan.close_tb:
-            closer = closer.T.contiguous()
+        if cplan.close_nid == cplan.binds[kinds.index("factor_v")].nid \
+                and not cplan.close_tb:
+            closer = binds[kinds.index("factor_v")]     # staged once, as V
+        else:
+            closer = _dense_operand(env[cplan.close_nid], dev, "closer")
+            if cplan.close_tb:
+                closer = closer.T.contiguous()
         k = closer.shape[1]
         out = torch.empty((m, k), dtype=torch.float32, device=dev)
-        part = None
+        part = torch.empty((npieces, X.bs, k), dtype=torch.float32,
+                           device=dev)
     else:
         out = torch.empty((1, 1), dtype=torch.float32, device=dev)
-        part = torch.empty(m // X.bs, dtype=torch.float32, device=dev)
-    build.launch_outer(src, binds, X.data, X.cols, X.rowptr, closer, out,
-                       part, m, n, X.nblocks, X.bs, r, k)
+        part = torch.empty(npieces, dtype=torch.float32, device=dev)
+    build.launch_outer(src, binds, binds[kinds.index("main")], X.cols,
+                       X.rowptr, pieces, closer, out, part, m, n, X.nblocks,
+                       X.bs, r, k)
     launches += 1
     return out

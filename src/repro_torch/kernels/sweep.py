@@ -17,6 +17,7 @@ from typing import Callable, Optional
 import numpy as np
 
 from repro_torch.core import cost, cplan, explore, ir, select, templates
+from repro_torch.kernels.blocksparse import PIECE_BLOCKS
 
 
 def _operands(m: int, n: int) -> dict[str, tuple[int, int]]:
@@ -165,8 +166,9 @@ def fused_cplan(case, m: int, n: int, sparsity: Optional[dict] = None):
 @dataclass(frozen=True)
 class OuterCase:
     """One Outer CPlan over a BCSR main X of ``grid`` (block rows, block
-    cols) blocks of ``bs``: ``((X≠0) ⊙ (U Vᵀ)) [⊙ S] @ V`` (``right_mm``)
-    or its sum (``full_agg``); ``loss`` is ALS's Σ((X≠0)⊙(UVᵀ) − X)²."""
+    cols) blocks of ``bs``: ``((X≠0) ⊙ (U Vᵀ)) [⊙ S] @ V`` (``right_mm``;
+    ``@ t(w)``, w (1, n), with ``closer``) or its sum
+    (``full_agg``); ``loss`` is ALS's Σ((X≠0)⊙(UVᵀ) − X)²."""
     name: str
     variant: str                  # "right_mm" | "full_agg"
     bs: int
@@ -177,6 +179,10 @@ class OuterCase:
     side: Optional[str] = None
     empty_rows: tuple[int, ...] = ()
     loss: bool = False
+    #: blocks in each block row (at seeded columns), in place of density
+    row_blocks: tuple[int, ...] = ()
+    #: close with t(w), w (1, n), in place of V
+    closer: bool = False
     template: str = "outer"
     want: str = "OUTER"
 
@@ -189,22 +195,31 @@ class OuterCase:
         if self.side is not None:
             out["S"] = {"col": (m, 1), "row": (1, n), "scalar": (1, 1),
                         "full": (m, n)}[self.side]
+        if self.closer:
+            out["W"] = (1, n)
         return out
 
-    def expr(self, ir, X, U, V, S=None):
+    def expr(self, ir, X, U, V, S=None, W=None):
         c = ir.neq0(X) * (U @ V.T)
         if self.loss:
             return ((c - X) ** 2).sum()
         if S is not None:
             c = c * S
-        return c @ V if self.variant == "right_mm" else c.sum()
+        if self.variant == "full_agg":
+            return c.sum()
+        return c @ (V if W is None else W.T)
 
 
 def outer_cases() -> list[OuterCase]:
     """``right_mm`` and ``full_agg`` at bs 16 and 128, rank 8 and 20, block
     densities 0.0 (one forced block), 0.3 and 1.0; a grid with empty block
     rows; one case each with an (m,1), (1,n), (1,1) and (m,n) side; the
-    ALS loss chain (a sum of non-negative terms)."""
+    ALS loss chain (a sum of non-negative terms); a closer other than V
+    (t(w) of a (1, n) side: one output column);
+    block rows longer than a piece of the kernel's grid (C =
+    ``PIECE_BLOCKS``): rows of 1, 0, C, C + 1, 2C + 16, 2C, 5 and 0 blocks
+    at bs 16 (the template needs m ≥ 128), and of C + 1, 0 and 2C + 2 at
+    bs 128, rank 20."""
     out = []
     for variant in ("right_mm", "full_agg"):
         for bs, grid in ((128, (4, 3)), (16, (8, 9))):
@@ -225,18 +240,35 @@ def outer_cases() -> list[OuterCase]:
                   20, side="full"),
         OuterCase("outer/full_agg_loss", "full_agg", 128, (4, 3), 0.7, 20,
                   loss=True),
+        OuterCase("outer/right_mm_closer_w", "right_mm", 128, (4, 3), 0.5,
+                  20, closer=True),
     ]
+    C = PIECE_BLOCKS
+    for variant in ("right_mm", "full_agg"):
+        out.append(OuterCase(f"outer/{variant}_long_rows_bs16", variant, 16,
+                             (8, 2 * C + 16), 0.0, 8,
+                             row_blocks=(1, 0, C, C + 1, 2 * C + 16, 2 * C,
+                                         5, 0)))
+    out.append(OuterCase("outer/right_mm_long_rows_bs128", "right_mm", 128,
+                         (3, 2 * C + 2), 0.0, 20,
+                         row_blocks=(C + 1, 0, 2 * C + 2)))
     return out
 
 
 def outer_values(case: OuterCase, seed: int = 0) -> dict[str, np.ndarray]:
-    """Seeded numpy operands of ``case``: X dense (m, n), zero outside its
-    non-zero blocks, plus U, V and the side."""
+    """Seeded numpy operands of ``case`` (an :class:`OuterCase`, or any
+    object with its grid, density and shapes): X dense (m, n), zero
+    outside its non-zero blocks, plus U, V and the side."""
     rng = np.random.default_rng(seed)
     mb, nbc = case.grid
     mask = rng.random((mb, nbc)) < case.density
+    row_blocks = getattr(case, "row_blocks", ())
+    for r, nblk in enumerate(row_blocks):
+        mask[r] = False
+        mask[r, rng.permutation(nbc)[:nblk]] = True
     mask[list(case.empty_rows), :] = False
-    mask.flat[0] = True
+    if not row_blocks:
+        mask.flat[0] = True
     m, n = case.shape
     vals = {"X": (rng.normal(size=(m, n))
                   * np.kron(mask, np.ones((case.bs, case.bs)))

@@ -2,7 +2,8 @@
 reference's: ``from_dense``, ``todense``, ``.T``, ``pad_to_blocks``, the
 block-row pointer, the carrier ``interop.to_bcsr`` and ``data.ratings``,
 on seeded numpy inputs.  The index arrays and block data must be the
-reference's exactly (bit for bit)."""
+reference's exactly (bit for bit).  Also the Outer kernel's piece table
+(``BCSR.pieces``), which has no reference counterpart: its invariants."""
 
 import numpy as np
 import pytest
@@ -12,7 +13,8 @@ from repro.algos import data as ref_data
 from repro.kernels import blocksparse as rbs
 from repro_torch.algos import data
 from repro_torch.interop import to_bcsr
-from repro_torch.kernels.blocksparse import BCSR, pad_to_blocks
+from repro_torch.kernels.blocksparse import (BCSR, PIECE_BLOCKS,
+                                            pad_to_blocks)
 
 torch.set_num_threads(1)
 
@@ -105,3 +107,74 @@ def test_to_bcsr_carries_the_reference_and_moves_devices():
     assert port.to("cpu") is port
     moved = port.to("meta")
     assert moved.device.type == "meta" and moved.shape == port.shape
+
+
+C = PIECE_BLOCKS
+#: block rows of 0, 1, C - 1, C, C + 1, 2C, 2C + 1 and 3C + 5 blocks
+ROW_LENGTHS = (0, 1, C - 1, C, C + 1, 2 * C, 2 * C + 1, 3 * C + 5)
+
+
+def _long_rows(bs=16, seed=5):
+    rng = np.random.default_rng(seed)
+    nbc = max(ROW_LENGTHS) + 3
+    mask = np.zeros((len(ROW_LENGTHS), nbc), bool)
+    for r, n in enumerate(ROW_LENGTHS):
+        mask[r, rng.permutation(nbc)[:n]] = True
+    dense = rng.normal(size=(mask.shape[0] * bs, nbc * bs)).astype(np.float32)
+    return dense * np.kron(mask, np.ones((bs, bs), np.float32))
+
+
+def _check_pieces(x: BCSR) -> None:
+    table, ptr = x.pieces
+    mb = x.shape[0] // x.bs
+    rp = x.rowptr.long()
+    assert table.dtype == ptr.dtype == torch.int32
+    assert tuple(ptr.shape) == (mb + 1,) and table.shape[1] == 3
+    assert int(ptr[0]) == 0 and int(ptr[-1]) == table.shape[0]
+    row, first, end = (table[:, c].long() for c in range(3))
+    # every block exactly once, in order: the pieces tile 0..nblocks
+    assert int(first[0]) == 0 and int(end[-1]) == x.nblocks
+    assert torch.equal(first[1:], end[:-1])
+    assert bool((end >= first).all()) and bool((end - first <= C).all())
+    # a piece never crosses its block row, and each row's pieces are
+    # ptr[i]:ptr[i + 1]; an empty row has one empty piece
+    assert bool((first >= rp[row]).all()) and bool((end <= rp[row + 1]).all())
+    per = (ptr[1:] - ptr[:-1]).long()
+    assert torch.equal(row, torch.repeat_interleave(torch.arange(mb), per))
+    lens = rp[1:] - rp[:-1]
+    assert torch.equal(per, torch.clamp(-(-lens // C), min=1))
+    empty = lens == 0
+    assert torch.equal(per[empty], torch.ones_like(per[empty]))
+    assert bool((end - first > 0)[~empty[row]].all())
+    assert x.pieces is x.pieces                       # kept on the object
+
+
+@pytest.mark.parametrize("grid,bs,density,empty", CASES)
+def test_piece_table_tiles_every_block_row(grid, bs, density, empty):
+    port = BCSR.from_dense(_dense(grid, bs, density, seed=11,
+                                  empty_rows=empty), bs=bs)
+    for x in (port, port.T):
+        _check_pieces(x)
+
+
+def test_piece_table_splits_long_rows_and_matches_the_transpose():
+    dense = _long_rows()
+    x = BCSR.from_dense(dense, bs=16)
+    _check_pieces(x)
+    counts = (x.pieces.ptr[1:] - x.pieces.ptr[:-1]).tolist()
+    assert counts == [1, 1, 1, 1, 2, 2, 3, 4]
+    # a row of L blocks in P pieces of near-equal length, in block order
+    sizes = (x.pieces.table[:, 2] - x.pieces.table[:, 1]).tolist()
+    want = []
+    for n in ROW_LENGTHS:
+        p = max(1, -(-n // C))
+        want += [(q + 1) * n // p - q * n // p for q in range(p)]
+    assert sizes == want
+    assert want[4:6] == [C // 2, C // 2 + 1]                  # C + 1 blocks
+    # Xᵀ by transposing the BCSR and by building it from the dense Xᵀ
+    xt, built = x.T, BCSR.from_dense(np.ascontiguousarray(dense.T), bs=16)
+    _check_pieces(xt)
+    for a, b in zip(xt.pieces, built.pieces):
+        assert torch.equal(a, b)
+    moved = x.to("meta")
+    assert all(t.device.type == "meta" for t in moved.pieces)

@@ -160,11 +160,13 @@ def test_outer_kernel_matches_plain(card, case):
 @pytest.mark.parametrize("name,what", [
     ("outer/right_mm_bs128_r20_d1.0", "outer"),
     ("outer/full_agg_loss", "outer"),
+    ("outer/right_mm_long_rows_bs128", "outer"),
+    ("outer/full_agg_long_rows_bs16", "outer"),
     ("outer/right_mm_empty_rows", "bcsr_matmul")])
 def test_sparse_results_repeat_bit_for_bit(card, name, what):
-    """No float atomics: the Outer kernel walks each block row in order
-    and folds partials in order; the block product sums each block row in
-    order."""
+    """No float atomics: the Outer kernel walks each piece of a block row
+    in order and folds pieces and partials in order (one launch per call,
+    the fold included); the block product sums each block row in order."""
     case = next(c for c in sweep.outer_cases() if c.name == name)
     cp, names, vals = _outer_plan(case)
     env = _outer_env(case, names, vals, card)
@@ -173,7 +175,11 @@ def test_sparse_results_repeat_bit_for_bit(card, name, what):
         run = lambda: ops.bcsr_matmul(X, v)
     else:
         run = lambda: ops.execute(cp, env, kernels="cuda")
+        if "long_rows" in name:               # rows cut into pieces
+            assert int(env[cp.main.nid].pieces.ptr.diff().max()) > 1
+    before = outerprod.launches
     assert torch.equal(run(), run())
+    assert outerprod.launches == before + (2 if what == "outer" else 0)
 
 
 def test_outer_launches_exactly_for_a_bcsr_on_the_card(card):

@@ -274,13 +274,56 @@ def test_outer_source_is_per_cplan_and_block_size():
     assert cuda_src.source_for(cp, bs=128) is src
     with pytest.raises(NotImplementedError, match="block size"):
         cuda_src.outer_source(cp, 24)
-    assert "#ifdef RK_PLANTED_FAULT" in (build.CSRC / "outer.cuh").read_text()
+    header = (build.CSRC / "outer.cuh").read_text()
+    assert "#ifdef RK_PLANTED_FAULT" in header
+    assert "#ifdef RK_PLANTED_FOLD" in header
     planted = chip_smoke().planted(src)
     assert planted.text == chip_smoke().PLANT + src.text
+    fold = chip_smoke().planted(src, fold=True)
+    assert fold.text == chip_smoke().PLANT_FOLD + src.text
     full = next(c for c in sweep.outer_cases()
                 if c.name == "outer/full_agg_loss")
     cpf, _ = sweep.fused_cplan(full, *full.shape, sparsity={"X": 0.7})
     assert cuda_src.source_for(cpf, bs=128).elems == 1
+
+
+def test_outer_shared_memory_accounting_fits_and_refuses_above_a_cta():
+    """The layout ``outer_source`` writes into ``Prog`` (``outer.cuh``
+    checks its sum with a static_assert): every sweep case and the ALS
+    CPlans fit a CTA's 227 KB, the ALS ones at bs 128, rank 20 in the
+    ~113 KB that lets two CTAs share an SM, every stripe takes whole
+    float4 groups; a rank whose ring cannot fit is refused."""
+    smoke = chip_smoke()
+    plans = []
+    for case in sweep.outer_cases():
+        cp, _ = sweep.fused_cplan(case, *case.shape, sparsity={"X": 0.5})
+        plans.append((case.name, cp, case.bs))
+    shape = smoke.padded(smoke.ALS_SHAPE)
+    als = smoke.als_cplans(smoke.meta_bcsr(shape),
+                           smoke.meta_bcsr(shape[::-1]))
+    plans += [(label, cp, smoke.ALS_BS) for label, cp in als]
+    for name, cp, bs in plans:
+        src = cuda_src.source_for(cp, bs=bs)
+        kinds = [b.kind for b in cp.binds]
+        r = cp.binds[kinds.index("factor_u")].shape[1]
+        k = cuda_src.root_shape(cp, cp.close_nid)[0 if cp.close_tb else 1] \
+            if cp.variant == "right_mm" else 0
+        close_is_v = (cp.variant == "right_mm" and not cp.close_tb and
+                      cp.close_nid == cp.binds[kinds.index("factor_v")].nid)
+        lay = cuda_src.outer_layout(bs, r, k, cp.variant, close_is_v)
+        assert (f"THREADS = {lay.threads}, RPT = {lay.rpt}, SC = {lay.sc}, "
+                f"STAGES = {lay.stages}, SMEM = {lay.smem};") in src.text
+        assert 0 < lay.smem <= 227 * 1024 and lay.stages >= 3, name
+        rb = bs // lay.rpt
+        assert lay.threads == rb * lay.stripes <= 256
+        assert bs % lay.sc == 0 and lay.sc % (4 * lay.stripes) == 0
+        if not name.startswith("outer/"):
+            assert bs == 128 and r == 20 and lay.smem == 62_976
+            assert lay.smem <= 113 * 1024          # two CTAs per SM
+    case = sweep.OuterCase("wide", "right_mm", 128, (4, 3), 0.5, 300)
+    cp, _ = sweep.fused_cplan(case, *case.shape, sparsity={"X": 0.5})
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        cuda_src.outer_source(cp, 128)
 
 
 def test_outer_raises_where_the_reference_refuses():
