@@ -4,14 +4,16 @@
 Run from the repository root on a machine with an NVIDIA H100 and the CUDA
 toolkit:
 
-    python3 chip_smoke.py   # L2SVM on X 10,000,000 x 100, ALS-CG on a BCSR
-                            # of 480,256 x 17,792 (the Netflix shape)
-    python3 chip_smoke.py --times   # only phase 5's and 7's profiles and
+    python3 chip_smoke.py   # L2SVM, MLogReg, GLM and KMeans on X
+                            # 10,000,000 x 100, the autoencoder on
+                            # 1,000,000 x 784 images, ALS-CG on a BCSR of
+                            # 480,256 x 17,792 (the Netflix shape)
+    python3 chip_smoke.py --times   # only the main paths' profiles and
                                     # per-CPlan times, no checks: copied
                                     # into another checkout, it measures
                                     # that tree's package the same way
 
-Phases, each reported on its own lines:
+Phases, each reported on its own lines with its wall time:
 
 1. environment: torch / CUDA versions, the card's name and power limit,
    TF32 switched off for matmuls and cuDNN;
@@ -22,7 +24,8 @@ Phases, each reported on its own lines:
    ragged shape, at an (m,1) main and at the main path's width, each held
    against its plain PyTorch version on the same CUDA tensors; then a
    fault planted in the kernels' ordered combine (the middle partial is
-   dropped) must fail the same check at 2,000,003 rows;
+   dropped; in a Row ``row_agg``, the middle lane's partial of every row)
+   must fail the same check at 2,000,003 rows;
 4. the main path's own CPlans at the main path's shapes, against plain;
 5. the main path: ``repro_torch.algos.l2svm.run`` for 5 iterations on
    X (m,100) fp32 with ``kernels="cuda"``, launch counters set to 0 just
@@ -49,8 +52,19 @@ Phases, each reported on its own lines:
    ``kernels="never"`` and against a planted-fault run; the dense-mask
    hand baseline at a reduced 12,800 x 8,192; a profile; per-CPlan times
    (U update, V update, loss) beside their bounds;
-8. one JSON line with every kernel, the card line, and the final
-   ``{"ok": true, ...}`` line.
+8.-11. MLogReg (k = 5, 3 x 3 Newton-CG iterations), GLM (binomial
+   probit, 3 x 3 IRLS-CG iterations), KMeans (k = 5, 5 iterations) on X
+   (m,100) fp32, and the autoencoder (784-500-2-500-784, batch 512, 20
+   SGD steps) on (1,000,000, 784) images, each with its data drawn on the
+   card from a seeded ``torch.Generator``: ``run(kernels="cuda")`` with
+   the counters set to 0 just before it and read just after (every kernel
+   its CPlans route to must have launched), its trace against
+   ``kernels="never"`` (1e-5) and against a planted-fault run (must fail),
+   the hand baseline (the reference's 2e-2), KMeans' assignment rows
+   summing to 1, a profile, then its CPlans at its shapes against plain
+   and timed beside their bounds;
+12. one JSON line with every kernel (launches and times summed over every
+   path), the card line, and the final ``{"ok": true, ...}`` line.
 
 Any failed check raises; the script then prints the traceback and exits 1
 without a result line.  It imports nothing of JAX or of ``repro``.
@@ -68,6 +82,7 @@ import sys
 import time
 import traceback
 from pathlib import Path
+from typing import Callable, NamedTuple
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -90,10 +105,13 @@ KERNEL_ULPS = 16
 #: relative; L2SVM's line search and ALS-CG's CG steps carry
 #: reduction-order differences over the iterations
 TRACE_RTOL = 1e-5
-#: sweep cases at M_SWEEP rows whose planted fault (one partial dropped)
-#: must fail the kernel check: sums of non-negative terms, one per kernel
+#: sweep cases at M_SWEEP rows whose planted fault (one partial dropped;
+#: for Row row_agg, the middle lane's partial of every row) must fail the
+#: kernel check: sums of non-negative terms, one per kernel, and a row sum
+#: of four terms
 PLANTED = ("cell/full_agg_abs_sum", "magg/k3_min_mean_sum", "row/full_agg",
-           "outer/right_mm_bs128_r20_d1.0", "outer/full_agg_loss")
+           "row/row_agg_sum", "outer/right_mm_bs128_r20_d1.0",
+           "outer/full_agg_loss")
 PLANT = "#define RK_PLANTED_FAULT 1\n"
 #: Outer cases whose planted fold fault (the middle piece of every row of
 #: two or more pieces dropped) must fail the kernel check; the main path's
@@ -117,6 +135,28 @@ ALS_HAND_SHAPE = (12_800, 8_192)
 #: hand vs gen ALS trace: the reference's own tolerance between its hand
 #: baseline and the fused path (tests/test_algos.py, 5e-2)
 ALS_HAND_RTOL = 5e-2
+
+#: the paper's other dense algorithms, at the L2SVM width (N_MAIN columns;
+#: M_MAIN rows for MLogReg, GLM and KMeans); depth cut from the reference's
+#: defaults, each cut logged with its phase.  The CG solves stop at 3
+#: steps: on this white X the Hessian is near a multiple of the identity,
+#: ||r||² falls ~10⁵-fold a step and reaches the fp32 floor of r's updates
+#: by the third, while the reference's break rule (||r||² < 1e-12,
+#: absolute) never fires at 10⁷ rows; the steps after it work on rounding
+#: noise, p·Hp turns negative and the iterate becomes NaN, with the
+#: kernels and with torch-eager alike (ROADMAP queue C)
+LAM = 1e-3
+MLR_K, MLR_OUTER, MLR_INNER = 5, 3, 3        # reference: 10 outer x 20 inner
+GLM_OUTER, GLM_INNER = 3, 3                  # reference: 8 outer x 10 inner
+KM_K, KM_ITERS = 5, 5                        # reference: 20 iterations
+#: the autoencoder: MNIST-shaped images at density 0.25 (data.images), the
+#: paper configuration H1 500, H2 2, batch 512; 20 SGD steps, not an epoch
+AE_ROWS, AE_N = 1_000_000, 784
+AE_H1, AE_H2, AE_BATCH, AE_STEPS = 500, 2, 512, 20
+#: hand baseline vs the planned path on the four: the reference's own
+#: tolerance between its hand-written baseline and its fused arms
+#: (tests/test_algos.py, 2e-2)
+HAND_RTOL = 2e-2
 
 KERNELS = {   # name -> (skeleton source, the TPU kernel it replaces)
     "cell": ("src/repro_torch/kernels/csrc/cell.cuh",
@@ -145,31 +185,38 @@ def card_line() -> str:
 # helpers
 # --------------------------------------------------------------------------
 
-def main_path_cplans(m: int, n: int):
-    """CPlans of one L2SVM iteration, in order: hinge, search terms, the
-    objective forward and its planned backward (planning needs shapes
-    only: meta tensors)."""
-    import torch
-    from repro_torch.algos import l2svm
+def region_cplans(entries, prefix: str = ""):
+    """CPlans of fused regions planned on shapes alone (meta tensors), in
+    order: [(label, cplan)], each region's planned backward after its
+    forward where ``entries`` (region, args, backward?) asks for it."""
     from repro_torch.core import FusionContext
     from repro_torch.core.codegen import compile_plan
-
-    meta = lambda *s: torch.empty(s, device="meta")
-    X, w, y, col, lam = meta(m, n), meta(n, 1), meta(m, 1), meta(m, 1), \
-        meta(1, 1)
     out = []
     with FusionContext():
-        for region, args, bwd in ((l2svm._hinge, (X, w, y), False),
-                                  (l2svm._search_terms, (col, col), False),
-                                  (l2svm._objective_full, (X, w, y, lam),
-                                   True)):
+        for region, args, bwd in entries:
             planned = region.trace(*args).plan()
-            out += [(region.fn.__name__, cp)
+            label = prefix + region.fn.__name__
+            out += [(label, cp)
                     for cp in compile_plan(planned.eplan).cplans()]
             if bwd:
-                out += [(region.fn.__name__ + ":vjp", cp) for cp in
+                out += [(label + ":vjp", cp) for cp in
                         compile_plan(planned.backward().eplan).cplans()]
     return out
+
+
+def meta(*shape):
+    import torch
+    return torch.empty(shape, device="meta")
+
+
+def main_path_cplans(m: int, n: int):
+    """CPlans of one L2SVM iteration, in order: hinge, search terms, the
+    objective forward and its planned backward."""
+    from repro_torch.algos import l2svm
+    X, w, col, lam = meta(m, n), meta(n, 1), meta(m, 1), meta(1, 1)
+    return region_cplans([(l2svm._hinge, (X, w, col), False),
+                          (l2svm._search_terms, (col, col), False),
+                          (l2svm._objective_full, (X, w, col, lam), True)])
 
 
 def kernel_name(cplan) -> str:
@@ -390,9 +437,37 @@ def bcsr_error_scale(cplan, env, chunk: int = 4096):
             + p[:, 1].max()).reshape(1, 1)
 
 
+#: row-wise CPlans over more rows than this are held to the limit in
+#: chunks of this many rows (the plain version and the error scale of a
+#: 10^7 x 100 output would need tens of GB at once)
+MEASURE_ROWS = 1_000_000
+
+
 def measure(cplan, env, got, label: str) -> tuple[float, float]:
     """(max |got - plain|, its largest share of the per-element limit);
-    raises on a shape or non-finite mismatch."""
+    raises on a shape or non-finite mismatch.  A ``no_agg`` / ``row_agg``
+    CPlan over a dense main of more than MEASURE_ROWS rows is measured in
+    chunks of rows: each output row depends on its own rows only."""
+    import torch
+    from repro_torch.core.cplan import NO_AGG, ROW_AGG
+    m = cplan.main.shape[0]
+    main = env[cplan.main.nid]
+    if m <= MEASURE_ROWS or cplan.extra or not isinstance(
+            main, torch.Tensor) or cplan.variant not in (NO_AGG, ROW_AGG):
+        return _measure(cplan, env, got, label)
+    if tuple(got.shape[:1]) != (m,):
+        raise AssertionError(f"{label}: shape {tuple(got.shape)}")
+    err = share = 0.0
+    for r0 in range(0, m, MEASURE_ROWS):
+        rows = slice(r0, r0 + MEASURE_ROWS)
+        sub = {nid: (t[rows] if t.shape[0] == m else t)
+               for nid, t in env.items()}
+        e, sh = _measure(cplan, sub, got[rows], f"{label} rows {r0}:")
+        err, share = max(err, e), max(share, sh)
+    return err, share
+
+
+def _measure(cplan, env, got, label: str) -> tuple[float, float]:
     import torch
     from repro_torch.kernels import ops
     exp = ops.execute(cplan, env, kernels="never")
@@ -428,7 +503,8 @@ def compare(cplan, env, label: str) -> tuple[float, float]:
 
 def planted(src, fold: bool = False):
     """``src`` built with a planted fault: ``rk::combine`` drops the
-    middle partial, the Outer ``right_mm`` skips the middle block of every
+    middle partial, the Row ``row_agg`` variant the middle lane's partial
+    of every row, the Outer ``right_mm`` skips the middle block of every
     block row; with ``fold``, the Outer ``right_mm`` fold drops the middle
     piece of every row of two or more pieces instead.  A source with no
     such step is returned as is."""
@@ -436,7 +512,8 @@ def planted(src, fold: bool = False):
         return dataclasses.replace(src, text=PLANT_FOLD + src.text) \
             if src.template == "outer" and not src.elems else src
     return dataclasses.replace(src, text=PLANT + src.text) \
-        if src.elems or src.template == "outer" else src
+        if src.elems or src.template == "outer" or \
+        src.variant == "row_agg" else src
 
 
 @contextlib.contextmanager
@@ -707,20 +784,29 @@ def als_env(cplan, Xs, gen, rank: int = ALS_RANK):
     return env
 
 
-def time_part(label, kname, cp, env, kernel, plain, out) -> dict:
+def time_part(label, kname, cp, env, kernel, plain, out,
+              library=None) -> dict:
     """One main-path CPlan's times (CUDA events and device, kernel and
-    plain) beside its bound, logged as a ``[time]`` line."""
+    plain, and ``library``: one PyTorch call computing the same function,
+    where there is one) beside its bound, logged as a ``[time]`` line."""
     ms, plain_ms = time_ms(kernel), time_ms(plain)
     dev_ms, dev_plain_ms = device_ms(kernel), device_ms(plain)
     b_ms, b_by = bound_ms(cp, env, out)
-    log(f"[time] {label:22s} {kname:5s} {cp.variant:9s} kernel {ms:.4f} ms "
-        f"(device {dev_ms}) plain {plain_ms:.4f} ms (device "
-        f"{dev_plain_ms}) bound {b_ms:.4f} ms ({b_by})")
-    return {"region": label, "variant": cp.variant,
+    lib = ""
+    part = {"region": label, "variant": cp.variant,
             "binds": [list(b.shape) for b in cp.binds], "ms": ms,
             "plain_ms": plain_ms, "device_ms": dev_ms,
             "plain_device_ms": dev_plain_ms, "bound_ms": b_ms,
             "bound_by": b_by}
+    if library is not None:
+        part["library_ms"] = time_ms(library)
+        part["library_device_ms"] = device_ms(library)
+        lib = (f" library {part['library_ms']:.4f} ms (device "
+               f"{part['library_device_ms']})")
+    log(f"[time] {label:22s} {kname:5s} {cp.variant:9s} kernel {ms:.4f} ms "
+        f"(device {dev_ms}) plain {plain_ms:.4f} ms (device "
+        f"{dev_plain_ms}){lib} bound {b_ms:.4f} ms ({b_by})")
+    return part
 
 
 def add_part(rec: dict, part: dict) -> None:
@@ -736,17 +822,32 @@ def new_record() -> dict:
             "parts": []}
 
 
-def dense_times(main_cps, envs) -> dict:
-    """The L2SVM main path's CPlans timed: a record per kernel."""
+def _row_norms_call(cp, env):
+    import torch
+    X = env[cp.main.nid]
+    return lambda: torch.einsum("ij,ij->i", X, X)
+
+
+#: CPlans that one PyTorch call also computes: label -> that call on the
+#: CPlan's operands
+LIBRARY_CALLS = {"kmeans _sq_rowsums": _row_norms_call}
+
+
+def dense_times(main_cps, envs, per_kernel=None) -> dict:
+    """A dense main path's CPlans timed, each added to its kernel's record
+    in ``per_kernel`` (new records when None); returns the records."""
     from repro_torch.kernels import cellwise, multiagg, ref, rowwise
     wrappers = {"cell": cellwise.cell, "magg": multiagg.multiagg,
                 "row": rowwise.row}
-    per_kernel = {k: new_record() for k in KERNELS}
+    if per_kernel is None:
+        per_kernel = {k: new_record() for k in KERNELS}
     for (region, cp), env in zip(main_cps, envs):
         kname = kernel_name(cp)
+        lib = LIBRARY_CALLS.get(region)
         add_part(per_kernel[kname], time_part(
             region, kname, cp, env, lambda: wrappers[kname](cp, env),
-            lambda: ref.execute_dense(cp, env), ref.execute_dense(cp, env)))
+            lambda: ref.execute_dense(cp, env), ref.execute_dense(cp, env),
+            lib(cp, env) if lib else None))
     return per_kernel
 
 
@@ -774,6 +875,258 @@ def l2svm_data(m: int):
     noise = torch.randn((m, 1), generator=g, device="cuda")
     y = torch.where(X @ w_true + 0.5 * noise >= 0, 1.0, -1.0)
     return X, y
+
+
+# --------------------------------------------------------------------------
+# the four dense algorithms: MLogReg, GLM, KMeans, the autoencoder
+# --------------------------------------------------------------------------
+
+class AlgoPath(NamedTuple):
+    """One dense algorithm's main path: its fused regions at the path's
+    shapes (region, meta args, plan the backward?), its data drawn on the
+    card, its run, and the check of what the run returns."""
+    name: str
+    depth: str
+    regions: list
+    data: Callable       # () -> operands on the card
+    run: Callable        # (operands, **kw) -> (parameters, trace)
+    check: Callable      # (operands, parameters) -> None; raises
+
+
+def mlogreg_data(m: int):
+    """X (m, N_MAIN) and one-hot labels (m, MLR_K) from a planted B plus
+    0.5 noise on the logits (data.classification's model), drawn on the
+    card (seeded)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(1)
+    X = torch.randn((m, N_MAIN), generator=g, device="cuda")
+    B = torch.randn((N_MAIN, MLR_K), generator=g, device="cuda")
+    noise = torch.randn((m, MLR_K), generator=g, device="cuda")
+    idx = torch.argmax(X @ B + 0.5 * noise, dim=1, keepdim=True)
+    Y = torch.zeros((m, MLR_K), device="cuda").scatter_(1, idx, 1.0)
+    return X, Y
+
+
+def glm_data(m: int):
+    """X (m, N_MAIN) and binary labels from a planted probit: y = 1 where
+    X w + N(0, 1) > 0, w ~ N(0, 1/N_MAIN) (so P(y = 1) = Φ(X w)), drawn
+    on the card (seeded)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(2)
+    X = torch.randn((m, N_MAIN), generator=g, device="cuda")
+    w = torch.randn((N_MAIN, 1), generator=g, device="cuda") / math.sqrt(
+        N_MAIN)
+    noise = torch.randn((m, 1), generator=g, device="cuda")
+    return X, (X @ w + noise > 0).to(torch.float32)
+
+
+def kmeans_data(m: int):
+    """X (m, N_MAIN) around KM_K planted centres (4 x N(0, 1)) with unit
+    noise, drawn on the card (seeded); C0 = X's first KM_K rows."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(3)
+    centres = 4.0 * torch.randn((KM_K, N_MAIN), generator=g, device="cuda")
+    asg = torch.randint(0, KM_K, (m,), generator=g, device="cuda")
+    X = centres[asg]
+    X += torch.randn((m, N_MAIN), generator=g, device="cuda")
+    return X, X[:KM_K].clone()
+
+
+def images_data(m: int):
+    """(m, AE_N) in [0, 1), a quarter of the cells non-zero (what
+    data.images draws with numpy), drawn on the card (seeded)."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(4)
+    keep = torch.rand((m, AE_N), generator=g, device="cuda") < 0.25
+    return (keep * torch.rand((m, AE_N), generator=g, device="cuda"),)
+
+
+def finite(label: str, t, shape) -> None:
+    import torch
+    if tuple(t.shape) != tuple(shape) or not bool(torch.isfinite(t).all()):
+        raise AssertionError(f"{label}: not a finite {tuple(shape)} tensor "
+                             f"(got {tuple(t.shape)})")
+
+
+def kmeans_assignment(X, C):
+    """(rows with no centroid at their minimum distance, max |row sum of
+    the tie-split assignment - 1|) of one KMeans assignment step on the
+    card: the fused row minimum against torch's D, as ``kmeans.run``
+    builds them."""
+    import torch
+    from repro_torch.algos import kmeans
+    from repro_torch.core import FusionContext
+    with FusionContext():
+        xsq = kmeans._sq_rowsums(X)
+        XC = X @ C.T
+        csq = torch.sum(C * C, dim=1).reshape(1, -1)
+        dmin = kmeans._min_dist(XC, xsq, csq)
+    A = (xsq - 2.0 * XC + csq == dmin).to(torch.float32)
+    hits = A.sum(dim=1, keepdim=True)
+    sums = (A / hits).sum(dim=1)
+    return int((hits == 0).sum()), float((sums - 1.0).abs().nan_to_num(
+        math.inf).max())
+
+
+def check_kmeans(ops, C) -> None:
+    X, C0 = ops
+    finite("kmeans C", C, (KM_K, N_MAIN))
+    for label, Cs in (("C0", C0), ("the final C", C)):
+        missed, off = kmeans_assignment(X, Cs)
+        log(f"[kmeans] assignment at {label}: {missed} rows without a "
+            f"match of the fused minimum, max |row sum - 1| {off:.3e}")
+        if missed or not off <= 4 * EPS32:
+            raise AssertionError(f"kmeans: assignment rows at {label} do "
+                                 f"not sum to 1")
+
+
+def check_autoencoder(_ops, params) -> None:
+    Ws, bs = params
+    dims = (AE_N, AE_H1, AE_H2, AE_H1, AE_N)
+    for i, (W, b) in enumerate(zip(Ws, bs)):
+        finite(f"autoencoder W{i + 1}", W, (dims[i], dims[i + 1]))
+        finite(f"autoencoder b{i + 1}", b, (1, dims[i + 1]))
+
+
+def algo_paths(m: int) -> list:
+    """The four dense algorithms' main paths at m rows (the autoencoder
+    at AE_ROWS): regions, data, run and checks."""
+    from repro_torch.algos import autoencoder, glm, kmeans, mlogreg
+    n, k = N_MAIN, MLR_K
+    X, col = meta(m, n), meta(m, 1)
+    Xb = meta(AE_BATCH, AE_N)
+    h1, h2 = AE_H1, AE_H2
+    weights = (meta(AE_N, h1), meta(1, h1), meta(h1, h2), meta(1, h2),
+               meta(h2, h1), meta(1, h1), meta(h1, AE_N), meta(1, AE_N))
+    return [
+        AlgoPath(
+            "mlogreg", f"k = {k}, lambda {LAM:g}, {MLR_OUTER} outer x "
+            f"{MLR_INNER} CG iterations (reference: 10 x 20)",
+            [(mlogreg._probs, (X, meta(n, k)), False),
+             (mlogreg._nll_obj_reg, (X, meta(n, k), meta(m, k), meta(1, 1)),
+              True),
+             (mlogreg._hvp, (X, meta(n, k), meta(m, k)), False)],
+            lambda: mlogreg_data(m),
+            lambda ops, **kw: mlogreg.run(*ops, lam=LAM, max_outer=MLR_OUTER,
+                                          max_inner=MLR_INNER, **kw),
+            lambda ops, B: finite("mlogreg B", B, (n, k))),
+        AlgoPath(
+            "glm", f"binomial probit, lambda {LAM:g}, {GLM_OUTER} outer x "
+            f"{GLM_INNER} CG iterations (reference: 8 x 10)",
+            [(glm._link_chain, (col, col), False),
+             (glm._deviance, (col, col), False),
+             (glm._wz, (X, col, col), False),
+             (glm._wxv, (X, col, meta(n, 1)), False)],
+            lambda: glm_data(m),
+            lambda ops, **kw: glm.run(*ops, lam=LAM, max_outer=GLM_OUTER,
+                                      max_inner=GLM_INNER, **kw),
+            lambda ops, beta: finite("glm beta", beta, (n, 1))),
+        AlgoPath(
+            "kmeans", f"k = {KM_K}, C0 = X's first {KM_K} rows, "
+            f"{KM_ITERS} iterations (reference: 20)",
+            [(kmeans._sq_rowsums, (X,), False),
+             (kmeans._min_dist, (meta(m, KM_K), col, meta(1, KM_K)), False)],
+            lambda: kmeans_data(m),
+            lambda ops, **kw: kmeans.run(*ops, max_iter=KM_ITERS, **kw),
+            check_kmeans),
+        AlgoPath(
+            "autoencoder", f"X {AE_ROWS} x {AE_N}, H1 {h1}, H2 {h2}, batch "
+            f"{AE_BATCH}, {AE_STEPS} SGD steps (reference: one epoch)",
+            [(autoencoder._recon_loss, (Xb, *weights), True)],
+            lambda: images_data(AE_ROWS),
+            lambda ops, **kw: autoencoder.run(
+                ops[0][:AE_STEPS * AE_BATCH], h1=h1, h2=h2, batch=AE_BATCH,
+                **kw),
+            check_autoencoder),
+    ]
+
+
+def path_cplans(path) -> list:
+    return region_cplans(path.regions, path.name + " ")
+
+
+def algo_phase(path, cps, counters, launches, main_err, per_kernel) -> None:
+    """One dense algorithm at the main path's width: the run with
+    ``kernels="cuda"`` (counters set to 0 just before it and read just
+    after, added into ``launches``), its checks, its trace against
+    ``kernels="never"``, a planted fault and the hand baseline, a profile,
+    then its CPlans against plain and timed (into ``main_err`` and
+    ``per_kernel``)."""
+    import torch
+    name = path.name
+    t_phase = time.perf_counter()
+    ops = path.data()
+    torch.cuda.synchronize()
+    shapes = [tuple(t.shape) for t in ops]
+    log(f"[{name}] data {shapes} fp32 drawn on the card in "
+        f"{time.perf_counter() - t_phase:.1f} s; {path.depth}")
+    run = lambda **kw: path.run(ops, **kw)
+    for mod in counters.values():
+        mod.launches = 0
+    t0 = time.perf_counter()
+    params, trace = run(kernels="cuda")
+    torch.cuda.synchronize()
+    t_cuda = time.perf_counter() - t0
+    counts = {k: mod.launches for k, mod in counters.items()}
+    for k, c in counts.items():
+        launches[k] += c
+    log(f"[{name}] run kernels=cuda: {t_cuda:.2f} s host clock (planning "
+        f"included); launches {json.dumps(counts)}")
+    log(f"[{name}] trace (kernels=cuda): {trace}")
+    needed = sorted({kernel_name(cp) for _l, cp in cps})
+    missing = [k for k in needed if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{name} main path never launched: {missing}")
+    path.check(ops, params)
+    del params
+    t0 = time.perf_counter()
+    _p, trace_plain = run(kernels="never")
+    torch.cuda.synchronize()
+    log(f"[{name}] kernels=never: {time.perf_counter() - t0:.2f} s; trace "
+        f"{trace_plain}")
+    with planted_fault():
+        _p, trace_fault = run(kernels="cuda")
+    _p, trace_hand = run(mode="hand")
+    del _p
+    rel, rel_fault = trace_rel(trace, trace_plain), trace_rel(trace_fault,
+                                                              trace_plain)
+    rel_hand = trace_rel(trace_hand, trace_plain)
+    log(f"[{name}] planted fault (one partial dropped in every reducing "
+        f"kernel): trace {trace_fault}")
+    log(f"[{name}] hand torch baseline trace {trace_hand}")
+    log(f"[{name}] max relative trace difference vs never: kernels "
+        f"{rel:.3e}, planted {rel_fault:.3e} (tolerance {TRACE_RTOL:g}); "
+        f"hand {rel_hand:.3e} (tolerance {HAND_RTOL:g})")
+    failed = []
+    if not rel <= TRACE_RTOL:
+        failed.append(f"{name}: traces of kernels=cuda and never disagree")
+    if not rel_fault > TRACE_RTOL:
+        failed.append(f"planted fault passed the {name} trace check")
+    if not rel_hand <= HAND_RTOL:
+        failed.append(f"{name}: the hand baseline disagrees")
+    profile_run(f"{name} kernels=cuda, {path.depth}",
+                lambda: run(kernels="cuda"))
+
+    # the path's CPlans at its shapes, against plain, then timed
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    shared = {tuple(ops[0].shape): ops[0]}     # X: the path's data matrix
+    envs = []
+    for label, cp in cps:
+        env = random_env(cp, gen, shared)
+        kname = kernel_name(cp)
+        err, share = compare(cp, env, f"main-path {label} {cp.ttype.name} "
+                                      f"{cp.variant}")
+        main_err[kname] = max(main_err[kname], err)
+        envs.append(env)
+        log(f"[check] main path {label:28s} {kname:4s} {cp.variant:9s} "
+            f"binds {[tuple(b.shape) for b in cp.binds]} "
+            f"max|kernel-plain| {err:.3e} = {share:.3g} x limit")
+    dense_times(cps, envs, per_kernel)
+    del ops, envs, shared
+    torch.cuda.empty_cache()
+    log(f"[{name}] phase wall {time.perf_counter() - t_phase:.1f} s")
+    if failed:
+        raise AssertionError("; ".join(failed))
 
 
 # --------------------------------------------------------------------------
@@ -815,13 +1168,17 @@ def run() -> None:
     planned = [(c, m, n, *sweep.fused_cplan(c, m, n))
                for c, m, n in sweep_runs]
     main_cps = main_path_cplans(m_main, N_MAIN)
+    paths = algo_paths(m_main)
+    path_cps = {path.name: path_cplans(path) for path in paths}
+    dense_cps = [cp for _r, cp in main_cps] + [
+        cp for cps in path_cps.values() for _r, cp in cps]
     sources = {}
-    for cp in [p[3] for p in planned] + [cp for _r, cp in main_cps]:
+    for cp in [p[3] for p in planned] + dense_cps:
         src = cuda_src.source_for(cp)
         sources[src.key] = src
-    # the planted-fault builds: the planted sweep cases and the main path
+    # the planted-fault builds: the planted sweep cases and the main paths
     for cp in [p[3] for p in planned if p[0].name in PLANTED
-               and p[1] == M_SWEEP] + [cp for _r, cp in main_cps]:
+               and p[1] == M_SWEEP] + dense_cps:
         src = planted(cuda_src.source_for(cp))
         sources[src.key] = src
     # the Outer kernel: its sweep, the ALS CPlans at the main path's shape
@@ -852,6 +1209,7 @@ def run() -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
     # 3. kernels vs plain: the sweep ---------------------------------------
+    t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(1234)
     worst = {k: 0.0 for k in KERNELS}
     for c, m, n, cp, _names in planned:
@@ -903,8 +1261,10 @@ def run() -> None:
                                      f"the kernel check")
     log(f"[check] outer sweep passed: {len(outer_planned)} CPlans; largest "
         f"share of the limit {worst['outer']:.3g}")
+    log(f"[check] sweep phase wall {time.perf_counter() - t0:.1f} s")
 
     # 4. the main path's CPlans at the main path's shapes -------------------
+    t0 = time.perf_counter()
     big = {(m_main, N_MAIN): 0.3 * torch.randn((m_main, N_MAIN),
                                                generator=gen, device="cuda")}
     main_err = {k: 0.0 for k in KERNELS}
@@ -921,6 +1281,9 @@ def run() -> None:
             f"max|kernel-plain| {err:.3e} = {share:.3g} x limit")
 
     # 5. the main path -------------------------------------------------------
+    log(f"[check] main-path CPlans phase wall {time.perf_counter() - t0:.1f} "
+        f"s")
+    t5 = time.perf_counter()
     X, y = l2svm_data(m_main)
     torch.cuda.synchronize()
     for mod in counters.values():
@@ -970,12 +1333,21 @@ def run() -> None:
     per_kernel = dense_times(main_cps, envs)
     del big, envs
     torch.cuda.empty_cache()
+    log(f"[main] l2svm run and timing phases wall "
+        f"{time.perf_counter() - t5:.1f} s")
 
     # 7. ALS-CG on the Netflix-shaped BCSR -----------------------------------
+    t0 = time.perf_counter()
     als = als_phase(counters, launches, main_err)
     per_kernel["outer"] = als
+    log(f"[als] phase wall {time.perf_counter() - t0:.1f} s")
 
-    # 8. result lines --------------------------------------------------------
+    # 8.-11. MLogReg, GLM, KMeans and the autoencoder ----------------------
+    for path in paths:
+        algo_phase(path, path_cps[path.name], counters, launches, main_err,
+                   per_kernel)
+
+    # 12. result lines -------------------------------------------------------
     rows = []
     for k, (src, replaces) in KERNELS.items():
         agg = per_kernel[k]
@@ -988,7 +1360,8 @@ def run() -> None:
             "library_ms": None,
             "per": ("one call of each ALS-CG CPlan (sum over U update, V "
                     "update, loss)" if k == "outer" else
-                    "one L2SVM iteration (sum over its CPlans)"),
+                    "one call of each main-path CPlan it runs, summed over "
+                    "L2SVM, MLogReg, GLM, KMeans and the autoencoder"),
             "parts": agg["parts"]})
     log(json.dumps({"kernels": rows}))
     log(card_line())
@@ -1114,7 +1487,7 @@ def als_phase(counters, launches, main_err) -> dict:
 
 def times_only() -> None:
     """``--times``: the readings of speed only, to compare two trees of the
-    port on one card: the profiles of both main paths and the times of
+    port on one card: the profiles of every main path and the times of
     their CPlans, with no checks and no result line.  Copied into an older
     checkout, the script reads that checkout's package the same way."""
     import torch
@@ -1127,10 +1500,13 @@ def times_only() -> None:
     log(f"[env] {ROOT} torch {torch.__version__}; nvidia-smi: "
         f"{card_line()}")
     main_cps = main_path_cplans(M_MAIN, N_MAIN)
+    path_cps = [(path, path_cplans(path)) for path in algo_paths(M_MAIN)]
     shape = padded(ALS_SHAPE)
-    meta = als_cplans(meta_bcsr(shape), meta_bcsr(shape[::-1]))
+    als_meta = als_cplans(meta_bcsr(shape), meta_bcsr(shape[::-1]))
     srcs = [cuda_src.source_for(cp) for _r, cp in main_cps] + \
-        [cuda_src.source_for(cp, ALS_BS) for _l, cp in meta]
+        [cuda_src.source_for(cp) for _p, cps in path_cps
+         for _r, cp in cps] + \
+        [cuda_src.source_for(cp, ALS_BS) for _l, cp in als_meta]
     build.build_all({s.key: s for s in srcs}.values())
 
     X, y = l2svm_data(M_MAIN)
@@ -1154,6 +1530,19 @@ def times_only() -> None:
     cps = als_cplans(Xs, XT)
     outer_times(cps, [als_env(cp, XT if label.endswith("V-update") else Xs,
                               gen) for label, cp in cps])
+    del Xs, XT
+    torch.cuda.empty_cache()
+
+    for path, cps in path_cps:
+        ops = path.data()
+        path.run(ops, kernels="cuda")                       # plans cached
+        profile_run(f"{path.name} kernels=cuda, {path.depth}",
+                    lambda: path.run(ops, kernels="cuda"))
+        gen = torch.Generator(device="cuda").manual_seed(2468)
+        shared = {tuple(ops[0].shape): ops[0]}
+        dense_times(cps, [random_env(cp, gen, shared) for _l, cp in cps])
+        del ops, shared
+        torch.cuda.empty_cache()
     log(card_line())
 
 

@@ -39,3 +39,32 @@ def ratings(m: int, n: int, rank: int = 8, bs: int = 128,
     dense = (Ut @ Vt.T + 0.1 * rng.normal(size=(m, n))).astype(np.float32)
     dense *= np.kron(mask, np.ones((bs, bs), np.float32))
     return BCSR.from_dense(dense, bs=bs).to(resolve_device(device))
+
+
+def regression(m: int, n: int, seed: int = 0, device="cuda"):
+    """Binary-response data (GLM input): X (m,n) and y ∈ {0,1} (m,1) drawn
+    from a logistic model, as tensors on ``device``."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(m, n)).astype(np.float32)
+    w = rng.normal(size=(n, 1)).astype(np.float32)
+    p = 1 / (1 + np.exp(-(X @ w)))
+    y = (rng.random((m, 1)) < p).astype(np.float32)
+    return to_torch((X, y), device)
+
+
+def clusters(m: int, n: int, k: int = 5, seed: int = 0, device="cuda"):
+    """K-Means data: X (m,n) around k planted centres (k,n), as tensors on
+    ``device``."""
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(size=(k, n)).astype(np.float32) * 4.0
+    asg = rng.integers(0, k, size=m)
+    X = centers[asg] + rng.normal(size=(m, n)).astype(np.float32)
+    return to_torch((X, centers), device)
+
+
+def images(m: int, n: int, seed: int = 0, device="cuda"):
+    """MNIST-shaped autoencoder input: (m,n) in [0,1), a quarter of the
+    cells non-zero, as a tensor on ``device``."""
+    rng = np.random.default_rng(seed)
+    X = (rng.random((m, n)) < 0.25) * rng.random((m, n))
+    return to_torch(X.astype(np.float32), device)

@@ -66,6 +66,11 @@ row_kernel(rk::Binds<P::NB> b, float* __restrict__ out,
 #pragma unroll
       for (int t = 0; t < P::TR; ++t)
         if (t * L + sub < P::C) a = rk::agg_add(P::AGG, a, r[t]);
+#ifdef RK_PLANTED_FAULT
+      // a fault planted only in chip_smoke.py's own builds: the middle
+      // lane's partial of every row is dropped
+      if (L > 1 && sub == (P::C < L ? P::C : L) / 2) a = rk::agg_init(P::AGG);
+#endif
       a = rk::lane_reduce<L>(P::AGG, a);
       if (sub == 0) out[i] = P::MEAN ? a / count : a;
     } else if constexpr (P::VARIANT == row::COL_AGG) {

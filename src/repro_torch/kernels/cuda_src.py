@@ -90,6 +90,7 @@ class KernelSource:
     elems: int = 0         # reduced elements per partial (0: no partials)
     lanes: int = 0         # row: lanes per row (32 or 1)
     wpb: int = 0           # row: warps per CTA
+    variant: str = ""      # row: the template variant
 
     @functools.cached_property
     def key(self) -> str:
@@ -572,7 +573,7 @@ def row_source(cplan: CPlan) -> KernelSource:
         *_launcher("row_launch")]
     return KernelSource("row", "\n".join(lines),
                         (cplan.main.shape[0], C), elems=elems, lanes=lanes,
-                        wpb=wpb)
+                        wpb=wpb, variant=variant)
 
 
 # --------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """The generated CUDA kernels on the card: each sweep case against its
 plain version on the same CUDA tensors (the Outer kernel's over BCSR
 mains too), bit-for-bit repeatability (no float atomics), every L2SVM /
-mlogreg / kmeans region forward and planned backward on the card against
-the CPU, L2SVM and ALS-CG on the card against the CPU, and the Outer
-kernel launched exactly for a BCSR on the card.  Marked ``gpu``; without a card every test skips.  Imports no JAX
-(the machine with the card has none):
+mlogreg / GLM / kmeans / autoencoder region forward and planned backward
+on the card against the CPU, L2SVM and ALS-CG on the card against the
+CPU, MLogReg, GLM, KMeans and the autoencoder on the card against
+``kernels="never"``, KMeans' assignment rows, and the Outer kernel
+launched exactly for a BCSR on the card.  Marked ``gpu``; without a card
+every test skips.  Imports no JAX (the machine with the card has none):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
@@ -13,7 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.algos import als_cg, data, l2svm
+from repro_torch.algos import (als_cg, autoencoder, data, glm, kmeans,
+                               l2svm, mlogreg)
 from repro_torch.core import FusionContext
 from repro_torch.core.codegen import compile_plan
 from repro_torch.kernels import (build, cellwise, cuda_src, multiagg, ops,
@@ -199,3 +202,66 @@ def test_outer_launches_exactly_for_a_bcsr_on_the_card(card):
     ops.execute(cp, _outer_env(case, names, vals, "cpu"), kernels="cuda")
     assert outerprod.launches == mid
     np.testing.assert_allclose(gpu, cpu, rtol=1e-5)
+
+
+def _clusters():
+    X, _c = data.clusters(2048, 16, seed=2, device="cpu")
+    return X, X[:5].clone()
+
+
+#: name -> (operands on the CPU, run)
+ALGO_RUNS = {
+    "mlogreg": (lambda: data.classification(2048, 24, k=4, seed=2,
+                                            device="cpu")[:2],
+                lambda a, **kw: mlogreg.run(*a, max_outer=3, max_inner=5,
+                                            **kw)),
+    "glm": (lambda: data.regression(2048, 16, seed=2, device="cpu"),
+            lambda a, **kw: glm.run(*a, max_outer=3, max_inner=5, **kw)),
+    "kmeans": (_clusters, lambda a, **kw: kmeans.run(*a, max_iter=5, **kw)),
+    "autoencoder": (lambda: (data.images(1024, 64, seed=2, device="cpu"),),
+                    lambda a, **kw: autoencoder.run(*a, h1=32, batch=128,
+                                                    **kw)),
+}
+
+
+def _build_for(monkeypatch, run, args):
+    """Every kernel ``run`` launches, built up front in parallel: the CPlans
+    its CPU run executes (the same CPlans as on the card)."""
+    seen = {}
+    orig = ops.execute
+
+    def spy(cplan, env, *, kernels="never"):
+        seen[cplan.cache_key()] = cplan
+        return orig(cplan, env, kernels=kernels)
+
+    monkeypatch.setattr(ops, "execute", spy)
+    run(args, kernels="cuda", device="cpu")
+    monkeypatch.undo()
+    build.build_all({s.key: s for s in map(cuda_src.source_for,
+                                            seen.values())}.values())
+
+
+@pytest.mark.parametrize("name", sorted(ALGO_RUNS))
+def test_algorithm_on_the_card_matches_never(card, monkeypatch, name):
+    """``run(kernels="cuda")`` launches the kernels and its trace agrees
+    with ``kernels="never"`` on the card to ``chip_smoke.py``'s 1e-5."""
+    make, run = ALGO_RUNS[name]
+    args = make()
+    _build_for(monkeypatch, run, args)
+    before = cellwise.launches + multiagg.launches + rowwise.launches
+    _params, got = run(args, kernels="cuda", device="cuda")
+    assert cellwise.launches + multiagg.launches + rowwise.launches > before
+    _params, want = run(args, kernels="never", device="cuda")
+    assert len(got) == len(want) > 1
+    np.testing.assert_allclose(got, want, rtol=chip_smoke().TRACE_RTOL)
+
+
+def test_kmeans_assignment_rows_sum_to_one_on_the_card(card):
+    """The fused row minimum on the card is found again in torch's D: every
+    row's tie-split assignment sums to 1, at C0 and after the run."""
+    X, C0 = (t.to(card) for t in _clusters())
+    C, _wcss = kmeans.run(X, C0, max_iter=5)
+    assert bool(torch.isfinite(C).all())
+    for Cs in (C0, C):
+        missed, off = chip_smoke().kmeans_assignment(X, Cs)
+        assert missed == 0 and off <= 4 * chip_smoke().EPS32

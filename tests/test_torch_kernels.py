@@ -195,3 +195,9 @@ def test_planted_fault_is_only_in_its_own_builds():
     elementwise = next(c for c in sweep.cases() if c.name == "cell/no_agg")
     plain_src = cuda_src.source_for(sweep.fused_cplan(elementwise, 33, 7)[0])
     assert smoke.planted(plain_src) is plain_src
+    # a Row row_agg has no partials: its fault drops a lane's row partial
+    row_agg = next(c for c in sweep.cases() if c.name == "row/row_agg_sum")
+    row_src = cuda_src.source_for(sweep.fused_cplan(row_agg, 33, 7)[0])
+    assert row_src.elems == 0 and row_src.variant == "row_agg"
+    assert smoke.planted(row_src).text == smoke.PLANT + row_src.text
+    assert "#ifdef RK_PLANTED_FAULT" in (build.CSRC / "row.cuh").read_text()

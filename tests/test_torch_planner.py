@@ -1,8 +1,8 @@
 """Planner parity: the port's copied planner selects exactly the reference's
 plans — fused-operator signatures, rewrite winner and plan cost, forward
 and planned backward — under the reference's TPU_V5E cost constants, on the
-L2SVM, mlogreg and kmeans regions at paper scale, and matches the pinned
-goldens in ``tests/golden/plans.json``."""
+regions of L2SVM, mlogreg, GLM, kmeans and the autoencoder at paper
+scale, and matches the pinned goldens in ``tests/golden/plans.json``."""
 
 import json
 from pathlib import Path
@@ -23,8 +23,16 @@ torch.set_num_threads(1)
 
 GOLDEN = Path(__file__).parent / "golden" / "plans.json"
 REGIONS = regions(10_000, 100)
+#: the autoencoder at the paper configuration: batch 512 x 784, H1 500, H2 2
+_H1, _H2, _N = 500, 2, 784
+REGIONS["autoencoder/recon_loss@paper"] = REGIONS["autoencoder/recon_loss"][
+    :2] + (dict(Xb=(512, _N), W1=(_N, _H1), b1=(1, _H1), W2=(_H1, _H2),
+                b2=(1, _H2), W3=(_H2, _H1), b3=(1, _H1), W4=(_H1, _N),
+                b4=(1, _N)),)
 #: regions whose backward the pipeline plans (differentiable fused forward)
-BACKWARD = ("l2svm/objective_full", "mlogreg/nll_obj_reg", "l2svm/hinge")
+BACKWARD = ("l2svm/objective_full", "mlogreg/nll_obj_reg", "l2svm/hinge",
+            "autoencoder/recon_loss", "autoencoder/recon_loss@paper",
+            "glm/link_chain", "glm/wxv", "glm/wz", "glm/deviance")
 
 
 def _zeros(shapes):
@@ -83,15 +91,12 @@ def test_planned_backward_matches_reference(name):
 
 def test_golden_plans_match():
     golden = json.loads(GOLDEN.read_text())
-    keys = {"l2svm/objective_full", "mlogreg/nll_obj_reg",
-            "mlogreg/fit_terms"}
+    assert set(golden) <= set(REGIONS)
     with fusion_mode("gen", device="cpu"):
-        for name, (_ref, port, shapes) in REGIONS.items():
-            if name in keys:
-                continue
+        for name in golden:
+            _ref, port, shapes = REGIONS[name]
             got = _golden_signature(port.plan_for(**_zeros(shapes)))
             assert got == golden[name], name
-    assert set(golden) <= set(REGIONS)
 
 
 def test_planning_default_is_the_reference_tpu_constants():

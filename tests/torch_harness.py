@@ -19,6 +19,8 @@ import jax.numpy as jnp
 import numpy as np
 
 from repro.algos import als_cg as ref_als_cg
+from repro.algos import autoencoder as ref_autoencoder
+from repro.algos import glm as ref_glm
 from repro.algos import kmeans as ref_kmeans
 from repro.algos import l2svm as ref_l2svm
 from repro.algos import mlogreg as ref_mlogreg
@@ -43,8 +45,13 @@ REFERENCE = {
     "mlogreg/grad": ref_mlogreg._grad,
     "mlogreg/nll_terms": ref_mlogreg._nll_terms,
     "mlogreg/fit_terms": ref_mlogreg._fit_terms,
+    "glm/link_chain": ref_glm._link_chain,
+    "glm/wxv": ref_glm._wxv,
+    "glm/wz": ref_glm._wz,
+    "glm/deviance": ref_glm._deviance,
     "kmeans/sq_rowsums": ref_kmeans._sq_rowsums,
     "kmeans/min_dist": ref_kmeans._min_dist,
+    "autoencoder/recon_loss": ref_autoencoder._recon_loss,
 }
 
 

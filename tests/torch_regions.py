@@ -1,8 +1,6 @@
-"""The port's fused regions of the paper algorithms, with their operand
-shapes: L2SVM's from ``repro_torch.algos.l2svm``; mlogreg's and kmeans'
-(not ported yet as algorithms) re-declared over the port's IR with the
-expressions of ``repro/algos/mlogreg.py`` and ``repro/algos/kmeans.py``.
-Imports no JAX, so the card-only tests can use it too."""
+"""The port's fused regions of the paper algorithms (``repro_torch.algos``),
+with their operand shapes.  Imports no JAX, so the card-only tests can use
+it too."""
 
 import functools
 import importlib.util
@@ -11,9 +9,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch.algos import als_cg, l2svm
-from repro_torch.core import FusionContext, fused
-from repro_torch.core import ir as pir
+from repro_torch.algos import (als_cg, autoencoder, glm, kmeans, l2svm,
+                               mlogreg)
+from repro_torch.core import FusionContext
 
 
 @functools.cache
@@ -27,60 +25,13 @@ def chip_smoke():
     return mod
 
 
-def _softmax(X, B):
-    Z = X @ B
-    E = pir.exp(Z - Z.rowmaxs())
-    return E / E.rowsums()
-
-
-@fused
-def _probs(X, B):
-    return _softmax(X, B)
-
-
-@fused
-def _nll_obj_reg(X, B, Y, lam):
-    P = _softmax(X, B)
-    return (0.0 - (Y * pir.log(P + 1e-30)).sum()
-            + 0.5 * lam * (B ** 2).sum())
-
-
-@fused
-def _hvp(X, v, P):
-    Q = P * (X @ v)
-    return X.T @ (Q - P * Q.rowsums())
-
-
-@fused
-def _mlogreg_grad(X, P, Y):
-    return X.T @ (P - Y)
-
-
-@fused
-def _nll_terms(P, Y):
-    return (Y * pir.log(P + 1e-30)).sum()
-
-
-@fused
-def _fit_terms(X, B, Y):
-    return (B * (X.T @ Y)).sum()
-
-
-@fused
-def _sq_rowsums(X):
-    return (X ** 2).rowsums()
-
-
-@fused
-def _min_dist(XC, xsq, csq):
-    D = xsq - 2.0 * XC + csq
-    return D._agg("min", "row")
-
-
 def regions(m: int, n: int, k: int = 5) -> dict:
-    """name -> (port Fused, {operand: shape})."""
+    """name -> (port Fused, {operand: shape}); the autoencoder's batch is
+    X's shape, with n // 2 units in its outer hidden layers and 2 in the
+    middle one."""
     X, w, col, lam = (m, n), (n, 1), (m, 1), (1, 1)
     B, P = (n, k), (m, k)
+    h1, h2 = max(n // 2, 1), 2
     return {
         "l2svm/hinge": (l2svm._hinge, dict(X=X, w=w, y=col)),
         "l2svm/grad": (l2svm._grad, dict(X=X, out=col, y=col, w=w,
@@ -89,15 +40,23 @@ def regions(m: int, n: int, k: int = 5) -> dict:
         "l2svm/objective": (l2svm._objective, dict(out=col, w=w)),
         "l2svm/objective_full": (l2svm._objective_full,
                                  dict(X=X, w=w, y=col, lam=lam)),
-        "mlogreg/probs": (_probs, dict(X=X, B=B)),
-        "mlogreg/nll_obj_reg": (_nll_obj_reg, dict(X=X, B=B, Y=P, lam=lam)),
-        "mlogreg/hvp": (_hvp, dict(X=X, v=B, P=P)),
-        "mlogreg/grad": (_mlogreg_grad, dict(X=X, P=P, Y=P)),
-        "mlogreg/nll_terms": (_nll_terms, dict(P=P, Y=P)),
-        "mlogreg/fit_terms": (_fit_terms, dict(X=X, B=B, Y=P)),
-        "kmeans/sq_rowsums": (_sq_rowsums, dict(X=(m, 50))),
-        "kmeans/min_dist": (_min_dist, dict(XC=(m, 5), xsq=col,
-                                            csq=(1, 5))),
+        "mlogreg/probs": (mlogreg._probs, dict(X=X, B=B)),
+        "mlogreg/nll_obj_reg": (mlogreg._nll_obj_reg,
+                                dict(X=X, B=B, Y=P, lam=lam)),
+        "mlogreg/hvp": (mlogreg._hvp, dict(X=X, v=B, P=P)),
+        "mlogreg/grad": (mlogreg._grad, dict(X=X, P=P, Y=P)),
+        "mlogreg/nll_terms": (mlogreg._nll_terms, dict(P=P, Y=P)),
+        "mlogreg/fit_terms": (mlogreg._fit_terms, dict(X=X, B=B, Y=P)),
+        "glm/link_chain": (glm._link_chain, dict(eta=col, y=col)),
+        "glm/wxv": (glm._wxv, dict(X=X, w=col, v=w)),
+        "glm/wz": (glm._wz, dict(X=X, w=col, r=col)),
+        "glm/deviance": (glm._deviance, dict(y=col, eta=col)),
+        "kmeans/sq_rowsums": (kmeans._sq_rowsums, dict(X=(m, 50))),
+        "kmeans/min_dist": (kmeans._min_dist, dict(XC=(m, 5), xsq=col,
+                                                   csq=(1, 5))),
+        "autoencoder/recon_loss": (autoencoder._recon_loss, dict(
+            Xb=X, W1=(n, h1), b1=(1, h1), W2=(h1, h2), b2=(1, h2),
+            W3=(h2, h1), b3=(1, h1), W4=(h1, n), b4=(1, n))),
     }
 
 
@@ -134,6 +93,12 @@ GRADS = {
     "mlogreg/probs": ("B",),
     "mlogreg/hvp": ("v",),
     "mlogreg/fit_terms": ("X", "B", "Y"),
+    "glm/link_chain": ("eta", "y"),
+    "glm/wxv": ("w", "v"),
+    "glm/wz": ("X", "w", "r"),
+    "glm/deviance": ("eta",),
+    "autoencoder/recon_loss": ("Xb", "W1", "b1", "W2", "b2", "W3", "b3",
+                               "W4", "b4"),
 }
 
 
