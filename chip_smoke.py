@@ -24,8 +24,10 @@ Phases, each reported on its own lines with its wall time:
    ragged shape, at an (m,1) main and at the main path's width, each held
    against its plain PyTorch version on the same CUDA tensors; then a
    fault planted in the kernels' ordered combine (the middle partial is
-   dropped; in a Row ``row_agg``, the middle lane's partial of every row)
-   must fail the same check at 2,000,003 rows;
+   dropped; in a Row ``row_agg``, the middle element of every row, or in
+   the warp layout the middle lane's partial; in a tile-layout Row
+   ``col_t_agg`` also the middle row slice of each CTA) must fail the same
+   check at 2,000,003 rows; each Row line names its layout (tile or warp);
 4. the main path's own CPlans at the main path's shapes, against plain;
 5. the main path: ``repro_torch.algos.l2svm.run`` for 5 iterations on
    X (m,100) fp32 with ``kernels="cuda"``, launch counters set to 0 just
@@ -106,12 +108,15 @@ KERNEL_ULPS = 16
 #: reduction-order differences over the iterations
 TRACE_RTOL = 1e-5
 #: sweep cases at M_SWEEP rows whose planted fault (one partial dropped;
-#: for Row row_agg, the middle lane's partial of every row) must fail the
-#: kernel check: sums of non-negative terms, one per kernel, and a row sum
-#: of four terms
+#: for a Row row_agg, the middle element of every row in the tile layout,
+#: the middle lane's partial in the warp layout; for a tile-layout
+#: col_t_agg also the middle row slice's partial of each CTA) must fail the
+#: kernel check: sums of non-negative terms, one per kernel, a row sum of
+#: four terms, and the tile layout's row minimum over (m,5) and MLogReg's
+#: Hessian-vector close
 PLANTED = ("cell/full_agg_abs_sum", "magg/k3_min_mean_sum", "row/full_agg",
-           "row/row_agg_sum", "outer/right_mm_bs128_r20_d1.0",
-           "outer/full_agg_loss")
+           "row/row_agg_sum", "row/row_agg_min_w5", "row/col_t_agg_hvp_mm5",
+           "outer/right_mm_bs128_r20_d1.0", "outer/full_agg_loss")
 PLANT = "#define RK_PLANTED_FAULT 1\n"
 #: Outer cases whose planted fold fault (the middle piece of every row of
 #: two or more pieces dropped) must fail the kernel check; the main path's
@@ -222,6 +227,13 @@ def main_path_cplans(m: int, n: int):
 def kernel_name(cplan) -> str:
     from repro_torch.kernels import cuda_src
     return cuda_src.source_for(cplan).template
+
+
+def layout_name(cplan) -> str:
+    """The Row kernel's layout ("tile" or "warp"), "-" for the others (and
+    for a tree that predates the layouts)."""
+    from repro_torch.kernels import cuda_src
+    return getattr(cuda_src.source_for(cplan), "layout", "") or "-"
 
 
 def random_env(cplan, gen, shared=None):
@@ -503,9 +515,10 @@ def compare(cplan, env, label: str) -> tuple[float, float]:
 
 def planted(src, fold: bool = False):
     """``src`` built with a planted fault: ``rk::combine`` drops the
-    middle partial, the Row ``row_agg`` variant the middle lane's partial
-    of every row, the Outer ``right_mm`` skips the middle block of every
-    block row; with ``fold``, the Outer ``right_mm`` fold drops the middle
+    middle partial, the Row ``row_agg`` variant the middle element of every
+    row (tile layout) or the middle lane's partial (warp layout), the Row
+    tile layout's ``col_t_agg`` close the middle row slice of each CTA, the
+    Outer ``right_mm`` skips the middle block of every block row; with ``fold``, the Outer ``right_mm`` fold drops the middle
     piece of every row of two or more pieces instead.  A source with no
     such step is returned as is."""
     if fold:
@@ -794,6 +807,7 @@ def time_part(label, kname, cp, env, kernel, plain, out,
     b_ms, b_by = bound_ms(cp, env, out)
     lib = ""
     part = {"region": label, "variant": cp.variant,
+            "layout": layout_name(cp) if kname == "row" else "-",
             "binds": [list(b.shape) for b in cp.binds], "ms": ms,
             "plain_ms": plain_ms, "device_ms": dev_ms,
             "plain_device_ms": dev_plain_ms, "bound_ms": b_ms,
@@ -803,7 +817,8 @@ def time_part(label, kname, cp, env, kernel, plain, out,
         part["library_device_ms"] = device_ms(library)
         lib = (f" library {part['library_ms']:.4f} ms (device "
                f"{part['library_device_ms']})")
-    log(f"[time] {label:22s} {kname:5s} {cp.variant:9s} kernel {ms:.4f} ms "
+    log(f"[time] {label:22s} {kname:5s} {part['layout']:4s} "
+        f"{cp.variant:9s} kernel {ms:.4f} ms "
         f"(device {dev_ms}) plain {plain_ms:.4f} ms (device "
         f"{dev_plain_ms}){lib} bound {b_ms:.4f} ms ({b_by})")
     return part
@@ -1118,7 +1133,8 @@ def algo_phase(path, cps, counters, launches, main_err, per_kernel) -> None:
                                       f"{cp.variant}")
         main_err[kname] = max(main_err[kname], err)
         envs.append(env)
-        log(f"[check] main path {label:28s} {kname:4s} {cp.variant:9s} "
+        log(f"[check] main path {label:28s} {kname:4s} "
+            f"{layout_name(cp):4s} {cp.variant:9s} "
             f"binds {[tuple(b.shape) for b in cp.binds]} "
             f"max|kernel-plain| {err:.3e} = {share:.3g} x limit")
     dense_times(cps, envs, per_kernel)
@@ -1219,8 +1235,8 @@ def run() -> None:
         err, share = compare(cp, random_env(cp, gen), f"{c.name} at {m}x{n}")
         worst[kname] = max(worst[kname], share)
         log(f"[check] {c.name:30s} {m:>9d}x{n:<3d} {cp.ttype.name:4s} "
-            f"{cp.variant:9s} max|kernel-plain| {err:.3e} = {share:.3g} "
-            f"x limit")
+            f"{layout_name(cp):4s} {cp.variant:9s} max|kernel-plain| "
+            f"{err:.3e} = {share:.3g} x limit")
     log(f"[check] sweep passed: {len(planned)} CPlans, limit {KERNEL_ULPS} "
         f"x eps32 x error scale; largest share of the limit per kernel "
         + json.dumps(worst))
@@ -1231,7 +1247,7 @@ def run() -> None:
         with planted_fault():
             got = ops.execute(cp, env, kernels="cuda")
         err, share = measure(cp, env, got, f"planted {c.name}")
-        log(f"[check] planted fault (one partial dropped) {c.name} at "
+        log(f"[check] planted fault ({layout_name(cp)}) {c.name} at "
             f"{m}x{n}: max|kernel-plain| {err:.3e} = {share:.3g} x limit")
         if not share > 1.0:
             raise AssertionError(f"planted fault in {c.name} passed the "
@@ -1276,7 +1292,8 @@ def run() -> None:
                                       f"{cp.ttype.name} {cp.variant}")
         main_err[kname] = max(main_err[kname], err)
         envs.append(env)
-        log(f"[check] main path {region:22s} {kname:4s} {cp.variant:9s} "
+        log(f"[check] main path {region:22s} {kname:4s} "
+            f"{layout_name(cp):4s} {cp.variant:9s} "
             f"binds {[tuple(b.shape) for b in cp.binds]} "
             f"max|kernel-plain| {err:.3e} = {share:.3g} x limit")
 

@@ -15,6 +15,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace rk {
 
@@ -55,6 +56,26 @@ __device__ __forceinline__ float lane_reduce(int op, float v) {
   for (int o = L / 2; o > 0; o >>= 1)
     v = agg_comb(op, v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// ---- asynchronous copies into shared memory (the Outer and Row rings) ---
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)), "l"(src));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // ---- cell-wise op table (mirrors ref._UNARY / ref._BINARY) -------------

@@ -90,24 +90,10 @@ struct Layout {
                 "outer layout differs from cuda_src.py's accounting");
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp16(float* dst, const float* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using rk::cp16;
+using rk::cp4;
+using rk::cp_commit;
+using rk::cp_wait;
 
 // rows x W floats, contiguous in global memory, into rows of WP floats
 template <int W, int WP, int T>

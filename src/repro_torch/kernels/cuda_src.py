@@ -14,7 +14,12 @@ module writes, per CPlan, a ``struct Prog`` holding
 
 plus an ``extern "C"`` launcher that instantiates the skeleton
 (``repro_launch``; ``repro_launch_outer`` for Outer, whose kernel also
-takes the BCSR's block indices and is generated per block size).  The
+takes the BCSR's block indices and is generated per block size).  The Row
+template has two layouts, chosen per CPlan here (:func:`row_source`): the
+tile layout (a thread per row over tiles of rows in shared memory, every
+computed value in registers) and the warp layout (a warp per row) for
+programs with wide computed values; the layout and its geometry go into
+``Prog`` and :class:`KernelSource`.  The
 row count m stays a run-time argument, so one build serves every m.  The
 text names values by program position, never by IR node id, so
 structurally equal CPlans from different traces give byte-identical
@@ -31,7 +36,7 @@ import functools
 import hashlib
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
@@ -88,9 +93,14 @@ class KernelSource:
     text: str
     domain: tuple          # (rows, cols) the kernel walks (rows: run time)
     elems: int = 0         # reduced elements per partial (0: no partials)
-    lanes: int = 0         # row: lanes per row (32 or 1)
-    wpb: int = 0           # row: warps per CTA
     variant: str = ""      # row: the template variant
+    layout: str = ""       # row: "tile" or "warp" (row_layout)
+    threads: int = 0       # row: threads per CTA
+    rows: int = 0          # row: rows a CTA takes per step
+    stages: int = 0        # row tile: depth of the ring of row tiles
+    smem: int = 0          # row tile: dynamic shared memory (bytes)
+    ctas: int = 0          # row: CTAs per SM the grid is sized for
+    parts_per_cta: int = 0  # row: partials each CTA writes
 
     @functools.cached_property
     def key(self) -> str:
@@ -508,6 +518,610 @@ class _RowEmitter:
         return w
 
 
+# --------------------------------------------------------------------------
+# Row, tile layout: a thread per row over tiles of rows in shared memory
+# --------------------------------------------------------------------------
+
+#: the widest computed row value the tile layout takes: each is a register
+#: array ``float v[w]`` of the thread that owns the row.  Registers are the
+#: limit: a thread may have 255, MLogReg's backward keeps about six 5-wide
+#: values live at once, and a close keeps KT x C accumulators besides; at 16
+#: a dozen live values still fit.  Elementwise values of the tile's own row
+#: are exempt (evaluated per element where they are consumed), and so is a
+#: wide product that is the root of a no_agg CPlan (written in phase B).
+NARROW = 16
+#: threads of a tile CTA; a tile of fewer rows gives each row 128 / rows
+#: lanes in phase A (a 500-wide row of the autoencoder: 8 lanes)
+_TILE_THREADS = 128
+#: depth of the ring of row tiles: one tile in flight while one is computed
+_TILE_STAGES = 2
+#: rows of at least this many floats (the autoencoder's 500 and 784) take
+#: tiles of 4 rows, a warp per row in phase A: their per-element work is
+#: long, and a large tile of them leaves most SMs idle on a small batch
+_WIDE_ROW_FLOATS = 256
+_TILE_ROWS_MAX = 8192
+#: register accumulators of a thread of the col_t_agg close
+_TILE_ACC_MAX = 64
+#: shared memory of one SM, the part the SM keeps per CTA, and the most one
+#: CTA may have (bytes); the tile is sized so that two CTAs share an SM
+_SM_SMEM = 228 * 1024
+_CTA_RESERVED = 1024
+_CTA_SMEM_MAX = 227 * 1024
+_ROW_PHASE_B = {"none": 0, "close": 1, "wide": 2}
+
+
+class _WarpOnly(Exception):
+    """The program needs the warp layout."""
+
+
+@dataclass
+class _Val:
+    """A row value of the tile layout: ``s`` a scalar (C expression), ``v``
+    a register array ``expr[w]``, ``z`` an element-wise value of the tile
+    row (``fn(rd)`` is its C expression at column q, ``rd(kind, k, lo)``
+    the reader of tile k (``t``) or side position k (``s``) at q + lo), ``g``
+    a wide product left @ side computed in phase B.  ``regs``: depends on a
+    phase-A register; ``tile``: the tile index of a bind read as is."""
+    kind: str
+    w: int
+    expr: str = ""
+    fn: Optional[Callable] = None
+    regs: bool = False
+    tile: int = -1
+    mm: tuple = ()
+
+
+def _pad4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
+def _xyzw(u: int) -> str:
+    return "xyzw"[u]
+
+
+class _TileEmitter:
+    """Writes the tile layout's phase A (a thread per row, values in
+    registers) and the accessors of its phase B; raises :class:`_WarpOnly`
+    for a program it cannot express."""
+
+    def __init__(self, cplan: CPlan):
+        self.cp = cplan
+        self.M = cplan.main.shape[0]
+        self.pos = {b.nid: k for k, b in enumerate(cplan.binds)}
+        self.shape_of = {b.nid: tuple(b.shape) for b in cplan.binds}
+        rhs, used = set(), {cplan.prog_root, cplan.close_nid}
+        for (_nid, op, ins, _shape, _attrs) in cplan.prog:
+            for j, (kind, r) in enumerate(ins):
+                if kind == "b":
+                    (rhs if op == "matmul" and j == 1 else used).add(r)
+        self.tiles = [cplan.main.nid] + [
+            b.nid for b in cplan.binds[1:]
+            if b.shape[0] == self.M and self.M > 1 and b.nid in used]
+        self.tix = {nid: k for k, nid in enumerate(self.tiles)}
+        self.tw = [self.shape_of[nid][1] for nid in self.tiles]
+        self.vals: dict[tuple, _Val] = {}
+        self.lines: list[str] = []
+        self.sides: dict[tuple, int] = {}        # (pos, tb) -> sb offset
+        self.side_lines: list[str] = []
+        self.sbf = 0
+
+    def emit(self, *lines: str) -> None:
+        self.lines.extend(lines)
+
+    # -- values ----------------------------------------------------------------
+    def get(self, ref) -> _Val:
+        kind, r = ref
+        if kind == "l":
+            return _Val("s", 1, _lit(r))
+        if kind == "b":
+            return self.bind(r)
+        v = self.vals[("n", r)]
+        if v.kind == "g":
+            raise _WarpOnly("a wide product used inside the program")
+        return v
+
+    def value(self, nid: int) -> _Val:
+        v = self.vals.get(("n", nid))
+        return v if v is not None else self.bind(nid)
+
+    def bind(self, nid: int) -> _Val:
+        key = ("b", nid)
+        if key in self.vals:
+            return self.vals[key]
+        r, c = self.shape_of[nid]
+        p = self.pos[nid]
+        name = f"b{p}"
+        if nid in self.tix:
+            k = self.tix[nid]
+            if c == 1:
+                v = _Val("s", 1, f"t{k}[0]", tile=k)
+            elif c <= NARROW:
+                self.emit(f"float {name}[{c}];", "#pragma unroll",
+                          f"for (int t = 0; t < {c}; ++t) {name}[t] = "
+                          f"t{k}[t];")
+                v = _Val("v", c, name, regs=True, tile=k)
+            else:
+                v = _Val("z", c, fn=lambda rd, k=k: rd("t", k, 0), tile=k)
+        elif r == 1:
+            if c == 1:
+                v = _Val("s", 1, f"__ldg(b.p[{p}])")
+            elif c <= NARROW:
+                self.emit(f"float {name}[{c}];", "#pragma unroll",
+                          f"for (int t = 0; t < {c}; ++t) {name}[t] = "
+                          f"__ldg(b.p[{p}] + t);")
+                v = _Val("v", c, name, regs=True)
+            else:
+                v = _Val("z", c, fn=lambda rd, p=p: rd("s", p, 0))
+        else:
+            raise _WarpOnly(f"side of shape {(r, c)} read element-wise")
+        self.vals[key] = v
+        return v
+
+    def lazy_loop(self, z: _Val, pre, per) -> None:
+        """A loop over the columns q of ``z``: ``pre(q, vec)`` lines at the
+        top of each step, ``per(expr, q, u)`` lines per element (u the
+        float4 lane of a vectorised step, None otherwise).  A step takes
+        four columns, each tile read one float4, where every tile read is
+        16-byte aligned.  The LT lanes of a row take the steps in turn (the
+        caller folds their partials with :meth:`lanes`)."""
+        deps = []
+        z.fn(lambda kind, k, lo: deps.append((kind, k, lo)) or "0.f")
+        tdeps = sorted({(k, lo) for kind, k, lo in deps if kind == "t"})
+        vec = z.w % 4 == 0 and all(lo % 4 == 0 and self.tw[k] % 4 == 0
+                                   for k, lo in tdeps)
+        body = []
+        if vec:
+            for k, lo in tdeps:
+                body.append(f"const float4 x{k}_{lo} = *reinterpret_cast<"
+                            f"const float4*>(t{k} + q + {lo});")
+            body += pre("q", True)
+            for u in range(4):
+                e = z.fn(lambda kind, k, lo, u=u:
+                         f"x{k}_{lo}.{_xyzw(u)}" if kind == "t"
+                         else f"__ldg(b.p[{k}] + q + {lo + u})")
+                body += per(e, f"(q + {u})", u)
+            head = f"for (int q = 4 * sub; q < {z.w}; q += 4 * LT) {{"
+        else:
+            body += pre("q", False)
+            body += per(z.fn(lambda kind, k, lo:
+                             f"t{k}[q + {lo}]" if kind == "t"
+                             else f"__ldg(b.p[{k}] + q + {lo})"), "q", None)
+            head = f"for (int q = sub; q < {z.w}; q += LT) {{"
+        self.emit(head, *("  " + ln for ln in body), "}")
+
+    def lanes(self, code, names: list[str]) -> None:
+        """Fold the LT lanes' partials of ``names`` (a butterfly: every
+        lane ends with the same bits; a no-op at LT = 1)."""
+        self.emit(*(f"{n} = rk::lane_reduce<LT>({code}, {n});"
+                    for n in names))
+
+    @staticmethod
+    def el(v: _Val) -> str:
+        return v.expr if v.kind == "s" else f"{v.expr}[t]"
+
+    # -- ops -------------------------------------------------------------------
+    def cellwise(self, name: str, op: str, ins, width: int) -> _Val:
+        args = [self.get(r) for r in ins]
+        fmt = _CELL_C[op]
+        if any(a.kind == "z" for a in args):
+            if any(a.kind == "v" or (a.kind == "z" and a.w != width)
+                   for a in args):
+                raise _WarpOnly(f"'{op}' over values of different widths")
+            fns = [a.fn if a.kind == "z" else (lambda rd, e=a.expr: e)
+                   for a in args]
+            return _Val("z", width, fn=lambda rd: fmt.format(
+                *(f(rd) for f in fns)), regs=any(a.regs for a in args))
+        if width == 1:
+            self.emit(f"const float {name} = "
+                      f"{fmt.format(*(a.expr for a in args))};")
+            return _Val("s", 1, name, regs=True)
+        if width > NARROW or {a.w for a in args if a.kind == "v"} != {width}:
+            raise _WarpOnly(f"'{op}' of width {width}")
+        self.emit(f"float {name}[{width}];", "#pragma unroll",
+                  f"for (int t = 0; t < {width}; ++t) {name}[t] = "
+                  f"{fmt.format(*(self.el(a) for a in args))};")
+        return _Val("v", width, name, regs=True)
+
+    def reduce(self, name: str, op: str, x: _Val, drop: bool = False) -> None:
+        """``float name`` = the aggregate ``op`` of row value x (``mean``
+        sums); with ``drop``, the planted fault skips x's middle element."""
+        a = AGG_CODE[op]
+        skip = (lambda t: f"rowtile::kPlanted && {t} == {x.w // 2}") \
+            if drop else None
+        if x.kind == "s":
+            val = f"rk::agg_add({a}, rk::agg_init({a}), {x.expr})"
+            if drop:
+                val = f"rowtile::kPlanted ? rk::agg_init({a}) : {val}"
+            self.emit(f"const float {name} = {val};")
+        elif x.kind == "v":
+            cond = f"if (!({skip('t')})) " if drop else ""
+            self.emit(f"float {name} = rk::agg_init({a});", "#pragma unroll",
+                      f"for (int t = 0; t < {x.w}; ++t) {cond}{name} = "
+                      f"rk::agg_add({a}, {name}, {x.expr}[t]);")
+        else:
+            self.emit(f"float {name} = rk::agg_init({a});")
+            self.lazy_loop(x, lambda q, vec: [], lambda e, q, u: [
+                (f"if (!({skip(q)})) " if drop else "")
+                + f"{name} = rk::agg_add({a}, {name}, {e});"])
+            self.lanes(a, [name])
+
+    def row_agg(self, name: str, op: str, ref) -> _Val:
+        x = self.get(ref)
+        self.reduce(name, op, x)
+        if op == "mean" and x.w > 1:
+            self.emit(f"const float {name}m = {name} / {float(x.w)!r}f;")
+            name += "m"
+        return _Val("s", 1, name, regs=True)
+
+    def stage_side(self, p: int, k: int, c: int, tb: bool) -> int:
+        """Offset in ``sb`` of side p staged column-major, sb[j KP + q] =
+        B(q, j), KP = k padded to 4 (zeros)."""
+        key = (p, tb)
+        if key not in self.sides:
+            kp = _pad4(k)
+            off = self.sides[key] = self.sbf
+            self.sbf += c * kp
+            src = (f"b.p[{p}] + j * {k} + q" if tb
+                   else f"b.p[{p}] + q * {c} + j")
+            self.side_lines += [
+                f"for (int e = tid; e < {c * kp}; e += T) {{",
+                f"  const int j = e / {kp}, q = e % {kp};",
+                f"  sb[{off} + e] = q < {k} ? __ldg({src}) : 0.f;", "}"]
+        return self.sides[key]
+
+    def matmul(self, name: str, ins, shape, attrs: dict) -> _Val:
+        (ka, ra), (kb, rb) = ins
+        if attrs.get("ta", False) or kb != "b":
+            raise _WarpOnly("transposed or computed matmul operand")
+        a = self.get((ka, ra))
+        k, c = a.w, shape[1]
+        tb = bool(attrs.get("tb", False))
+        if self.shape_of[rb] != ((c, k) if tb else (k, c)) or k < 2:
+            raise _WarpOnly("matmul side does not match")
+        p = self.pos[rb]
+        if c > NARROW:
+            if a.kind != "v":
+                raise _WarpOnly(f"a {c}-column product of a wide row")
+            return _Val("g", c, mm=(a, p, tb, k))
+        acc = (lambda j: name) if c == 1 else (lambda j: f"{name}[{j}]")
+        self.emit(f"float {name} = 0.f;" if c == 1
+                  else f"float {name}[{c}] = {{}};")
+        if a.kind == "z":
+            off, kp = self.stage_side(p, k, c, tb), _pad4(k)
+
+            def pre(q, vec):
+                return [f"const float4 w{j} = *reinterpret_cast<const "
+                        f"float4*>(sb + {off + j * kp} + {q});"
+                        for j in range(c)] if vec else []
+
+            def per(e, q, u):
+                out = ["{", f"  const float x_ = {e};"]
+                for j in range(c):
+                    w = f"w{j}.{_xyzw(u)}" if u is not None \
+                        else f"sb[{off + j * kp} + {q}]"
+                    out.append(f"  {acc(j)} = fmaf(x_, {w}, {acc(j)});")
+                return out + ["}"]
+
+            self.lazy_loop(a, pre, per)
+            self.lanes("rk::AGG_SUM", [acc(j) for j in range(c)])
+        else:
+            B = (lambda q, j: f"b.p[{p}] + {j} * {k} + {q}") if tb else \
+                (lambda q, j: f"b.p[{p}] + {q} * {c} + {j}")
+            for j in range(c):
+                self.emit("#pragma unroll",
+                          f"for (int q = 0; q < {k}; ++q) {acc(j)} = "
+                          f"fmaf({a.expr}[q], __ldg({B('q', j)}), "
+                          f"{acc(j)});")
+        return _Val("s" if c == 1 else "v", c, name, regs=True)
+
+    def idx(self, name: str, ref, lo: int, hi: int) -> _Val:
+        w = hi - lo
+        x = self.get(ref)
+        if x.kind == "z":
+            if w > NARROW:
+                return _Val("z", w, fn=lambda rd: x.fn(
+                    lambda kind, k, l: rd(kind, k, l + lo)), regs=x.regs)
+            cols = [x.fn(lambda kind, k, l, j=j: f"t{k}[{l + lo + j}]"
+                         if kind == "t" else f"__ldg(b.p[{k}] + "
+                         f"{l + lo + j})") for j in range(w)]
+            if w == 1:
+                self.emit(f"const float {name} = {cols[0]};")
+                return _Val("s", 1, name, regs=True)
+            self.emit(f"float {name}[{w}];",
+                      *(f"{name}[{j}] = {e};" for j, e in enumerate(cols)))
+            return _Val("v", w, name, regs=True)
+        if x.kind == "s":
+            return x
+        if w == 1:
+            self.emit(f"const float {name} = {x.expr}[{lo}];")
+            return _Val("s", 1, name, regs=True)
+        self.emit(f"float {name}[{w}];", "#pragma unroll",
+                  f"for (int t = 0; t < {w}; ++t) {name}[t] = "
+                  f"{x.expr}[{lo} + t];")
+        return _Val("v", w, name, regs=True)
+
+    def program(self) -> None:
+        for pos, (nid, op, ins, shape, attrs) in enumerate(self.cp.prog):
+            attrs = dict(attrs)
+            name = f"v{pos}"
+            width = int(shape[1])
+            if shape[0] not in (1, self.M):
+                raise _WarpOnly(f"program value of shape {shape}")
+            if op == "matmul":
+                v = self.matmul(name, ins, shape, attrs)
+            elif op in AGG_OPS and "axis" in attrs:
+                if attrs["axis"] != "row":
+                    raise _WarpOnly(f"{attrs['axis']} aggregate")
+                v = self.row_agg(name, op, ins[0])
+            elif op == "idx":
+                v = self.idx(name, ins[0], int(attrs["lo"]), int(attrs["hi"]))
+            elif op in _CELL_C:
+                v = self.cellwise(name, op, ins, width)
+            else:
+                raise _WarpOnly(f"op '{op}'")
+            self.vals[("n", nid)] = v
+
+
+@dataclass(frozen=True)
+class RowTile:
+    """The tile layout of one Row CPlan (``csrc/row.cuh`` sums the shared
+    memory again and checks it): ``threads`` per CTA, ``rows`` per tile,
+    ``lt`` lanes per row in phase A (1 unless a tile has fewer rows than
+    threads), a ring of ``stages`` tiles, ``smem`` bytes of dynamic shared
+    memory, ``ctas`` CTAs per SM; ``kt``, ``ng``, ``sl``: the close's
+    closer columns per thread, column groups and row slices; ``cw``,
+    ``pbr``, ``u``: the wide root's column threads, rows in parallel and
+    columns per thread."""
+    threads: int
+    rows: int
+    lt: int
+    stages: int
+    smem: int
+    ctas: int
+    kt: int = 1
+    ng: int = 1
+    sl: int = 1
+    cw: int = 1
+    pbr: int = 1
+    u: int = 1
+
+
+def _tile_smem(rows: int, stages: int, widths: list[int], gp: int,
+               sbf: int, fold: int) -> int:
+    stage = sum(_pad4(rows * w) for w in widths)
+    return 4 * max(stages * stage + _pad4(rows * gp) + sbf, fold)
+
+
+def row_tile(widths: list[int], gp: int, sbf: int, variant: str, c: int,
+             kc: int, phase_b: str) -> RowTile:
+    """The largest tile (at most ``_TILE_ROWS_MAX`` rows) whose ring, gs
+    and staged sides fit two CTAs in an SM (one where none does), for tiled
+    binds of ``widths``, ``gp`` gs floats per row, ``sbf`` staged side
+    floats, root width ``c`` and closer width ``kc``.  Raises
+    :class:`_WarpOnly` when a row does not fit."""
+    cands = list(range(_TILE_ROWS_MAX, _TILE_THREADS - 1, -_TILE_THREADS))
+    cands += [64, 32, 16, 8, 4, 2, 1]
+    t, stages = _TILE_THREADS, _TILE_STAGES
+    if sum(widths) >= _WIDE_ROW_FLOATS:
+        cands = [r for r in cands if r <= t // 32]
+    for budget in ((_SM_SMEM // 2) - _CTA_RESERVED, _CTA_SMEM_MAX):
+        for rows in cands:
+            lt = 1 if rows >= t else min(32, t // rows)
+            kt = ng = sl = cw = pbr = u = 1
+            fold = {FULL_AGG: t, COL_AGG: t * c}.get(variant, 0)
+            if phase_b == "close":
+                kt = 4
+                while -(-kc // kt) > t:
+                    kt += 4
+                if kt * c > _TILE_ACC_MAX:
+                    raise _WarpOnly(f"close of {kc} x {c} accumulators")
+                ng = -(-kc // kt)
+                sl = t // ng
+                fold = sl * kc * c
+            elif phase_b == "wide":
+                cw = min(c, t)
+                pbr, u = t // cw, -(-c // cw)
+            smem = _tile_smem(rows, stages, widths, gp, sbf, fold)
+            if smem <= budget:
+                ctas = max(1, min(_SM_SMEM // (smem + _CTA_RESERVED),
+                                  512 // t))
+                return RowTile(t, rows, lt, stages, smem, ctas, kt, ng, sl,
+                               cw, pbr, u)
+    raise _WarpOnly("a row does not fit the shared memory")
+
+
+def _tile_source(cplan: CPlan) -> KernelSource:
+    """The Row template in the tile layout; raises :class:`_WarpOnly`."""
+    variant = cplan.variant
+    em = _TileEmitter(cplan)
+    em.program()
+    root = em.value(cplan.prog_root)
+    C = root.w
+    agg = "sum" if variant == COL_T_AGG else (cplan.agg_op or "sum")
+    out_lines, phase_b, KC, to = [], "none", 0, 1
+    gs_vals = []                       # (value, gs offset) stored in phase A
+    gp = 0
+
+    def gs_width(w):
+        return w if w < 4 else _pad4(w)
+
+    if variant in (NO_AGG, COL_AGG):
+        if root.kind == "g":
+            if variant != NO_AGG:
+                raise _WarpOnly("wide product under a column aggregate")
+            phase_b = "wide"
+            left = root.mm[0]
+            gs_vals.append((left, 0))
+            gp = gs_width(left.w)
+        elif root.kind == "z":
+            raise _WarpOnly("wide element-wise root")
+        else:
+            to = C
+            out_lines = [f"o[0] = {root.expr};"] if C == 1 else [
+                "#pragma unroll",
+                f"for (int t = 0; t < {C}; ++t) o[t] = {root.expr}[t];"]
+    elif variant in (ROW_AGG, FULL_AGG):
+        if root.kind == "g":
+            raise _WarpOnly("wide product under a row aggregate")
+        em.reduce("a_", agg, root, drop=variant == ROW_AGG)
+        out_lines = ["o[0] = a_;"]
+    else:                                          # col_t_agg
+        phase_b = "close"
+        closer = em.value(cplan.close_nid)
+        KC = closer.w
+        if root.kind in ("z", "g") or closer.kind == "g" or C > NARROW:
+            raise _WarpOnly("wide close operand")
+        if closer.kind == "z" and closer.regs:
+            raise _WarpOnly("closer depends on phase-A registers")
+        if root.tile < 0:
+            gs_vals.append((root, 0))
+            gp = gs_width(C)
+        if closer.tile < 0 and closer.kind != "z":
+            gs_vals.append((closer, gp))
+            gp += gs_width(KC)
+    if gp > 4:
+        gp = _pad4(gp)
+    for v, off in gs_vals:
+        if v.kind == "s":
+            out_lines.append(f"if (sub == 0) gs[r * {gp} + {off}] = "
+                             f"{v.expr};")
+        else:
+            out_lines += ["#pragma unroll",
+                          f"for (int t = 0; t < {v.w}; ++t) "
+                          f"if (sub == 0) gs[r * {gp} + {off} + t] = "
+                          f"{v.expr}[t];"]
+
+    widths = em.tw
+    lay = row_tile(widths, gp, em.sbf, variant, C, KC, phase_b)
+    offs, acc_off = [], 0
+    for w in widths:
+        offs.append(acc_off)
+        acc_off += _pad4(lay.rows * w)
+    tile_ptrs = [f"const float* t{k} = buf + {offs[k]} + r * {w};"
+                 for k, w in enumerate(widths)]
+
+    def gs_read(dst: str, off: int, w: int) -> list[str]:
+        if off % 4 == 0 and gp % 4 == 0 and w >= 4:
+            lines = []
+            for u in range(_pad4(w) // 4):
+                lines.append(f"{{ const float4 y = *reinterpret_cast<const "
+                             f"float4*>(gs + r * {gp} + {off + 4 * u});")
+                for lane in range(4):
+                    if 4 * u + lane < w:
+                        lines.append(f"  {dst}[{4 * u + lane}] = "
+                                     f"y.{_xyzw(lane)};")
+                lines.append("}")
+            return lines
+        return [f"{dst}[{j}] = gs[r * {gp} + {off + j}];" for j in range(w)]
+
+    def val_read(dst: str, v: _Val, off: int) -> list[str]:
+        if v.tile >= 0:
+            return [f"{dst}[{j}] = t{v.tile}[{j}];" for j in range(v.w)]
+        return gs_read(dst, off, v.w)
+
+    phase_fns = []
+    sig = ("const rk::Binds<NB>& b, const float* buf, const float* gs, "
+           "int r")
+    if phase_b == "close":
+        kt = lay.kt
+        if closer.tile >= 0:
+            k = closer.tile
+            if em.tw[k] % 4 == 0 and kt % 4 == 0:
+                cbody = []
+                for u in range(kt // 4):
+                    cbody += [f"if (col0 + {4 * u} < KC) {{",
+                              f"  const float4 x = *reinterpret_cast<const "
+                              f"float4*>(t{k} + col0 + {4 * u});",
+                              *(f"  cv[{4 * u + lane}] = x.{_xyzw(lane)};"
+                                for lane in range(4)),
+                              "} else {",
+                              *(f"  cv[{4 * u + lane}] = 0.f;"
+                                for lane in range(4)), "}"]
+            else:
+                cbody = ["#pragma unroll",
+                         "for (int kt = 0; kt < KT; ++kt)",
+                         f"  cv[kt] = col0 + kt < KC ? t{k}[col0 + kt] : "
+                         f"0.f;"]
+        elif closer.kind == "z":
+            e = closer.fn(lambda kind, k, lo: f"t{k}[col + {lo}]"
+                          if kind == "t" else f"__ldg(b.p[{k}] + col + {lo})")
+            cbody = ["#pragma unroll", "for (int kt = 0; kt < KT; ++kt) {",
+                     "  const int col = col0 + kt;",
+                     f"  cv[kt] = col < KC ? {e} : 0.f;", "}"]
+        else:
+            off = gs_vals[-1][1]
+            cbody = ["#pragma unroll",
+                     "for (int kt = 0; kt < KT; ++kt)",
+                     f"  cv[kt] = col0 + kt < KC ? gs[r * {gp} + {off} + "
+                     f"col0 + kt] : 0.f;"]
+        phase_fns += [
+            f"__device__ static __forceinline__ void closer_at({sig}, "
+            "int col0, float (&cv)[KT]) {",
+            *("  " + ln for ln in tile_ptrs + cbody), "}",
+            f"__device__ static __forceinline__ void root_at({sig}, "
+            "float (&rv)[C]) {",
+            *("  " + ln for ln in tile_ptrs + val_read("rv", root, 0)), "}"]
+    elif phase_b == "wide":
+        left, p, tb, k = root.mm
+        B = f"b.p[{p}] + j * {k} + q" if tb else f"b.p[{p}] + q * {C} + j"
+        phase_fns += [
+            f"__device__ static __forceinline__ void left_at({sig}, "
+            "float (&g)[K]) {",
+            *("  " + ln for ln in gs_read("g", 0, k)), "}",
+            "__device__ static __forceinline__ void bcol("
+            "const rk::Binds<NB>& b, int j, float (&w)[K]) {",
+            "#pragma unroll",
+            f"  for (int q = 0; q < K; ++q) w[q] = __ldg({B});", "}"]
+
+    mean = agg == "mean" and variant in (ROW_AGG, COL_AGG, FULL_AGG)
+    elems = {COL_AGG: C, FULL_AGG: 1, COL_T_AGG: KC * C}.get(variant, 0)
+    kw = root.mm[3] if phase_b == "wide" else 1
+    sel = lambda vals: _select([str(v) for v in vals], "-1")
+    lines = [
+        "// Row template, tile layout: " + _describe(cplan),
+        *_header("row"),
+        "struct Prog {",
+        f"  static constexpr int NB = {len(cplan.binds)}, LAYOUT = 1, "
+        f"T = {lay.threads}, R = {lay.rows}, LT = {lay.lt}, "
+        f"STAGES = {lay.stages}, CTAS = {lay.ctas}, SMEM = {lay.smem};",
+        f"  static constexpr int NT = {len(widths)}, C = {C}, KC = {KC}, "
+        f"TO = {to}, VARIANT = {_ROW_VARIANT[variant]}, "
+        f"AGG = {AGG_CODE[agg]}, MEAN = {int(mean)};",
+        f"  static constexpr int GP = {gp}, SBF = {em.sbf}, "
+        f"PHASE_B = {_ROW_PHASE_B[phase_b]};",
+        f"  static constexpr int KT = {lay.kt}, NG = {lay.ng}, "
+        f"SL = {lay.sl}, K = {kw}, CW = {lay.cw}, PBR = {lay.pbr}, "
+        f"U = {lay.u};",
+        "  __host__ __device__ static constexpr int tile_bind(int k) "
+        f"{{ return {sel([em.pos[n] for n in em.tiles])}; }}",
+        "  __host__ __device__ static constexpr int tile_width(int k) "
+        f"{{ return {sel(widths)}; }}",
+        "  __host__ __device__ static constexpr int tile_off(int k) "
+        f"{{ return {sel(offs)}; }}",
+        "  __device__ static __forceinline__ int agg_of(int) "
+        "{ return AGG; }",
+        "  __device__ static __forceinline__ float fin(int, float a, "
+        "double aux) { return MEAN ? a / (float)aux : a; }",
+        "  __device__ static __forceinline__ void stage_sides("
+        "const rk::Binds<NB>& b, float* sb, int tid) {",
+        *("    " + ln for ln in em.side_lines),
+        "  }",
+        "  __device__ static __forceinline__ void eval("
+        "const rk::Binds<NB>& b, const float* buf, const float* sb, "
+        "float* gs, int r, int sub, float (&o)[TO]) {",
+        *("    " + ln for ln in tile_ptrs + em.lines + out_lines),
+        "  }",
+        *("  " + ln for ln in phase_fns),
+        "};", "",
+        *_launcher("row_launch")]
+    return KernelSource("row", "\n".join(lines), (cplan.main.shape[0], C),
+                        elems=elems, variant=variant, layout="tile",
+                        threads=lay.threads, rows=lay.rows,
+                        stages=lay.stages,
+                        smem=lay.smem, ctas=lay.ctas, parts_per_cta=1)
+
+
+
 def _row_lanes(cplan: CPlan) -> int:
     """32 lanes (one warp) per row when any row value is a vector; one
     thread per row when every value is a per-row scalar."""
@@ -523,7 +1137,9 @@ def _row_lanes(cplan: CPlan) -> int:
 
 
 def row_source(cplan: CPlan) -> KernelSource:
-    """The Row template, all five variants."""
+    """The Row template, all five variants: the tile layout where the
+    program's computed row values are narrow (:class:`_TileEmitter`), the
+    warp layout otherwise (``KernelSource.layout`` says which)."""
     variant = cplan.variant
     if variant not in _ROW_VARIANT:
         raise _unsupported(cplan, "not a Row variant")
@@ -531,6 +1147,16 @@ def row_source(cplan: CPlan) -> KernelSource:
     if root_shape(cplan)[0] != M:
         raise _unsupported(cplan, f"root of shape {root_shape(cplan)} is "
                                   f"not a value per row of the {M}-row main")
+    try:
+        return _tile_source(cplan)
+    except _WarpOnly:
+        return _warp_source(cplan)
+
+
+def _warp_source(cplan: CPlan) -> KernelSource:
+    """The Row template in the warp layout."""
+    variant = cplan.variant
+    M = cplan.main.shape[0]
     lanes = _row_lanes(cplan)
     em = _RowEmitter(cplan, lanes)
     em.program()
@@ -554,7 +1180,8 @@ def row_source(cplan: CPlan) -> KernelSource:
     lines = [
         "// Row template: " + _describe(cplan), *_header("row"),
         "struct Prog {",
-        f"  static constexpr int NB = {len(cplan.binds)}, L = {lanes}, "
+        f"  static constexpr int NB = {len(cplan.binds)}, LAYOUT = 0, "
+        f"L = {lanes}, "
         f"WPB = {wpb}, SMW = {em.smw};",
         f"  static constexpr int C = {C}, KC = {KC}, TR = {tr}, TK = {tk}, "
         f"TE = {te};",
@@ -572,8 +1199,9 @@ def row_source(cplan: CPlan) -> KernelSource:
         "};", "",
         *_launcher("row_launch")]
     return KernelSource("row", "\n".join(lines),
-                        (cplan.main.shape[0], C), elems=elems, lanes=lanes,
-                        wpb=wpb, variant=variant)
+                        (cplan.main.shape[0], C), elems=elems,
+                        variant=variant, layout="warp", threads=wpb * 32,
+                        rows=wpb * (32 // lanes), ctas=8, parts_per_cta=wpb)
 
 
 # --------------------------------------------------------------------------

@@ -5,7 +5,9 @@ Replaces ``repro/kernels/rowwise.py::row_pallas`` — all five variants
 (``no_agg``, ``row_agg``, ``col_agg``, ``full_agg``, ``col_t_agg``), narrow
 in-program matmuls and in-program row aggregates.  The kernel source is
 generated per CPlan (:func:`repro_torch.kernels.cuda_src.row_source`) over
-``csrc/row.cuh``; see its header for the design and its bound.
+``csrc/row.cuh``, in its tile or warp layout; see its header for the design
+and its bound.  The launch geometry (threads, rows a CTA takes per step,
+CTAs per SM, shared memory) comes from the generated source.
 """
 
 from __future__ import annotations
@@ -44,11 +46,12 @@ def row(cplan: CPlan, env: dict) -> torch.Tensor:
                  COL_AGG: (1, src.domain[1]), FULL_AGG: (1, 1),
                  COL_T_AGG: tuple(cplan.out_shape)}[variant]
     out = torch.empty(out_shape, dtype=torch.float32, device=dev)
-    rows_per_block = src.wpb * (32 // src.lanes)
-    nblocks = build.grid(m, rows_per_block, dev, 8)
+    # tile layout: a persistent grid of src.ctas CTAs per SM over tiles of
+    # src.rows rows; warp layout: a few waves of CTAs over rows
+    nblocks = build.grid(m, src.rows, dev, src.ctas)
     part = None
     if src.elems:
-        part = torch.empty(nblocks * src.wpb * src.elems,
+        part = torch.empty(nblocks * src.parts_per_cta * src.elems,
                            dtype=torch.float32, device=dev)
     rr, rc = cuda_src.root_shape(cplan)
     aux = {ROW_AGG: rc, COL_AGG: rr, FULL_AGG: rr * rc}.get(variant, 1)

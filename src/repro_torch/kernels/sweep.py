@@ -22,7 +22,8 @@ from repro_torch.kernels.blocksparse import PIECE_BLOCKS
 
 def _operands(m: int, n: int) -> dict[str, tuple[int, int]]:
     return {"X": (m, n), "Y": (m, n), "v": (m, 1), "B1": (n, 1),
-            "B4": (n, 4), "B256": (n, 256), "Y4": (m, 4)}
+            "B4": (n, 4), "B256": (n, 256), "Y4": (m, 4), "B5": (n, 5),
+            "Y5": (m, 5), "c5": (1, 5)}
 
 
 @dataclass(frozen=True)
@@ -56,6 +57,12 @@ def _softmax(ir, X, B4):
     Z = X @ B4
     E = ir.exp(Z - Z.rowmaxs())
     return E / E.rowsums()
+
+
+def _hvp(ir, X, B5, Y5):
+    """The paper's Expression (2), MLogReg's Hessian-vector product."""
+    Q = Y5 * (X @ B5)
+    return X.T @ (Q - Y5 * Q.rowsums())
 
 
 def cases() -> list[Case]:
@@ -127,6 +134,16 @@ def cases() -> list[Case]:
         Case("row/idx_side", "row",
              lambda ir, X, B4: X.cols(0, 4) * (X @ B4),
              ("X", "B4"), None, min_n=4),
+        Case("row/no_agg_softmax_mm5", "row",
+             lambda ir, X, B5: _softmax(ir, X, B5), ("X", "B5"), None),
+        Case("row/col_t_agg_hvp_mm5", "row", _hvp, ("X", "B5", "Y5"),
+             "ROW"),
+        Case("row/no_agg_wide_tb", "row",
+             lambda ir, X, B5, Y5: (ir.sigmoid(X @ B5) - Y5) @ B5.T,
+             ("X", "B5", "Y5"), None),
+        Case("row/row_agg_min_w5", "row",
+             lambda ir, Y5, v, c5: (v - 2.0 * Y5 + c5)._agg("min", "row"),
+             ("Y5", "v", "c5"), None),
         Case("cell/idx_where", "cell",
              lambda ir, X, Y: ir.where(X.cols(1, X.shape[1]) > 0.0,
                                        Y.cols(0, Y.shape[1] - 1), 1.0),

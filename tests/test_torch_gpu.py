@@ -111,7 +111,8 @@ def test_kernel_matches_plain(card, case):
 
 
 @pytest.mark.parametrize("name", ["cell/full_agg_sum", "magg/k2_sum_max",
-                                  "row/col_t_agg_mm4"])
+                                  "row/col_t_agg_mm4",
+                                  "row/col_t_agg_hvp_mm5"])
 def test_reductions_repeat_bit_for_bit(card, name):
     case = next(c for c in sweep.cases() if c.name == name)
     cp, names = sweep.fused_cplan(case, *SWEEP_SHAPES[1])

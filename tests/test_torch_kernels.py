@@ -201,3 +201,15 @@ def test_planted_fault_is_only_in_its_own_builds():
     assert row_src.elems == 0 and row_src.variant == "row_agg"
     assert smoke.planted(row_src).text == smoke.PLANT + row_src.text
     assert "#ifdef RK_PLANTED_FAULT" in (build.CSRC / "row.cuh").read_text()
+    # the tile layout: a row_agg drops the middle element of each row, a
+    # col_t_agg close the middle row slice of each CTA (rowtile::kPlanted)
+    for name in ("row/row_agg_min_w5", "row/col_t_agg_hvp_mm5"):
+        case = next(c for c in sweep.cases() if c.name == name)
+        src = cuda_src.source_for(sweep.fused_cplan(case, 33, 7)[0])
+        assert src.layout == "tile" and name in smoke.PLANTED
+        bad = smoke.planted(src)
+        assert bad.text == smoke.PLANT + src.text and bad.key != src.key
+        assert "RK_PLANTED_FAULT" not in src.text
+    assert "rowtile::kPlanted" in row_src.text and row_src.layout == "tile"
+    assert "rowtile::kPlanted && q == P::SL / 2" in \
+        (build.CSRC / "row.cuh").read_text()
