@@ -22,13 +22,21 @@ Phases, each reported on its own lines with its wall time:
 3. kernels vs plain: every variant of the Cell, MAgg and Row kernels
    (CPlans from the port's planner, ``repro_torch.kernels.sweep``) at a
    ragged shape, at an (m,1) main and at the main path's width, each held
-   against its plain PyTorch version on the same CUDA tensors; then a
-   fault planted in the kernels' ordered combine (the middle partial is
-   dropped; in a Row ``row_agg``, the middle element of every row, or in
-   the warp layout the middle lane's partial; in a tile-layout Row
-   ``col_t_agg`` also the middle row slice of each CTA) must fail the same
-   check at 2,000,003 rows; each Row line names its layout (tile or warp);
-4. the main path's own CPlans at the main path's shapes, against plain;
+   against its plain PyTorch version on the same CUDA tensors, and the
+   Cell kernel over (m,1) domains at m of 1, 3, 5, 7, 33, 1,023 and
+   2,000,003 (and (m,4) ones with a (1,4) side), so that every part of its
+   vector walk runs; then a fault planted in the kernels' ordered fold
+   (the middle partial is dropped, in the Cell kernel's own fold or in
+   ``rk::combine``; in a Row ``row_agg``, the middle element of every row,
+   or in the warp layout the middle lane's partial; in a tile-layout Row
+   ``col_t_agg`` also the middle row slice of each CTA) and one in the
+   Cell vector walk (the second cell of every group dropped) must fail the
+   same check at 2,000,003 rows; every reducing Cell case gives the same
+   bits twice, and a Cell operand off a 16-byte boundary raises; each Row
+   line names its layout (tile or warp), each Cell line its walk (vec or
+   scal);
+4. the main path's own CPlans at the main path's shapes, against plain
+   (a reducing Cell CPlan also run twice for the same bits);
 5. the main path: ``repro_torch.algos.l2svm.run`` for 5 iterations on
    X (m,100) fp32 with ``kernels="cuda"``, launch counters set to 0 just
    before it and read just after; the same run with ``kernels="never"``
@@ -37,7 +45,10 @@ Phases, each reported on its own lines with its wall time:
    ``torch.profiler`` splits the device time by kernel;
 6. timing: per main-path CPlan, the kernel's and its plain version's
    median time with CUDA events, beside the bound (bytes over 3.35 TB/s or
-   fp32 flops over 67 TFLOP/s, the larger);
+   fp32 flops over 67 TFLOP/s, the larger), with the kernels one call
+   launched in the profiler (a Cell call must be one Cell kernel) and, for
+   a Cell CPlan of 10⁶ cells or more, its SASS instructions per cell and
+   the issue floor they give (``[sass]``);
 7. ALS-CG: the Outer kernel's sweep (``right_mm`` / ``full_agg`` over BCSR
    mains, ``repro_torch.kernels.sweep.outer_cases``) against its plain
    version, with planted faults that must fail (``right_mm`` skips the
@@ -64,7 +75,9 @@ Phases, each reported on its own lines with its wall time:
    ``kernels="never"`` (1e-5) and against a planted-fault run (must fail),
    the hand baseline (the reference's 2e-2), KMeans' assignment rows
    summing to 1, a profile, then its CPlans at its shapes against plain
-   and timed beside their bounds;
+   (reducing Cell CPlans twice, bit for bit; GLM's Cell CPlans also with
+   the planted group fault, which must fail) and timed beside their
+   bounds;
 12. one JSON line with every kernel (launches and times summed over every
    path), the card line, and the final ``{"ok": true, ...}`` line.
 
@@ -107,14 +120,16 @@ KERNEL_ULPS = 16
 #: relative; L2SVM's line search and ALS-CG's CG steps carry
 #: reduction-order differences over the iterations
 TRACE_RTOL = 1e-5
-#: sweep cases at M_SWEEP rows whose planted fault (one partial dropped;
-#: for a Row row_agg, the middle element of every row in the tile layout,
+#: sweep cases at M_SWEEP rows whose planted fault (one partial dropped,
+#: in the Cell kernel's own fold or in rk::combine; for a Row row_agg, the middle element of every row in the tile layout,
 #: the middle lane's partial in the warp layout; for a tile-layout
 #: col_t_agg also the middle row slice's partial of each CTA) must fail the
-#: kernel check: sums of non-negative terms, one per kernel, a row sum of
+#: kernel check: sums of non-negative terms (Cell: one in each walk; one
+#: per other kernel), a row sum of
 #: four terms, and the tile layout's row minimum over (m,5) and MLogReg's
 #: Hessian-vector close
-PLANTED = ("cell/full_agg_abs_sum", "magg/k3_min_mean_sum", "row/full_agg",
+PLANTED = ("cell/full_agg_abs_sum", "cell/full_agg_row_side",
+           "magg/k3_min_mean_sum", "row/full_agg",
            "row/row_agg_sum", "row/row_agg_min_w5", "row/col_t_agg_hvp_mm5",
            "outer/right_mm_bs128_r20_d1.0", "outer/full_agg_loss")
 PLANT = "#define RK_PLANTED_FAULT 1\n"
@@ -124,6 +139,17 @@ PLANT = "#define RK_PLANTED_FAULT 1\n"
 PLANTED_FOLD = ("outer/right_mm_long_rows_bs16",
                 "outer/right_mm_long_rows_bs128")
 PLANT_FOLD = "#define RK_PLANTED_FOLD 1\n"
+#: Cell cases in the vector walk at M_SWEEP rows whose planted group fault
+#: (the second cell of every four-cell group dropped: no_agg stores 0, a
+#: reduction leaves it out) must fail the kernel check; the GLM path's
+#: Cell CPlans must fail it too
+PLANTED_GROUP = ("cell/no_agg_row_side", "cell/full_agg_row_side")
+PLANT_GROUP = "#define RK_PLANTED_GROUP 1\n"
+#: row counts the Cell kernel is held to plain at over an (m,1) domain,
+#: so that its vector walk's last round and its cells past the last group
+#: are reached (m·N of 1, 3, 5, 7, 33, 1,023 and M_SWEEP), and the (1,4)
+#: side cases' row counts (m·N four times these)
+TAIL_ROWS = (1, 3, 5, 7, 33, 1023, M_SWEEP)
 
 #: ALS-CG main path: the Netflix ratings shape (480,189 users x 17,770
 #: movies) padded to the block size, block density 0.25 (data.ratings'
@@ -230,10 +256,14 @@ def kernel_name(cplan) -> str:
 
 
 def layout_name(cplan) -> str:
-    """The Row kernel's layout ("tile" or "warp"), "-" for the others (and
-    for a tree that predates the layouts)."""
+    """The Row kernel's layout ("tile" or "warp"), the Cell kernel's walk
+    ("vec" or "scal"), "-" for the others (and for a tree that predates
+    them)."""
     from repro_torch.kernels import cuda_src
-    return getattr(cuda_src.source_for(cplan), "layout", "") or "-"
+    src = cuda_src.source_for(cplan)
+    walk = getattr(src, "walk", "")
+    return {"vector": "vec", "scalar": "scal"}.get(walk) or \
+        getattr(src, "layout", "") or "-"
 
 
 def random_env(cplan, gen, shared=None):
@@ -513,29 +543,35 @@ def compare(cplan, env, label: str) -> tuple[float, float]:
     return err, share
 
 
-def planted(src, fold: bool = False):
-    """``src`` built with a planted fault: ``rk::combine`` drops the
-    middle partial, the Row ``row_agg`` variant the middle element of every
+def planted(src, fold: bool = False, group: bool = False):
+    """``src`` built with a planted fault: the Cell kernel's fold and
+    ``rk::combine`` drop the middle partial, the Row ``row_agg`` variant the middle element of every
     row (tile layout) or the middle lane's partial (warp layout), the Row
     tile layout's ``col_t_agg`` close the middle row slice of each CTA, the
     Outer ``right_mm`` skips the middle block of every block row; with ``fold``, the Outer ``right_mm`` fold drops the middle
-    piece of every row of two or more pieces instead.  A source with no
-    such step is returned as is."""
+    piece of every row of two or more pieces instead; with ``group``, the
+    Cell kernel's vector walk drops the second cell of every group instead.
+    A source with no such step is returned as is."""
+    if group:
+        return dataclasses.replace(src, text=PLANT_GROUP + src.text) \
+            if getattr(src, "walk", "") == "vector" else src
     if fold:
         return dataclasses.replace(src, text=PLANT_FOLD + src.text) \
             if src.template == "outer" and not src.elems else src
     return dataclasses.replace(src, text=PLANT + src.text) \
         if src.elems or src.template == "outer" or \
-        src.variant == "row_agg" else src
+        (src.template, src.variant) == ("row", "row_agg") else src
 
 
 @contextlib.contextmanager
-def planted_fault(fold: bool = False):
+def planted_fault(fold: bool = False, group: bool = False):
     """Every reducing kernel launched inside runs its planted build (with
-    ``fold``: the fold fault)."""
+    ``fold``: the fold fault; with ``group``: every vector-walk Cell
+    kernel its group fault)."""
     from repro_torch.kernels import cuda_src
     orig = cuda_src.source_for
-    cuda_src.source_for = lambda cp, bs=None: planted(orig(cp, bs), fold)
+    cuda_src.source_for = lambda cp, bs=None: planted(orig(cp, bs), fold,
+                                                      group)
     try:
         yield
     finally:
@@ -576,10 +612,11 @@ def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
 PROFILE_PAD_S = 0.05
 
 
-def device_ms(fn, reps: int = 10):
+def device_ms(fn, reps: int = 10, names: list | None = None):
     """Device time per call from a ``torch.profiler`` trace: the self
     device time of every kernel the calls launched, summed, over ``reps``;
-    None when the trace holds no device time.  A first profiler step runs
+    None when the trace holds no device time.  ``names``, where given,
+    receives (kernel name, launches per call) of every kernel traced.  A first profiler step runs
     ``fn`` once and is discarded, and the step that is read is padded with
     ``PROFILE_PAD_S`` of idle time at each end.  A kernel launched a number
     of times that is not a multiple of ``reps`` is logged: the trace lost
@@ -604,6 +641,8 @@ def device_ms(fn, reps: int = 10):
     lost = [f"{e.key[:40]} x{e.count}" for e in events if e.count % reps]
     if lost:
         log(f"[time] launches missing from a {reps}-call trace: {lost}")
+    if names is not None:
+        names += [(e.key, e.count / reps) for e in events]
     total_us = sum(e.self_device_time_total for e in events)
     return total_us / 1e3 / reps if total_us > 0 else None
 
@@ -661,6 +700,102 @@ def outer_bound_ms(cplan, env, out) -> tuple[float, str]:
     t_bytes, t_flops = nbytes / HBM_BW * 1e3, flops / FP32_PEAK * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_flops else \
         (t_flops, "operations")
+
+
+def sm_clock_mhz() -> tuple[float, float]:
+    """The card's current and maximum SM clocks (MHz), from nvidia-smi."""
+    r = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                        "--format=csv,noheader,nounits"], capture_output=True,
+                       text=True, timeout=60, check=True)
+    cur, top = r.stdout.strip().splitlines()[0].split(",")
+    return float(cur), float(top)
+
+
+def cuobjdump_path() -> str:
+    """The CUDA toolkit's cuobjdump (beside nvcc where it is not on PATH)."""
+    import shutil
+    from repro_torch.kernels import build
+    return shutil.which("cuobjdump") or str(
+        Path(build.nvcc_path()).with_name("cuobjdump"))
+
+
+def sass_loop_counts(src) -> dict:
+    """Static SASS counts of a built Cell kernel (``cuobjdump -sass`` of
+    its library): per kernel function, its instructions and those of its
+    largest loop (the span from a backward branch's target to the branch,
+    NOPs left out) — for the vector walk the loop of U groups in flight,
+    so loop / (4 U) is the instructions a cell issues there.  Out-of-line
+    slow paths (an IEEE division's) lie outside the span and are not
+    counted."""
+    import re
+    from repro_torch.kernels import build
+    text = subprocess.run([cuobjdump_path(), "-sass",
+                           str(build.library_path(src))], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    out = {}
+    for chunk in re.split(r"\n\s*Function : ", text)[1:]:
+        name = chunk.split("\n", 1)[0].strip()
+        insts, labels, pending = [], {}, []
+        for line in chunk.splitlines()[1:]:
+            lab = re.match(r"\s*(\.L_x_\d+):", line)
+            if lab:
+                pending.append(lab.group(1))
+                continue
+            m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", line)
+            if not m:
+                continue
+            addr = int(m.group(1), 16)
+            for lab_name in pending:
+                labels[lab_name] = addr
+            pending = []
+            insts.append((addr, m.group(2).strip()))
+        loop = 0
+        for addr, ins in insts:
+            t = re.search(r"BRA\s+(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))", ins)
+            if not t:
+                continue
+            dst = labels.get(t.group(1)) if t.group(1) else int(t.group(2), 16)
+            if dst is not None and dst <= addr:
+                loop = max(loop, sum(1 for a, i in insts if dst <= a <= addr
+                                     and not i.startswith("NOP")))
+        out[name] = {"insts": sum(1 for _a, i in insts
+                                  if not i.startswith("NOP")),
+                     "loop": loop}
+    return out
+
+
+def issue_floor(src, cells: int, busy=None) -> dict:
+    """The issue floor of a Cell kernel: the SASS instructions a cell
+    issues in the kernel's largest loop (:func:`sass_loop_counts`; the
+    vector walk's loop of U groups of 4 cells, the scalar walk's loop of
+    one cell), times the cells, over the SMs x 4 warp schedulers x 32
+    lanes, at the SM clock nvidia-smi reports while ``busy`` runs on the
+    card (a call of the kernel, repeated for about half a second) and at
+    the card's maximum."""
+    import threading
+    import torch
+    counts = sass_loop_counts(src)
+    fn = max(counts, key=lambda k: counts[k]["loop"])
+    per_cell = counts[fn]["loop"] / ((getattr(src, "group", 0) or 1)
+                                     * (getattr(src, "unroll", 0) or 1))
+    clocks = []
+    reader = threading.Thread(
+        target=lambda: (time.sleep(0.2), clocks.append(sm_clock_mhz())))
+    reader.start()
+    t0 = time.perf_counter()
+    while busy is not None and time.perf_counter() - t0 < 0.5:
+        for _ in range(100):
+            busy()
+    torch.cuda.synchronize()
+    reader.join()
+    cur, top = clocks[0]
+    lanes = torch.cuda.get_device_properties(0).multi_processor_count * 128
+    return {"function": fn[:60], "loop_insts": counts[fn]["loop"],
+            "insts": counts[fn]["insts"], "per_cell": per_cell,
+            "clock_mhz": cur, "max_clock_mhz": top,
+            "floor_ms": cells * per_cell / (lanes * cur * 1e6) * 1e3,
+            "floor_max_clock_ms": cells * per_cell / (lanes * top * 1e6)
+            * 1e3}
 
 
 def profile_run(label: str, fn) -> None:
@@ -801,13 +936,18 @@ def time_part(label, kname, cp, env, kernel, plain, out,
               library=None) -> dict:
     """One main-path CPlan's times (CUDA events and device, kernel and
     plain, and ``library``: one PyTorch call computing the same function,
-    where there is one) beside its bound, logged as a ``[time]`` line."""
+    where there is one) beside its bound, logged as a ``[time]`` line, with
+    the kernels one call launched on the card (a Cell call of this tree:
+    exactly one Cell kernel, else it raises) and, for a Cell CPlan of
+    MEASURE_ROWS cells or more, its issue floor (a ``[sass]`` line)."""
+    from repro_torch.kernels import cuda_src
     ms, plain_ms = time_ms(kernel), time_ms(plain)
-    dev_ms, dev_plain_ms = device_ms(kernel), device_ms(plain)
+    traced = []
+    dev_ms, dev_plain_ms = device_ms(kernel, names=traced), device_ms(plain)
     b_ms, b_by = bound_ms(cp, env, out)
     lib = ""
     part = {"region": label, "variant": cp.variant,
-            "layout": layout_name(cp) if kname == "row" else "-",
+            "layout": layout_name(cp) if kname in ("row", "cell") else "-",
             "binds": [list(b.shape) for b in cp.binds], "ms": ms,
             "plain_ms": plain_ms, "device_ms": dev_ms,
             "plain_device_ms": dev_plain_ms, "bound_ms": b_ms,
@@ -817,10 +957,31 @@ def time_part(label, kname, cp, env, kernel, plain, out,
         part["library_device_ms"] = device_ms(library)
         lib = (f" library {part['library_ms']:.4f} ms (device "
                f"{part['library_device_ms']})")
+    part["device_kernels"] = [[k[:60], c] for k, c in traced]
+    cells = cp.main.shape[0] * cp.main.shape[1]
+    if kname == "cell" and cells >= MEASURE_ROWS:
+        fl = issue_floor(cuda_src.source_for(cp), cells, kernel)
+        part["issue_floor"] = fl
+        log(f"[sass] {label} {cp.variant}: {fl['loop_insts']} SASS "
+            f"instructions in the loop of {fl['function'][:40]}, "
+            f"{fl['per_cell']:.2f} a cell ({fl['insts']} in the kernel); "
+            f"issue floor {fl['floor_ms']:.4f} ms at {fl['clock_mhz']:g} "
+            f"MHz under load, {fl['floor_max_clock_ms']:.4f} ms at "
+            f"{fl['max_clock_mhz']:g} MHz; byte bound {b_ms:.4f} ms")
+    one_launch = kname == "cell" and getattr(cuda_src.source_for(cp),
+                                             "walk", "")
+    if one_launch and not (
+            len(traced) == 1 and traced[0][1] == 1
+            and "cell_" in traced[0][0]):
+        raise AssertionError(f"{label}: a Cell call launched {traced}, not "
+                             f"one Cell kernel")
+    per_call = " + ".join(f"{k.split('(')[0][:40]} x{c:g}"
+                          for k, c in traced)
     log(f"[time] {label:22s} {kname:5s} {part['layout']:4s} "
         f"{cp.variant:9s} kernel {ms:.4f} ms "
         f"(device {dev_ms}) plain {plain_ms:.4f} ms (device "
-        f"{dev_plain_ms}){lib} bound {b_ms:.4f} ms ({b_by})")
+        f"{dev_plain_ms}){lib} bound {b_ms:.4f} ms ({b_by}); per call on "
+        f"the card: {per_call}")
     return part
 
 
@@ -843,9 +1004,24 @@ def _row_norms_call(cp, env):
     return lambda: torch.einsum("ij,ij->i", X, X)
 
 
-#: CPlans that one PyTorch call also computes: label -> that call on the
-#: CPlan's operands
-LIBRARY_CALLS = {"kmeans _sq_rowsums": _row_norms_call}
+def _sum_sq_call(cp, env):
+    import torch
+    if [op for (_n, op, *_r) in cp.prog] != ["pow2"] or cp.agg_op != "sum":
+        raise AssertionError(f"{cp.prog}: not a sum of squares")
+    x = env[cp.main.nid].reshape(-1)
+    return lambda: torch.dot(x, x)
+
+
+#: CPlans that one PyTorch call also computes: (label, kernel, variant) ->
+#: that call on the CPlan's operands (Σw², ΣB²: the dot product of the
+#: flattened operand with itself)
+LIBRARY_CALLS = {
+    ("kmeans _sq_rowsums", "row", "row_agg"): _row_norms_call,
+    ("_objective_full", "cell", "full_agg"): _sum_sq_call,
+    ("_objective_full:vjp", "cell", "full_agg"): _sum_sq_call,
+    ("mlogreg _nll_obj_reg", "cell", "full_agg"): _sum_sq_call,
+    ("mlogreg _nll_obj_reg:vjp", "cell", "full_agg"): _sum_sq_call,
+}
 
 
 def dense_times(main_cps, envs, per_kernel=None) -> dict:
@@ -858,7 +1034,7 @@ def dense_times(main_cps, envs, per_kernel=None) -> dict:
         per_kernel = {k: new_record() for k in KERNELS}
     for (region, cp), env in zip(main_cps, envs):
         kname = kernel_name(cp)
-        lib = LIBRARY_CALLS.get(region)
+        lib = LIBRARY_CALLS.get((region, kname, cp.variant))
         add_part(per_kernel[kname], time_part(
             region, kname, cp, env, lambda: wrappers[kname](cp, env),
             lambda: ref.execute_dense(cp, env), ref.execute_dense(cp, env),
@@ -1056,6 +1232,66 @@ def algo_paths(m: int) -> list:
     ]
 
 
+def cell_checks(label, cp, env, fault: bool = False) -> list[str]:
+    """A main-path Cell CPlan on the card: a reducing one gives the same
+    bits twice; with ``fault``, its planted group fault (vector walk) must
+    fail the kernel check.  Returns what failed."""
+    import torch
+    from repro_torch.kernels import ops
+    failed = []
+    if cp.variant != "no_agg":
+        a = ops.execute(cp, env, kernels="cuda")
+        same = bool(torch.equal(a, ops.execute(cp, env, kernels="cuda")))
+        log(f"[check] main path {label} {cp.variant}: two runs "
+            f"{'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            failed.append(f"{label} {cp.variant}: reruns differ")
+    if fault and layout_name(cp) == "vec":
+        with planted_fault(group=True):
+            got = ops.execute(cp, env, kernels="cuda")
+        err, share = measure(cp, env, got, f"planted group {label}")
+        del got
+        log(f"[check] planted fault (one cell of every group dropped) main "
+            f"path {label} {cp.variant}: max|kernel-plain| {err:.3e} = "
+            f"{share:.3g} x limit")
+        if not share > 1.0:
+            failed.append(f"planted group fault in {label} passed the "
+                          f"kernel check")
+    return failed
+
+
+def cell_sweep_card_checks(planned, gen) -> None:
+    """Every reducing Cell sweep CPlan at M_SWEEP rows gives the same bits
+    twice (one launch, the fold in CTA order); a vector-walk operand that
+    is not 16-byte aligned raises."""
+    import torch
+    from repro_torch.kernels import ops
+    for c, m, n, cp, _names in planned:
+        if c.template != "cell" or cp.variant == "no_agg" or m != M_SWEEP:
+            continue
+        env = random_env(cp, gen)
+        same = bool(torch.equal(ops.execute(cp, env, kernels="cuda"),
+                                ops.execute(cp, env, kernels="cuda")))
+        log(f"[check] {c.name} ({layout_name(cp)}) at {m}x{n}: two runs "
+            f"{'bit-identical' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"{c.name}: reruns differ")
+    c, m, n, cp, _names = next(p for p in planned
+                               if p[0].name == "cell/no_agg_row_side"
+                               and p[1] == M_SWEEP)
+    env = random_env(cp, gen)
+    X = env[cp.main.nid]
+    shifted = torch.empty(X.numel() + 1, device="cuda")[1:].view(X.shape)
+    shifted.copy_(X)
+    try:
+        ops.execute(cp, {**env, cp.main.nid: shifted}, kernels="cuda")
+    except ValueError as e:
+        log(f"[check] {c.name}: an operand 4 bytes off a 16-byte boundary "
+            f"raises: {e}")
+    else:
+        raise AssertionError("a misaligned vector-walk operand ran")
+
+
 def path_cplans(path) -> list:
     return region_cplans(path.regions, path.name + " ")
 
@@ -1137,6 +1373,8 @@ def algo_phase(path, cps, counters, launches, main_err, per_kernel) -> None:
             f"{layout_name(cp):4s} {cp.variant:9s} "
             f"binds {[tuple(b.shape) for b in cp.binds]} "
             f"max|kernel-plain| {err:.3e} = {share:.3g} x limit")
+        if kname == "cell":
+            failed += cell_checks(label, cp, env, fault=name == "glm")
     dense_times(cps, envs, per_kernel)
     del ops, envs, shared
     torch.cuda.empty_cache()
@@ -1183,19 +1421,34 @@ def run() -> None:
                 sweep_runs.append((c, m, n))
     planned = [(c, m, n, *sweep.fused_cplan(c, m, n))
                for c, m, n in sweep_runs]
+    # the Cell kernel over (m,1) domains (and (m,4) ones for the (1,n)
+    # side cases) at the row counts that reach every part of its walk:
+    # CPlans of (33, n) resized, so their sources are those of (33, n)
+    tails = []
+    for c in sweep.cases():
+        if c.template != "cell" or c.min_n > 1:
+            continue
+        for n in (1, 4) if c.name in PLANTED_GROUP else (1,):
+            cp33, names = sweep.fused_cplan(c, 33, n)
+            tails += [(c, m, n, sweep.with_rows(cp33, m), names)
+                      for m in TAIL_ROWS]
     main_cps = main_path_cplans(m_main, N_MAIN)
     paths = algo_paths(m_main)
     path_cps = {path.name: path_cplans(path) for path in paths}
     dense_cps = [cp for _r, cp in main_cps] + [
         cp for cps in path_cps.values() for _r, cp in cps]
     sources = {}
-    for cp in [p[3] for p in planned] + dense_cps:
+    for cp in [p[3] for p in planned + tails] + dense_cps:
         src = cuda_src.source_for(cp)
         sources[src.key] = src
     # the planted-fault builds: the planted sweep cases and the main paths
     for cp in [p[3] for p in planned if p[0].name in PLANTED
                and p[1] == M_SWEEP] + dense_cps:
         src = planted(cuda_src.source_for(cp))
+        sources[src.key] = src
+    for cp in [p[3] for p in planned if p[0].name in PLANTED_GROUP
+               and p[1] == M_SWEEP] + [cp for _r, cp in path_cps["glm"]]:
+        src = planted(cuda_src.source_for(cp), group=True)
         sources[src.key] = src
     # the Outer kernel: its sweep, the ALS CPlans at the main path's shape
     # and at the hand baseline's, each sound and planted
@@ -1237,21 +1490,31 @@ def run() -> None:
         log(f"[check] {c.name:30s} {m:>9d}x{n:<3d} {cp.ttype.name:4s} "
             f"{layout_name(cp):4s} {cp.variant:9s} max|kernel-plain| "
             f"{err:.3e} = {share:.3g} x limit")
-    log(f"[check] sweep passed: {len(planned)} CPlans, limit {KERNEL_ULPS} "
-        f"x eps32 x error scale; largest share of the limit per kernel "
-        + json.dumps(worst))
+    for c, m, n, cp, _names in tails:
+        err, share = compare(cp, random_env(cp, gen), f"{c.name} at {m}x{n}")
+        worst["cell"] = max(worst["cell"], share)
+        log(f"[check] {c.name:30s} {m:>9d}x{n:<3d} CELL {layout_name(cp):4s} "
+            f"{cp.variant:9s} max|kernel-plain| {err:.3e} = {share:.3g} x "
+            f"limit")
+    log(f"[check] sweep passed: {len(planned) + len(tails)} CPlans, limit "
+        f"{KERNEL_ULPS} x eps32 x error scale; largest share of the limit "
+        f"per kernel " + json.dumps(worst))
     for c, m, n, cp, _names in planned:
-        if c.name not in PLANTED or m != M_SWEEP:
-            continue
-        env = random_env(cp, gen)
-        with planted_fault():
-            got = ops.execute(cp, env, kernels="cuda")
-        err, share = measure(cp, env, got, f"planted {c.name}")
-        log(f"[check] planted fault ({layout_name(cp)}) {c.name} at "
-            f"{m}x{n}: max|kernel-plain| {err:.3e} = {share:.3g} x limit")
-        if not share > 1.0:
-            raise AssertionError(f"planted fault in {c.name} passed the "
-                                 f"kernel check")
+        faults = [f for f, names in (("partial", PLANTED),
+                                     ("group", PLANTED_GROUP))
+                  if c.name in names and m == M_SWEEP]
+        for fault in faults:
+            env = random_env(cp, gen)
+            with planted_fault(group=fault == "group"):
+                got = ops.execute(cp, env, kernels="cuda")
+            err, share = measure(cp, env, got, f"planted {c.name}")
+            log(f"[check] planted fault ({layout_name(cp)}, {fault}) "
+                f"{c.name} at {m}x{n}: max|kernel-plain| {err:.3e} = "
+                f"{share:.3g} x limit")
+            if not share > 1.0:
+                raise AssertionError(f"planted {fault} fault in {c.name} "
+                                     f"passed the kernel check")
+    cell_sweep_card_checks(planned, gen)
 
     for c, vals, cp, names in outer_planned:
         env = outer_case_env(c, vals, names)
@@ -1296,6 +1559,10 @@ def run() -> None:
             f"{layout_name(cp):4s} {cp.variant:9s} "
             f"binds {[tuple(b.shape) for b in cp.binds]} "
             f"max|kernel-plain| {err:.3e} = {share:.3g} x limit")
+        if kname == "cell":
+            failed = cell_checks(region, cp, env)
+            if failed:
+                raise AssertionError("; ".join(failed))
 
     # 5. the main path -------------------------------------------------------
     log(f"[check] main-path CPlans phase wall {time.perf_counter() - t0:.1f} "

@@ -19,7 +19,12 @@ template has two layouts, chosen per CPlan here (:func:`row_source`): the
 tile layout (a thread per row over tiles of rows in shared memory, every
 computed value in registers) and the warp layout (a warp per row) for
 programs with wide computed values; the layout and its geometry go into
-``Prog`` and :class:`KernelSource`.  The
+``Prog`` and :class:`KernelSource`.  The Cell template has two walks,
+chosen per CPlan here (:func:`cell_source`): the vector walk (four-cell
+groups read as float4, several groups in flight per thread) where every
+bind is read as a whole group, and the cell-by-cell scalar walk for the
+rest; the walk and its geometry go into ``Prog`` and
+:class:`KernelSource` too.  The
 row count m stays a run-time argument, so one build serves every m.  The
 text names values by program position, never by IR node id, so
 structurally equal CPlans from different traces give byte-identical
@@ -93,14 +98,17 @@ class KernelSource:
     text: str
     domain: tuple          # (rows, cols) the kernel walks (rows: run time)
     elems: int = 0         # reduced elements per partial (0: no partials)
-    variant: str = ""      # row: the template variant
+    variant: str = ""      # row, cell: the template variant
     layout: str = ""       # row: "tile" or "warp" (row_layout)
-    threads: int = 0       # row: threads per CTA
+    walk: str = ""         # cell: "vector" or "scalar" (cell_vector_binds)
+    group: int = 0         # cell: cells a thread takes per load (4 or 1)
+    unroll: int = 0        # cell: groups a thread keeps in flight
+    threads: int = 0       # row, cell: threads per CTA
     rows: int = 0          # row: rows a CTA takes per step
     stages: int = 0        # row tile: depth of the ring of row tiles
     smem: int = 0          # row tile: dynamic shared memory (bytes)
-    ctas: int = 0          # row: CTAs per SM the grid is sized for
-    parts_per_cta: int = 0  # row: partials each CTA writes
+    ctas: int = 0          # row, cell: CTAs per SM the grid is sized for
+    parts_per_cta: int = 0  # row, cell: partials each CTA writes
 
     @functools.cached_property
     def key(self) -> str:
@@ -160,13 +168,19 @@ def _select(values: list[str], default: str) -> str:
 # Cell and MAgg: the program evaluated at one cell (i, j) of the domain
 # --------------------------------------------------------------------------
 
-def _cell_body(cplan: CPlan, roots: list[int], dom: tuple[int, int]
-               ) -> list[str]:
+def _cell_body(cplan: CPlan, roots: list[int], dom: tuple[int, int],
+               lane: Optional[int] = None,
+               vec: Optional[dict] = None) -> list[str]:
+    """The program's lines: at cell (i, j) into ``r[k]`` (``lane`` None),
+    or at cell ``lane`` of a vector-walk group into ``r[lane]``, reading
+    vector bind ``vec[nid]`` as ``x[k].x/y/z/w`` and a (1,1) bind as the
+    ``s<pos>`` the caller loaded."""
     M, N = dom
     pos = {b.nid: k for k, b in enumerate(cplan.binds)}
     shape_of = {b.nid: tuple(b.shape) for b in cplan.binds}
     names: dict[tuple, str] = {}
     lines: list[str] = []
+    sfx = "" if lane is None else f"_{lane}"
 
     def offset(shape, col_lo: int = 0, width: Optional[int] = None):
         r, c = shape
@@ -188,6 +202,10 @@ def _cell_body(cplan: CPlan, roots: list[int], dom: tuple[int, int]
     def bind(nid: int) -> str:
         key = ("b", nid)
         if key not in names:
+            if lane is not None:
+                names[key] = (f"x[{vec[nid]}].{_xyzw(lane)}" if nid in vec
+                              else f"s{pos[nid]}")
+                return names[key]
             name = f"b{pos[nid]}"
             lines.append(f"const float {name} = __ldg(b.p[{pos[nid]}] + "
                          f"{offset(shape_of[nid])});")
@@ -196,10 +214,10 @@ def _cell_body(cplan: CPlan, roots: list[int], dom: tuple[int, int]
 
     for idx, (nid, op, ins, shape, attrs) in enumerate(cplan.prog):
         attrs = dict(attrs)
-        name = f"v{idx}"
+        name = f"v{idx}{sfx}"
         if op == "idx":
             kind, ref = ins[0]
-            if kind != "b":
+            if kind != "b" or lane is not None:
                 raise _unsupported(cplan, "column slice of a computed value")
             lo, hi = int(attrs["lo"]), int(attrs["hi"])
             off = offset(shape_of[ref], lo, hi - lo)
@@ -215,8 +233,69 @@ def _cell_body(cplan: CPlan, roots: list[int], dom: tuple[int, int]
         names[("n", nid)] = name
     for k, r in enumerate(roots):
         val = names.get(("n", r)) or bind(r)
-        lines.append(f"r[{k}] = {val};")
+        lines.append(f"r[{k if lane is None else lane}] = {val};")
     return lines
+
+
+#: the Cell kernel's geometry: threads per CTA (the fold takes 256), CTAs
+#: per SM its __launch_bounds__ keep resident, cells per vector group
+CELL_THREADS, CELL_CTAS, CELL_GROUP = 256, 4, 4
+
+
+def cell_vector_binds(cplan: CPlan, dom: tuple[int, int]
+                      ) -> Optional[list[int]]:
+    """The binds the vector walk loads as float4, in bind order, or None
+    when the CPlan needs the scalar walk: every bind must have the
+    domain's shape, be (1,1), or be (1,N) with N % 4 == 0, and the program
+    must slice no columns."""
+    M, N = dom
+    if cplan.variant not in (NO_AGG, FULL_AGG) or any(
+            op == "idx" for (_n, op, *_r) in cplan.prog):
+        return None
+    out = []
+    for b in cplan.binds:
+        shape = tuple(b.shape)
+        if shape == (M, N) or (shape == (1, N) and N % CELL_GROUP == 0):
+            out.append(b.nid)
+        elif shape != (1, 1):
+            return None
+    return out
+
+
+def cell_unroll(nv: int) -> int:
+    """Groups a thread keeps in flight before the first program runs: 4
+    with one vector bind, else 2, so the loads in flight hold 16 to 24
+    registers of the 64 a thread has at CELL_CTAS = 4."""
+    return 4 if nv <= 1 else 2
+
+
+def _cell_vector_fns(cplan: CPlan, roots: list[int], dom, vec: list[int]
+                     ) -> list[str]:
+    """``vload`` and ``veval`` of the vector walk."""
+    N = dom[1]
+    pos = {b.nid: k for k, b in enumerate(cplan.binds)}
+    shape_of = {b.nid: tuple(b.shape) for b in cplan.binds}
+    vix = {nid: k for k, nid in enumerate(vec)}
+    side = [nid for nid in vec if shape_of[nid] != tuple(dom)]
+    load = [f"const int j = (int)(e % {N});"] if side else []
+    for nid in vec:
+        at = "j" if nid in side else "e"
+        load.append(f"x[{vix[nid]}] = __ldg(reinterpret_cast<const float4*>"
+                    f"(b.p[{pos[nid]}] + {at}));")
+    scal = [f"const float s{pos[b.nid]} = __ldg(b.p[{pos[b.nid]}]);"
+            for b in cplan.binds if b.nid not in vix]
+    body = list(scal)
+    for u in range(CELL_GROUP):
+        body += _cell_body(cplan, roots, dom, lane=u, vec=vix)
+    return [
+        "  __device__ static __forceinline__ void vload("
+        "const rk::Binds<NB>& b, long long e, float4 (&x)[NV]) {",
+        *("    " + ln for ln in load),
+        "  }",
+        "  __device__ static __forceinline__ void veval("
+        "const rk::Binds<NB>& b, const float4 (&x)[NV], float (&r)[G]) {",
+        *("    " + ln for ln in body),
+        "  }"]
 
 
 def _cell_domain(cplan: CPlan, roots: list[int]) -> tuple[int, int]:
@@ -228,7 +307,8 @@ def _cell_domain(cplan: CPlan, roots: list[int]) -> tuple[int, int]:
 
 
 def _cell_struct(cplan: CPlan, roots: list[int], aggs: list[str],
-                 variant: int, dom, fin: str) -> list[str]:
+                 variant: int, dom, fin: str, consts: tuple = (),
+                 fns: tuple = ()) -> list[str]:
     nb = len(cplan.binds)
     body = _cell_body(cplan, roots, dom)
     agg = AGG_CODE[aggs[0]]
@@ -241,6 +321,7 @@ def _cell_struct(cplan: CPlan, roots: list[int], aggs: list[str],
         f"  static constexpr int NB = {nb}, N = {dom[1]}, K = {len(roots)};",
         f"  static constexpr int VARIANT = {variant}, AGG = {agg}, "
         f"MEAN = {int(aggs[0] == 'mean')};",
+        *consts,
         "  __device__ static __forceinline__ int agg_of(int k) {",
         f"    return {agg_of};",
         "  }",
@@ -252,11 +333,15 @@ def _cell_struct(cplan: CPlan, roots: list[int], aggs: list[str],
         "const rk::Binds<NB>& b, long long i, int j, float (&r)[K]) {",
         *("    " + ln for ln in body),
         "  }",
+        *fns,
         "};", ""]
 
 
 def cell_source(cplan: CPlan) -> KernelSource:
-    """The Cell template (single-root MAgg included: full_agg, K = 1)."""
+    """The Cell template (single-root MAgg included: full_agg, K = 1), in
+    the vector walk where :func:`cell_vector_binds` allows it, else the
+    scalar walk; the walk and its geometry go into ``Prog`` and
+    :class:`KernelSource`."""
     variant = cplan.variant
     if variant not in _CELL_VARIANT or cplan.extra:
         raise _unsupported(cplan, "not a Cell variant")
@@ -265,13 +350,27 @@ def cell_source(cplan: CPlan) -> KernelSource:
         _cell_domain(cplan, roots)
     agg = cplan.agg_op or "sum"
     fin = "a" if agg != "mean" else "a / (float)aux"
-    text = "\n".join(
-        ["// Cell template: " + _describe(cplan)] + _header("cell")
-        + _cell_struct(cplan, roots, [agg], _CELL_VARIANT[variant], dom,
-                       fin)
-        + _launcher("cell_launch"))
+    vec = cell_vector_binds(cplan, tuple(dom))
+    walk = "scalar" if vec is None else "vector"
+    nv = len(vec or [])
+    group, unroll = (CELL_GROUP, cell_unroll(nv)) if vec is not None \
+        else (1, 1)
     elems = {COL_AGG: dom[1], FULL_AGG: 1}.get(variant, 0)
-    return KernelSource("cell", text, tuple(dom), elems=elems)
+    consts = (f"  static constexpr int WALK = {int(vec is not None)}, "
+              f"G = {group}, U = {unroll}, T = {CELL_THREADS}, "
+              f"CTAS = {CELL_CTAS}, NV = {nv}, PARTS = {elems};",)
+    fns = tuple(_cell_vector_fns(cplan, roots, dom, vec)) \
+        if vec is not None else ()
+    text = "\n".join(
+        [f"// Cell template, {walk} walk: " + _describe(cplan)]
+        + _header("cell")
+        + _cell_struct(cplan, roots, [agg], _CELL_VARIANT[variant], dom,
+                       fin, consts, fns)
+        + _launcher("cell_launch"))
+    return KernelSource("cell", text, tuple(dom), elems=elems,
+                        variant=variant, walk=walk, threads=CELL_THREADS,
+                        ctas=CELL_CTAS, group=group, unroll=unroll,
+                        parts_per_cta=int(elems > 0))
 
 
 def magg_source(cplan: CPlan) -> KernelSource:

@@ -23,7 +23,7 @@ from repro_torch.kernels.blocksparse import PIECE_BLOCKS
 def _operands(m: int, n: int) -> dict[str, tuple[int, int]]:
     return {"X": (m, n), "Y": (m, n), "v": (m, 1), "B1": (n, 1),
             "B4": (n, 4), "B256": (n, 256), "Y4": (m, 4), "B5": (n, 5),
-            "Y5": (m, 5), "c5": (1, 5)}
+            "Y5": (m, 5), "c5": (1, 5), "r": (1, n)}
 
 
 @dataclass(frozen=True)
@@ -69,8 +69,10 @@ def cases() -> list[Case]:
     """Every Cell variant × sum/min/max/mean, single-root MAgg, k = 2 and
     k = 3 MAgg with mixed aggregates, every Row variant with narrow
     matmuls of 1, 4 and 256 columns and in-program rowsums/rowmaxs,
-    column slices (``idx``) of sides and of computed row values, and a
-    Cell sum of non-negative terms (a lost partial cannot cancel out)."""
+    column slices (``idx``) of sides and of computed row values, a Cell
+    sum of non-negative terms (a lost partial cannot cancel out), and Cell
+    chains over a (1,n) side, as the autoencoder's bias terms are (the
+    Cell kernel's vector walk where n % 4 == 0)."""
     xyv = ("X", "Y", "v")
     out = [Case("cell/no_agg", "cell", _cell(None, None), xyv, None)]
     for axis in ("row", "col", "full"):
@@ -81,6 +83,12 @@ def cases() -> list[Case]:
         Case("cell/full_agg_abs_sum", "cell",
              lambda ir, X, Y, v: ir.abs_(_cell_chain(ir, X, Y, v)).sum(),
              xyv, "CELL"),
+        Case("cell/no_agg_row_side", "cell",
+             lambda ir, X, Y, r: ir.sigmoid(X + r) * Y, ("X", "Y", "r"),
+             None),
+        Case("cell/full_agg_row_side", "cell",
+             lambda ir, X, Y, r: ((X + r - Y) ** 2).sum(), ("X", "Y", "r"),
+             "CELL"),
         Case("cell/magg_single", "cell",
              lambda ir, X, Y: (X * Y).sum(), ("X", "Y"), "MAGG"),
         Case("magg/k2_sum_max", "magg",
@@ -174,6 +182,22 @@ def fused_cplan(case, m: int, n: int, sparsity: Optional[dict] = None):
     cp = cplan.build_cplan(g, spec)
     names = {node.nid: node.name for node in g.inputs()}
     return cp, {b.nid: names[b.nid] for b in cp.binds}
+
+
+def with_rows(cp, m: int):
+    """``cp`` over ``m`` rows: every shape whose row count is the main's
+    (more than one row) takes ``m``.  The generated sources do not depend
+    on the row count, so this reaches row counts the planner does not fuse
+    at, down to a single cell."""
+    rows = cp.main.shape[0]
+    if rows < 2:
+        raise ValueError(f"CPlan over {rows} row(s): nothing to resize")
+    fit = lambda shape: (m, shape[1]) if shape[0] == rows else tuple(shape)
+    return replace(
+        cp, binds=[replace(b, shape=fit(b.shape)) for b in cp.binds],
+        prog=[(nid, op, ins, fit(shape), attrs)
+              for (nid, op, ins, shape, attrs) in cp.prog],
+        out_shape=fit(cp.out_shape))
 
 
 # --------------------------------------------------------------------------

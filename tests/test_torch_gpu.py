@@ -1,6 +1,8 @@
 """The generated CUDA kernels on the card: each sweep case against its
 plain version on the same CUDA tensors (the Outer kernel's over BCSR
-mains too), bit-for-bit repeatability (no float atomics), every L2SVM /
+mains too), bit-for-bit repeatability (no float atomics), the Cell
+kernel's vector walk at row counts that reach its tails, one Cell kernel
+per call in the profiler, a misaligned operand refused, every L2SVM /
 mlogreg / GLM / kmeans / autoencoder region forward and planned backward
 on the card against the CPU, L2SVM and ALS-CG on the card against the
 CPU, MLogReg, GLM, KMeans and the autoencoder on the card against
@@ -51,6 +53,9 @@ def card():
         if fn in GRADS_FNS:
             cplans += compile_plan(planned.backward().eplan).cplans()
     srcs = [cuda_src.source_for(cp) for cp in cplans]
+    srcs += [cuda_src.source_for(cp) for cp, _n in
+             [sweep.fused_cplan(c, *s) for c, s in CELL_VECTOR_RUNS]
+             + [sweep.fused_cplan(c, 33, 1) for c in _tail_cases()]]
     srcs += [cuda_src.source_for(_outer_plan(c)[0], c.bs)
              for c in sweep.outer_cases()]
     X = data.ratings(*ALS_SHAPE, rank=4, seed=6, device="cpu")
@@ -60,6 +65,26 @@ def card():
 
 
 ALS_SHAPE = (768, 512)
+
+#: the Cell kernel over (m,1) domains at these row counts reaches every
+#: part of its vector walk: the loop of U groups, the last round of single
+#: groups and the cells past the last group
+TAIL_ROWS = (1, 3, 5, 7, 33, 1023, 100_003)
+
+
+def _tail_cases():
+    return [c for c in sweep.cases() if c.template == "cell"
+            and c.min_n == 1]
+
+
+#: reducing Cell CPlans in the vector walk and in the scalar walk
+CELL_VECTOR_RUNS = [
+    (next(c for c in sweep.cases() if c.name == name), shape)
+    for name, shape in (("cell/full_agg_row_side", (100_003, 100)),
+                        ("cell/no_agg_row_side", (100_003, 100)),
+                        ("cell/full_agg_abs_sum", (100_003, 1)),
+                        ("cell/col_agg_sum", (100_003, 7)),
+                        ("cell/full_agg_mean", (100_003, 7)))]
 
 
 def _outer_plan(case, seed=11):
@@ -110,7 +135,8 @@ def test_kernel_matches_plain(card, case):
     assert share <= 1.0, f"max |kernel - plain| {err:.3e}, {share:.3g} x limit"
 
 
-@pytest.mark.parametrize("name", ["cell/full_agg_sum", "magg/k2_sum_max",
+@pytest.mark.parametrize("name", ["cell/full_agg_sum", "cell/col_agg_min",
+                                  "magg/k2_sum_max",
                                   "row/col_t_agg_mm4",
                                   "row/col_t_agg_hvp_mm5"])
 def test_reductions_repeat_bit_for_bit(card, name):
@@ -120,6 +146,62 @@ def test_reductions_repeat_bit_for_bit(card, name):
     a = ops.execute(cp, env, kernels="cuda")
     b = ops.execute(cp, env, kernels="cuda")
     assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", [pytest.param(c, id=c.name)
+                                  for c in _tail_cases()])
+def test_cell_walk_tails_match_plain(card, case):
+    """The Cell kernel over (m,1) at m·N of 1 to 100,003 (CPlans of 33 rows
+    resized: the same source), one launch a call, within the limit."""
+    cp33, names = sweep.fused_cplan(case, 33, 1)
+    for m in TAIL_ROWS:
+        cp = sweep.with_rows(cp33, m)
+        env = {b.nid: torch.tensor(
+            np.random.default_rng(m).normal(size=tuple(b.shape)) * 0.5,
+            dtype=torch.float32, device=card) for b in cp.binds}
+        before = cellwise.launches
+        got = ops.execute(cp, env, kernels="cuda")
+        assert cellwise.launches == before + 1
+        err, share = chip_smoke().measure(cp, env, got, f"{case.name} {m}")
+        assert share <= 1.0, f"m {m}: {err:.3e}, {share:.3g} x limit"
+
+
+@pytest.mark.parametrize("case,shape", [
+    pytest.param(c, s, id=f"{c.name}-{s[0]}x{s[1]}")
+    for c, s in CELL_VECTOR_RUNS])
+def test_cell_calls_are_one_deterministic_launch(card, case, shape):
+    """One Cell kernel a call under its own name in the profiler, within
+    the limit, and the same bits twice (a reduction folds its partials in
+    CTA order inside the kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    cp, names = sweep.fused_cplan(case, *shape)
+    env = _env(case, shape, names, card)
+    run = lambda: ops.execute(cp, env, kernels="cuda")
+    a = run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        b = run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.self_device_time_total > 0]
+    assert len(kernels) == 1 and kernels[0].count == 1, kernels
+    assert f"cell_{cp.variant}" in kernels[0].key
+    assert torch.equal(a, b)
+    err, share = chip_smoke().measure(cp, env, a, case.name)
+    assert share <= 1.0, f"{err:.3e}, {share:.3g} x limit"
+
+
+def test_misaligned_cell_operand_raises_on_the_card(card):
+    case, shape = CELL_VECTOR_RUNS[1]
+    cp, names = sweep.fused_cplan(case, *shape)
+    env = _env(case, shape, names, card)
+    main = env[cp.main.nid]
+    shifted = torch.empty(main.numel() + 1, device=card)[1:].view(main.shape)
+    shifted.copy_(main)
+    before = cellwise.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        ops.execute(cp, {**env, cp.main.nid: shifted}, kernels="cuda")
+    assert cellwise.launches == before
 
 
 def test_l2svm_on_the_card_matches_the_cpu(card):
