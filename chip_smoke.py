@@ -78,8 +78,39 @@ Phases, each reported on its own lines with its wall time:
    (reducing Cell CPlans twice, bit for bit; GLM's Cell CPlans also with
    the planted group fault, which must fail) and timed beside their
    bounds;
-12. one JSON line with every kernel (launches and times summed over every
-   path), the card line, and the final ``{"ok": true, ...}`` line.
+12. ``[batch]``: the request-axis forms of the Cell, Row and MAgg kernels
+   (``ops.execute_batched``, one launch per batch): every sweep case at
+   B = 1, 3 and 8 requests of (1,031, 7) and (200,003, 100) classes, each
+   request's real rows fewer than the class's (the rows past them zero),
+   held per request to the kernel limit against its plain version;
+   reducing cases twice for the same bits; a planted fault that makes
+   every request read request 0's side inputs (their strides set to 0)
+   and the per-request fold fault must fail; then the hinge, softmax,
+   sum-of-squares (Cell) and two-sums (MAgg) regions at 8 requests of
+   1,048,576 x 100, checked and timed beside their bounds;
+13. ``[cla]``: X 10,000,000 x 100 with 64 levels a column, compressed on
+   the card; a qualifying sum (the CLA path, no kernel) against the same
+   region on the dense X, and a non-qualifying one (a side matrix) that
+   densifies and launches the dense kernels, bit for bit;
+14. ``[serve]``: the reference's serving harness verbatim
+   (``benchmarks/serving.py``: 32 clients x 8 requests, rows 115 / 240 /
+   490, 64 features, k = 5, pad_to 128, max_batch 8, 2 workers, warmed at
+   every power-of-two batch), every case against its direct call (1e-5),
+   launch counters set to 0 just before the load and read just after
+   (request-axis launches = batches x fused CPlans), no runtime fallback;
+   the same load at max_batch 1; the pad-safe aggregates at the same rows
+   (the Cell and MAgg request-axis kernels); throughput, p50 / p95 / p99,
+   occupancy;
+15. ``[serve-wide]``: the same at the main path's width (100 features,
+   rows 250,000 / 500,000 / 1,000,000 in classes of 262,144, 8 clients x
+   4 requests), one batched dispatch profiled;
+16. ``[chaos]``: a seeded schedule over ``serve.batch_dispatch`` (error,
+   nonfinite) and ``serve.worker`` (crash) on the card: no request lost,
+   every result equal to the direct call, the ladder's counters;
+17. one JSON line with every kernel (launches and times summed over every
+   path; the request-axis forms with their serving launches and their
+   times at 8 x 1,048,576 x 100), the card line, and the final
+   ``{"ok": true, ...}`` line.
 
 Any failed check raises; the script then prints the traceback and exits 1
 without a result line.  It imports nothing of JAX or of ``repro``.
@@ -215,6 +246,28 @@ def card_line() -> str:
 # --------------------------------------------------------------------------
 # helpers
 # --------------------------------------------------------------------------
+
+def ptxas_spills(sources) -> list:
+    """[(library, kernel function, spill-store bytes)] from the ``-Xptxas
+    -v`` lines of the build logs this run wrote (a library built earlier
+    has no log here)."""
+    import re
+    from repro_torch.kernels import build
+    out = []
+    for src in sources:
+        path = build.library_path(src).with_suffix(".log")
+        if not path.exists():
+            continue
+        fn = "?"
+        for line in path.read_text().splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                fn = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores", line)
+            if m and int(m.group(1)):
+                out.append((path.stem, fn[:40], int(m.group(1))))
+    return out
+
 
 def region_cplans(entries, prefix: str = ""):
     """CPlans of fused regions planned on shapes alone (meta tensors), in
@@ -659,6 +712,15 @@ def bound_ms(cplan, env, out) -> tuple[float, str]:
         if t.data_ptr() not in seen:
             seen.add(t.data_ptr())
             nbytes += t.numel() * 4
+    t_bytes = nbytes / HBM_BW * 1e3
+    t_flops = program_flops(cplan, out) / FP32_PEAK * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_flops else \
+        (t_flops, "operations")
+
+
+def program_flops(cplan, out) -> int:
+    """fp32 operations of one call of a dense CPlan: a cell per program
+    value, 2 x inner per matmul cell, the col_t_agg close."""
     rows = cplan.main.shape[0]
     flops = 0
     for (_nid, op, ins, shape, attrs) in cplan.prog:
@@ -672,9 +734,7 @@ def bound_ms(cplan, env, out) -> tuple[float, str]:
             flops += cells
     if cplan.variant == "col_t_agg":
         flops += 2 * rows * out.numel()
-    t_bytes, t_flops = nbytes / HBM_BW * 1e3, flops / FP32_PEAK * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_flops else \
-        (t_flops, "operations")
+    return flops
 
 
 def outer_bound_ms(cplan, env, out) -> tuple[float, str]:
@@ -1384,6 +1444,676 @@ def algo_phase(path, cps, counters, launches, main_err, per_kernel) -> None:
 
 
 # --------------------------------------------------------------------------
+# the request axis, CLA, serving and chaos (phases 12-16)
+# --------------------------------------------------------------------------
+
+#: request counts and (class rows, width) the request-axis kernels are held
+#: to plain at, every Cell, Row and MAgg sweep case; each request's real
+#: rows are fewer than the class's (the rows past them zero in every
+#: operand with the class's rows), as the server stacks them
+BATCH_SIZES = (1, 3, 8)
+BATCH_SHAPES = ((1_031, 7), (200_003, N_MAIN))
+#: the main path's widths: hinge and probs (and the pad-safe sum regions
+#: the serving phase also runs) at 8 requests of a 1,048,576-row class
+WIDE_BATCH, WIDE_ROWS = 8, 1_048_576
+#: sweep cases whose batched form, with every request reading request 0's
+#: side input (its stride set to 0), must fail the kernel check
+PLANTED_STRIDE = ("cell/no_agg", "row/no_agg_mm1", "magg/k2_sum_max")
+#: the request-axis forms' records in the result line
+BATCHED = {"cell_batched": "cell", "row_batched": "row",
+           "magg_batched": "magg"}
+#: the reference's serving harness, verbatim (benchmarks/serving.py:52-63)
+SERVE_CLIENTS, SERVE_REQS = 32, 8
+SERVE_ROWS, SERVE_FEATURES, SERVE_CLASSES = (115, 240, 490), 64, 5
+SERVE_PAD_TO, SERVE_MAX_BATCH, SERVE_WORKERS = 128, 8, 2
+#: the serving load at the main path's width
+WIDE_SERVE_ROWS, WIDE_SERVE_PAD_TO = (250_000, 500_000, 1_000_000), 262_144
+WIDE_SERVE_CLIENTS, WIDE_SERVE_REQS = 8, 4
+#: CLA: X 10^7 x 100 with 64 levels per column
+CLA_ROWS, CLA_LEVELS = 10_000_000, 64
+
+
+def batch_regions():
+    """The regions the serving phases and the main-width batched checks
+    run: the reference harness's hinge and softmax scoring regions
+    (``algos.l2svm._hinge``, ``algos.mlogreg._probs``) and two pad-safe
+    aggregates, a sum of squares (Cell) and two sums (MAgg)."""
+    from repro_torch.algos import l2svm, mlogreg
+    from repro_torch.core import fused, ir
+    sum_sq = fused(lambda X: (X * X).sum())
+    two_sums = fused(lambda X, Y: ((X * Y).sum(), (X ** 2).sum()))
+    return {"hinge": l2svm._hinge, "probs": mlogreg._probs,
+            "sum_sq": sum_sq, "two_sums": two_sums}
+
+
+def batch_region_shapes(name: str, m: int, n: int, k: int = MLR_K) -> dict:
+    return {"hinge": {"X": (m, n), "w": (n, 1), "y": (m, 1)},
+            "probs": {"X": (m, n), "B": (n, k)},
+            "sum_sq": {"X": (m, n)},
+            "two_sums": {"X": (m, n), "Y": (m, n)}}[name]
+
+
+def batch_region_cplans(n: int, k: int = MLR_K, m: int = 128):
+    """[(region name, cplan)] of the batch regions at (m, n) (their
+    sources do not depend on m)."""
+    out = []
+    for name, region in batch_regions().items():
+        args = tuple(meta(*s) for s in
+                     batch_region_shapes(name, m, n, k).values())
+        out += [(name, cp) for _l, cp in
+                region_cplans([(region, args, False)])]
+    return out
+
+
+def ragged_rows(m: int, nreq: int) -> list[int]:
+    """Each request's real rows inside an m-row class (request 0 fills
+    it)."""
+    return [max(1, m - (q * 7919) % max(m // 3, 1)) for q in range(nreq)]
+
+
+def batch_env(cplan, nreq: int, gen):
+    """(stacked operands, real rows): every bind (nreq, *shape) on the
+    card in the server's stacked layout, random, with the rows past each
+    request's real rows zero in every operand that has the main's rows."""
+    import torch
+    from repro_torch.kernels import build
+    m = cplan.main.shape[0]
+    real = ragged_rows(m, nreq)
+    env = {}
+    for b in cplan.binds:
+        shape = tuple(b.shape)
+        t = build.batch_empty(nreq, shape, "cuda")
+        t.copy_(0.3 * torch.randn((nreq,) + shape, generator=gen,
+                                  device="cuda"))
+        if shape[0] == m and m > 1:
+            for q, r in enumerate(real):
+                t[q, r:] = 0.0
+        env[b.nid] = t
+    return env, real
+
+
+def request_env(env, q: int) -> dict:
+    return {nid: t[q] for nid, t in env.items()}
+
+
+def batch_measure(cplan, env, got, label: str) -> tuple[float, float, float]:
+    """(max |error|, largest and smallest per-request share of the
+    limit) of a batched output against the plain version per request."""
+    err, hi, lo = 0.0, 0.0, math.inf
+    for q in range(got.shape[0]):
+        e, sh = measure(cplan, request_env(env, q), got[q],
+                        f"{label} request {q}")
+        err, hi, lo = max(err, e), max(hi, sh), min(lo, sh)
+    return err, hi, lo
+
+
+@contextlib.contextmanager
+def planted_stride():
+    """Every batched launch inside reads request 0's side inputs: the
+    per-request stride of every bind but the main is set to 0."""
+    from repro_torch.kernels import build
+    orig = build.cuda_batched_operands
+
+    def zeroed(cplan, env):
+        binds, strides, nreq = orig(cplan, env)
+        return binds, [s if b.nid == cplan.main.nid else 0
+                       for b, s in zip(cplan.binds, strides)], nreq
+
+    build.cuda_batched_operands = zeroed
+    try:
+        yield
+    finally:
+        build.cuda_batched_operands = orig
+
+
+def batch_bound_ms(cplan, env, out, nreq: int) -> tuple[float, str]:
+    """:func:`bound_ms` of a batched call: the stacked operands' and
+    outputs' bytes, and ``nreq`` times one request's operations."""
+    t_bytes = (out.numel() + sum(t.numel() for t in env.values())) * 4 \
+        / HBM_BW * 1e3
+    t_flops = nreq * program_flops(cplan, out[0]) / FP32_PEAK * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_flops else \
+        (t_flops, "operations")
+
+
+def batched_time(label, cp, env, nreq: int) -> dict:
+    """One batched call's times at the main path's width: the request-axis
+    kernel (CUDA events, device), its plain version (the oracle per
+    request), the bound; a ``[time]`` line."""
+    from repro_torch.kernels import ops, ref
+    kernel = lambda: ops.execute_batched(cp, env, kernels="cuda")
+    plain = lambda: ref.execute_dense_batched(cp, env)
+    traced = []
+    ms, plain_ms = time_ms(kernel, reps=5, rounds=3), \
+        time_ms(plain, reps=2, rounds=3)
+    dev_ms = device_ms(kernel, reps=5, names=traced)
+    b_ms, b_by = batch_bound_ms(cp, env, kernel(), nreq)
+    kname = kernel_name(cp)
+    log(f"[time] batched {label:14s} {kname:4s} {layout_name(cp):4s} "
+        f"{cp.variant:9s} B={nreq} kernel {ms:.4f} ms (device {dev_ms}) "
+        f"plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}); per call "
+        f"on the card: " + " + ".join(f"{k.split('(')[0][:40]} x{c:g}"
+                                      for k, c in traced))
+    return {"region": label, "variant": cp.variant, "requests": nreq,
+            "layout": layout_name(cp), "ms": ms, "plain_ms": plain_ms,
+            "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "device_kernels": [[k[:60], c] for k, c in traced]}
+
+
+def batch_phase(planned_batch, wide_cps, batch_err, per_kernel) -> None:
+    """[batch]: every Cell, Row and MAgg sweep case's request-axis form
+    against plain, request by request (16 eps); reducing cases twice for
+    the same bits; the two planted faults (a side stride of 0, a per-
+    request fold that drops its middle partial) must fail; then the
+    main path's widths, timed."""
+    import torch
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(97)
+    n_checked = 0
+    worst = {k: 0.0 for k in BATCHED}
+    for c, m, n, cp in planned_batch:
+        bname = {v: k for k, v in BATCHED.items()}[kernel_name(cp)]
+        for nreq in BATCH_SIZES:
+            env, real = batch_env(cp, nreq, gen)
+            got = ops.execute_batched(cp, env, kernels="cuda")
+            err, share, _lo = batch_measure(cp, env, got,
+                                            f"batched {c.name}")
+            if not share <= 1.0:
+                raise AssertionError(f"batched {c.name} B={nreq}: "
+                                     f"{share:.3g} x its limit")
+            worst[bname] = max(worst[bname], share)
+            n_checked += nreq
+            same = "-"
+            if cp.variant != "no_agg":
+                again = ops.execute_batched(cp, env, kernels="cuda")
+                same = "bit-identical" if torch.equal(got, again) \
+                    else "DIFFER"
+                if same != "bit-identical":
+                    raise AssertionError(f"batched {c.name}: reruns differ")
+            log(f"[batch] {c.name:30s} B={nreq} {m:>7d}x{n:<3d} rows "
+                f"{real} {layout_name(cp):4s} {cp.variant:9s} "
+                f"max|kernel-plain| {err:.3e} = {share:.3g} x limit; "
+                f"rerun {same}")
+            del env, got
+        if m == BATCH_SHAPES[-1][0] and c.name in PLANTED_STRIDE:
+            env, _real = batch_env(cp, 3, gen)
+            with planted_stride():
+                got = ops.execute_batched(cp, env, kernels="cuda")
+            err, share, _lo = batch_measure(cp, env, got,
+                                            f"planted stride {c.name}")
+            log(f"[batch] planted fault (side stride 0: every request "
+                f"reads request 0's side) {c.name}: max|kernel-plain| "
+                f"{err:.3e} = {share:.3g} x limit")
+            if not share > 1.0:
+                raise AssertionError(f"planted stride fault in {c.name} "
+                                     f"passed the kernel check")
+        if m == BATCH_SHAPES[-1][0] and c.name in PLANTED:
+            env, _real = batch_env(cp, 3, gen)
+            with planted_fault():
+                got = ops.execute_batched(cp, env, kernels="cuda")
+            err, share, lo = batch_measure(cp, env, got,
+                                           f"planted fold {c.name}")
+            log(f"[batch] planted fault (each request's fold drops its "
+                f"middle partial) {c.name}: max|kernel-plain| {err:.3e} "
+                f"= {share:.3g} x limit, every request >= {lo:.3g}")
+            if not lo > 1.0:
+                raise AssertionError(f"planted fold fault in {c.name} "
+                                     f"passed the kernel check for a "
+                                     f"request")
+    log(f"[batch] sweep passed: {n_checked} requests, limit {KERNEL_ULPS} "
+        f"x eps32 x error scale per request; largest share "
+        + json.dumps(worst))
+    # the main path's widths: one batch of WIDE_BATCH requests each
+    for label, cp in wide_cps:
+        bname = {v: k for k, v in BATCHED.items()}[kernel_name(cp)]
+        env, real = batch_env(cp, WIDE_BATCH, gen)
+        got = ops.execute_batched(cp, env, kernels="cuda")
+        err, share, _lo = batch_measure(cp, env, got, f"batched {label}")
+        if not share <= 1.0:
+            raise AssertionError(f"batched {label}: {share:.3g} x its "
+                                 f"limit")
+        batch_err[bname] = max(batch_err[bname], err)
+        log(f"[batch] main-path width {label} {cp.variant} B={WIDE_BATCH} "
+            f"x {cp.main.shape[0]} x {cp.main.shape[1]} rows {real}: "
+            f"max|kernel-plain| {err:.3e} = {share:.3g} x limit")
+        del got
+        rec = per_kernel.setdefault(bname, new_record())
+        add_part(rec, batched_time(label, cp, env, WIDE_BATCH))
+        del env
+        torch.cuda.empty_cache()
+    log(f"[batch] phase wall {time.perf_counter() - t0:.1f} s")
+
+
+def cla_phase(counters) -> None:
+    """[cla]: X 10^7 x 100 quantized to CLA_LEVELS levels per column,
+    compressed on the card; a qualifying full_agg region (the CLA path,
+    no kernel) against the same region on the dense X (the Cell kernel);
+    a non-qualifying one (a side matrix) through todense() and the dense
+    kernels, launches counted, equal to the dense call bit for bit."""
+    import torch
+    from repro_torch.core import fused, ir
+    from repro_torch.kernels.blocksparse import DictCompressed
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    levels = torch.randint(0, CLA_LEVELS, (CLA_ROWS, N_MAIN), generator=g,
+                           device="cuda", dtype=torch.int32)
+    scale = 0.05 + torch.rand((1, N_MAIN), generator=g, device="cuda")
+    X = (levels.float() - CLA_LEVELS / 2) * scale / 8
+    del levels
+    w = torch.randn((N_MAIN, 1), generator=g, device="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    C = DictCompressed.from_dense(X)
+    torch.cuda.synchronize()
+    t_comp = time.perf_counter() - t1
+    log(f"[cla] X {CLA_ROWS}x{N_MAIN} fp32, {CLA_LEVELS} levels a column, "
+        f"compressed on the card in {t_comp:.2f} s: values "
+        f"{tuple(C.values.shape)}, ratio {C.compression_ratio:.2f}")
+    sq = fused(lambda X: (X * X).sum())
+    side = fused(lambda X, w: ((X @ w) ** 2).sum())
+    want = sq(X)
+    for mod in counters.values():
+        mod.launches = 0
+    got = sq(C)
+    torch.cuda.synchronize()
+    counts = {k: mod.launches for k, mod in counters.items()}
+    rel = abs(float(got) - float(want)) / abs(float(want))
+    log(f"[cla] qualifying sum(X*X): CLA {float(got):.9g} vs dense kernel "
+        f"{float(want):.9g}, relative {rel:.3e} (tolerance {TRACE_RTOL:g}); "
+        f"launches {json.dumps(counts)}")
+    if not rel <= TRACE_RTOL or any(counts.values()):
+        raise AssertionError("CLA: the qualifying region disagrees or "
+                             "launched a kernel")
+    ms_cla, ms_dense = time_ms(lambda: sq(C)), time_ms(lambda: sq(X))
+    log(f"[cla] sum(X*X) per call: CLA path {ms_cla:.4f} ms, dense Cell "
+        f"kernel {ms_dense:.4f} ms (CUDA events, host included)")
+    want = side(X, w)
+    for mod in counters.values():
+        mod.launches = 0
+    got = side(C, w)
+    torch.cuda.synchronize()
+    counts = {k: mod.launches for k, mod in counters.items()}
+    same = bool(torch.equal(got, want))
+    log(f"[cla] non-qualifying sum((X@w)^2): todense + dense kernels "
+        f"{float(got):.9g} vs dense {float(want):.9g} "
+        f"({'bit-identical' if same else 'DIFFER'}); launches "
+        f"{json.dumps(counts)}")
+    if not same or not any(counts.values()):
+        raise AssertionError("CLA: the densified region disagrees or "
+                             "launched no kernel")
+    del X, C, w
+    torch.cuda.empty_cache()
+    log(f"[cla] phase wall {time.perf_counter() - t0:.1f} s")
+
+
+def serve_cases(rows, n_features, n_classes, seed: int, card: bool):
+    """The reference harness's cases (``benchmarks/serving.py``
+    ``harness_regions``): the hinge and softmax regions at every row
+    count, X shared by the two; numpy draws (``card`` False: the
+    reference's own generator and seed) or draws on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.algos import l2svm, mlogreg
+    cases = []
+    if card:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        draw = lambda *s: torch.randn(s, generator=g, device="cuda")
+        sign = lambda m: torch.where(draw(m, 1) >= 0, 1.0, -1.0)
+    else:
+        rng = np.random.default_rng(seed)
+        to = lambda a: torch.as_tensor(np.asarray(a, np.float32),
+                                       device="cuda")
+        draw = lambda *s: to(rng.standard_normal(s))
+        sign = lambda m: to(rng.choice([-1.0, 1.0], (m, 1)))
+    for m in rows:
+        X = draw(m, n_features)
+        w = draw(n_features, 1)
+        y = sign(m)
+        cases.append((f"l2svm_hinge_m{m}", l2svm._hinge,
+                      {"X": X, "w": w, "y": y}))
+        B = draw(n_features, n_classes)
+        cases.append((f"mlogreg_probs_m{m}", mlogreg._probs,
+                      {"X": X, "B": B}))
+    return cases
+
+
+def aggregate_cases(rows, n_features, seed: int):
+    """The pad-safe aggregates (Cell sum of squares, MAgg two sums) at
+    every row count, drawn on the card."""
+    import torch
+    regs = batch_regions()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    cases = []
+    for m in rows:
+        X = torch.randn((m, n_features), generator=g, device="cuda")
+        Y = torch.randn((m, n_features), generator=g, device="cuda")
+        cases.append((f"sum_sq_m{m}", regs["sum_sq"], {"X": X}))
+        cases.append((f"two_sums_m{m}", regs["two_sums"], {"X": X, "Y": Y}))
+    return cases
+
+
+def _close(got, want) -> float:
+    """max |got - want| of a result (tensor or tuple); raises beyond
+    rtol 1e-5 and atol 1e-5 (the reference harness's parity rule)."""
+    import torch
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    err = 0.0
+    for a, b in zip(got, want):
+        if tuple(a.shape) != tuple(b.shape):
+            raise AssertionError(f"served shape {tuple(a.shape)} != direct "
+                                 f"{tuple(b.shape)}")
+        if not torch.allclose(a, b, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"served result diverges from the direct "
+                                 f"call: max |d| {float((a - b).abs().max())}")
+        err = max(err, float((a - b).abs().max()) if a.numel() else 0.0)
+    return err
+
+
+def check_parity(server, cases) -> float:
+    """Every case served against its direct call (1e-5); the largest
+    difference."""
+    futs = [(label, server.submit(region, **ops), region(**ops))
+            for label, region, ops in cases]
+    return max(_close(f.result(timeout=600), want)
+               for _label, f, want in futs)
+
+
+def run_load(server, cases, n_clients: int, reqs: int,
+             seed: int = 10_000) -> dict:
+    """``n_clients`` threads x ``reqs`` requests, each a seeded random
+    case (the reference harness's ``run_load``)."""
+    import threading
+    import numpy as np
+    from repro_torch.serve import percentiles
+    errors = []
+    lock = threading.Lock()
+
+    def client(k: int) -> None:
+        rng = np.random.default_rng(seed + k)
+        futs = []
+        for _ in range(reqs):
+            _label, region, ops = cases[int(rng.integers(len(cases)))]
+            futs.append(server.submit(region, **ops))
+        for f in futs:
+            try:
+                f.result(timeout=600)
+            except Exception as e:         # noqa: BLE001 - asserted on
+                with lock:
+                    errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,), daemon=True)
+               for k in range(n_clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    elapsed = time.perf_counter() - t0
+    total = n_clients * reqs
+    snap = server.metrics.snapshot()
+    return {"requests": total, "elapsed_s": elapsed,
+            "throughput_rps": total / elapsed,
+            "us_per_req": elapsed / total * 1e6,
+            "latency_us": percentiles(server.metrics.latency_us.values()),
+            "occupancy_mean": snap["batches"]["occupancy_mean"],
+            "failed": snap["requests"]["failed"] + len(errors),
+            "rejected": snap["requests"]["rejected"], "errors": errors}
+
+
+def serve_arm(label, cases, counters, bcounters, *, max_batch: int,
+              pad_to: int, n_clients: int, reqs: int,
+              batch_sizes=(1, 2, 4, 8), profile_rows: int = 0) -> dict:
+    """One load run of the reference harness's shape: warm at every batch
+    size, parity of every case against its direct call, then counters
+    set to 0 just before the load and read just after: request-axis
+    launches must equal the batches dispatched times the fused CPlans of
+    their plan, single-request launches likewise when unbatched; no
+    request fails and no runtime fallback is recorded.  With
+    ``profile_rows``, one batched dispatch of the hinge entry at that
+    class is profiled."""
+    import torch
+    from repro_torch.serve import FusionServer
+    regions = [(region, ops) for _l, region, ops in cases]
+    sizes = tuple(b for b in batch_sizes if b <= max_batch)
+    with FusionServer(workers=SERVE_WORKERS, max_batch=max_batch,
+                      pad_to=pad_to) as server:
+        t0 = time.perf_counter()
+        server.warm(regions, batch_sizes=sizes)
+        t_warm = time.perf_counter() - t0
+        err = check_parity(server, cases)
+        before = {b["bucket"]: b["batches"]
+                  for b in server.metrics.snapshot()["buckets"]}
+        for mod in counters.values():
+            mod.launches = 0
+        for mod in bcounters.values():
+            mod.batched_launches = 0
+        res = run_load(server, cases, n_clients, reqs)
+        torch.cuda.synchronize()
+        single = {k: mod.launches for k, mod in counters.items()}
+        batched = {k: mod.batched_launches for k, mod in bcounters.items()}
+        snap = server.metrics.snapshot()
+        per_digest = {}
+        for e in server._entries.values():
+            per_digest[e.digest] = (len(e.compiled._cplan.cplans()),
+                                    e.batchable)
+        want_b = want_s = 0
+        for b in snap["buckets"]:
+            n_cp, batchable = per_digest[b["bucket"]]
+            d = b["batches"] - before.get(b["bucket"], 0)
+            if batchable:
+                want_b += d * n_cp
+            else:
+                want_s += d * n_cp
+        got_b, got_s = sum(batched.values()), sum(single.values())
+        log(f"[{label}] warm {t_warm:.2f} s at batch sizes {sizes}; parity "
+            f"of {len(cases)} cases vs direct calls: max |d| {err:.3e}")
+        log(f"[{label}] {res['requests']} requests from {n_clients} "
+            f"clients, max_batch {max_batch}, pad_to {pad_to}: "
+            f"{res['throughput_rps']:.1f} req/s "
+            f"({res['us_per_req']:.1f} us/request), latency p50 "
+            f"{res['latency_us']['p50']:.1f} p95 "
+            f"{res['latency_us']['p95']:.1f} p99 "
+            f"{res['latency_us']['p99']:.1f} us, mean occupancy "
+            f"{res['occupancy_mean']:.2f}; batches {snap['batches']}")
+        log(f"[{label}] launches in the load: request-axis "
+            f"{json.dumps(batched)} (want {want_b}), single "
+            f"{json.dumps(single)} (want {want_s}); runtime fallbacks "
+            f"{snap['runtime_fallbacks']}")
+        failed = []
+        if res["failed"] or res["rejected"]:
+            failed.append(f"{res['failed']} failed, {res['rejected']} "
+                          f"rejected ({res['errors'][:3]})")
+        if got_b != want_b or got_s != want_s:
+            failed.append(f"launches {got_b}/{got_s} != {want_b}/{want_s}")
+        if snap["runtime_fallbacks"]:
+            failed.append("a runtime fallback was recorded")
+        if profile_rows:
+            entry = next(e for e in server._entries.values()
+                         if e.label.startswith("_hinge")
+                         and e.class_shapes["X"][0] == profile_rows)
+            profile_batch(label, server, entry)
+        if failed:
+            raise AssertionError(f"[{label}] " + "; ".join(failed))
+    res.update(single=single, batched=batched, parity_err=err)
+    return res
+
+
+def profile_batch(label, server, entry) -> None:
+    """One batched dispatch of ``entry`` at max_batch requests under
+    torch.profiler: busy, idle share, and the Row kernel's device time
+    beside its bound (each stacked operand read once, the output written
+    once)."""
+    import torch
+    from repro_torch.kernels import build
+    nreq = server.max_batch
+    g = torch.Generator(device="cuda").manual_seed(31)
+    stacked = []
+    for name in entry.call_order:
+        t = build.batch_empty(nreq, entry.class_shapes[name], "cuda")
+        t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+        stacked.append(t)
+    run = lambda: entry.batched_fn(*stacked)
+    out = run()
+    nbytes = sum(t.numel() for t in stacked + list(out)) * 4
+    profile_run(f"{label} one batched dispatch {entry.label} x {nreq}", run)
+    traced = []
+    dev = device_ms(run, reps=5, names=traced)
+    log(f"[{label}] batched dispatch {entry.label} x {nreq}: device "
+        f"{dev} ms, bound {nbytes / HBM_BW * 1e3:.4f} ms (bytes "
+        f"{nbytes / 1e9:.3f} GB); kernels {traced}")
+
+
+def host_costs(label, case, nreq: int = SERVE_MAX_BATCH,
+               reps: int = 100) -> None:
+    """The worker's host time for one batch of ``nreq`` requests of one
+    case (stacking, the batched plan function, the event wait, slicing;
+    ``FusionServer._run_batched``) beside one direct call of the region
+    with a synchronize, both on the host clock, no clients running."""
+    import torch
+    from repro_torch.serve import FusionServer
+    _l, region, ops = case
+    server = FusionServer(workers=0, max_batch=nreq, pad_to=SERVE_PAD_TO,
+                          autostart=False)
+    server.warm([(region, ops)], batch_sizes=(nreq,))
+    server._started = True
+    for _ in range(nreq):
+        server.submit(region, **ops)
+    tickets = list(server._queue)
+    entry = tickets[0].entry
+
+    def per_call(fn) -> float:
+        for _ in range(10):
+            fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e6
+
+    with torch.no_grad():
+        batch_us = per_call(lambda: server._run_batched(entry, tickets))
+        direct_us = per_call(lambda: (region(**ops),
+                                      torch.cuda.synchronize()))
+    server.close()
+    log(f"[{label}] host time, no clients: a batch of {nreq} {entry.label} "
+        f"{batch_us:.1f} us ({batch_us / nreq:.1f} us a request); one "
+        f"direct call with a synchronize {direct_us:.1f} us")
+
+
+def serve_phase(counters, bcounters, serve_launches) -> dict:
+    """[serve]: the reference harness verbatim, batched and at max_batch
+    1; then the pad-safe aggregates at the same row buckets, so that the
+    Cell and MAgg request-axis kernels serve too."""
+    t0 = time.perf_counter()
+    cases = serve_cases(SERVE_ROWS, SERVE_FEATURES, SERVE_CLASSES, 0,
+                        card=False)
+    out = {}
+    out["batched"] = serve_arm("serve", cases, counters, bcounters,
+                               max_batch=SERVE_MAX_BATCH,
+                               pad_to=SERVE_PAD_TO,
+                               n_clients=SERVE_CLIENTS, reqs=SERVE_REQS)
+    out["unbatched"] = serve_arm("serve max_batch 1", cases, counters,
+                                 bcounters, max_batch=1, pad_to=0,
+                                 n_clients=SERVE_CLIENTS, reqs=SERVE_REQS)
+    speed = out["unbatched"]["us_per_req"] / out["batched"]["us_per_req"]
+    log(f"[serve] batched vs max_batch 1: {speed:.2f}x the throughput")
+    host_costs("serve", cases[-2])
+    out["aggregates"] = serve_arm(
+        "serve aggregates", aggregate_cases(SERVE_ROWS, SERVE_FEATURES, 7),
+        counters, bcounters, max_batch=SERVE_MAX_BATCH, pad_to=SERVE_PAD_TO,
+        n_clients=SERVE_CLIENTS // 4, reqs=SERVE_REQS)
+    for arm in ("batched", "aggregates"):
+        for k, c in out[arm]["batched"].items():
+            serve_launches[k] += c
+    log(f"[serve] phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def serve_wide_phase(counters, bcounters, serve_launches) -> dict:
+    """[serve-wide]: the same regions at the main path's width, rows 250k
+    / 500k / 1M in classes of 262,144, 8 clients x 4 requests, one batched
+    dispatch profiled."""
+    import torch
+    t0 = time.perf_counter()
+    cases = serve_cases(WIDE_SERVE_ROWS, N_MAIN, MLR_K, 11, card=True)
+    res = serve_arm("serve-wide", cases, counters, bcounters,
+                    max_batch=SERVE_MAX_BATCH, pad_to=WIDE_SERVE_PAD_TO,
+                    n_clients=WIDE_SERVE_CLIENTS, reqs=WIDE_SERVE_REQS,
+                    profile_rows=-(-WIDE_SERVE_ROWS[-1] // WIDE_SERVE_PAD_TO)
+                    * WIDE_SERVE_PAD_TO)
+    for k, c in res["batched"].items():
+        serve_launches[k] += c
+    del cases
+    torch.cuda.empty_cache()
+    log(f"[serve-wide] phase wall {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+def chaos_phase() -> None:
+    """[chaos]: a seeded schedule over serve.batch_dispatch (error,
+    nonfinite) and serve.worker (crash) on the card, check_finite on:
+    every future resolves, every result equals the direct call, and the
+    counters show the bisections, respawns and degradations."""
+    import torch
+    from repro_torch import faults
+    from repro_torch.serve import FusionServeError, FusionServer
+    t0 = time.perf_counter()
+    cases = serve_cases(SERVE_ROWS, SERVE_FEATURES, SERVE_CLASSES, 3,
+                        card=True)
+    want = {label: region(**ops) for label, region, ops in cases}
+    sched = faults.FaultSchedule([
+        faults.FaultRule("serve.batch_dispatch", kind="error", at=(0, 5)),
+        faults.FaultRule("serve.batch_dispatch", kind="nonfinite",
+                         at=(2, 7)),
+        faults.FaultRule("serve.batch_dispatch", kind="error", p=0.1,
+                         count=3),
+        faults.FaultRule("serve.worker", kind="crash", at=(1,)),
+        faults.FaultRule("serve.worker", kind="crash", p=0.05, count=2),
+    ], seed=17)
+    import numpy as np
+    rng = np.random.default_rng(99)
+    picks = [cases[int(rng.integers(len(cases)))] for _ in range(64)]
+    with FusionServer(workers=SERVE_WORKERS, max_batch=SERVE_MAX_BATCH,
+                      pad_to=SERVE_PAD_TO, check_finite=True,
+                      retry_budget=4) as server:
+        server.warm([(r, o) for _l, r, o in cases],
+                    batch_sizes=(1, 2, 4, 8))
+        with faults.inject(sched):
+            futs = [(label, server.submit(region, **ops))
+                    for label, region, ops in picks]
+            ok = typed = 0
+            for label, f in futs:
+                try:
+                    _close(f.result(timeout=600), want[label])
+                    ok += 1
+                except FusionServeError:
+                    typed += 1
+        lost = sum(1 for _l, f in futs if not f.done())
+        alive = sum(1 for t in server._threads if t.is_alive())
+        snap = server.metrics.snapshot()
+    res = snap["resilience"]
+    log(f"[chaos] {len(futs)} requests under {len(sched.events())} "
+        f"injected faults {sched.events()}: {ok} results equal to the "
+        f"direct call, {typed} typed errors, {lost} lost; workers alive "
+        f"{alive}/{SERVE_WORKERS}; bisections {res['bisections']}, "
+        f"respawns {res['workers']['respawns']}, requeued "
+        f"{res['workers']['requeued_requests']}, degraded "
+        f"{res['degraded']}, nonfinite detected "
+        f"{res['nonfinite_detected']}, failed dispatches "
+        f"{snap['batches']['failed_dispatches']}")
+    if lost or ok + typed != len(futs) or alive != SERVE_WORKERS:
+        raise AssertionError("chaos: a request was lost or a worker died")
+    if not (res["workers"]["respawns"] >= 1 and sum(res["degraded"].values())
+            >= 1 and snap["batches"]["failed_dispatches"] >= 1):
+        raise AssertionError("chaos: the schedule's faults were not all "
+                             "handled by the ladder")
+    del cases, want
+    torch.cuda.empty_cache()
+    log(f"[chaos] phase wall {time.perf_counter() - t0:.1f} s")
+
+
+# --------------------------------------------------------------------------
 # phases
 # --------------------------------------------------------------------------
 
@@ -1433,12 +2163,21 @@ def run() -> None:
             tails += [(c, m, n, sweep.with_rows(cp33, m), names)
                       for m in TAIL_ROWS]
     main_cps = main_path_cplans(m_main, N_MAIN)
+    # the request-axis checks: the sweep at BATCH_SHAPES (the sources of
+    # the plain sweep: m is a run-time argument), the batch regions at the
+    # main path's width and at the serving harness's
+    planned_batch = [(c, m, n, sweep.fused_cplan(c, m, n)[0])
+                     for c in sweep.cases() if c.template in BATCHED.values()
+                     for m, n in BATCH_SHAPES if n >= c.min_n]
+    wide_cps = batch_region_cplans(N_MAIN, m=WIDE_ROWS)
+    serve_cps = batch_region_cplans(SERVE_FEATURES, SERVE_CLASSES)
     paths = algo_paths(m_main)
     path_cps = {path.name: path_cplans(path) for path in paths}
     dense_cps = [cp for _r, cp in main_cps] + [
         cp for cps in path_cps.values() for _r, cp in cps]
     sources = {}
-    for cp in [p[3] for p in planned + tails] + dense_cps:
+    for cp in [p[3] for p in planned + tails + planned_batch] + dense_cps \
+            + [cp for _r, cp in wide_cps + serve_cps]:
         src = cuda_src.source_for(cp)
         sources[src.key] = src
     # the planted-fault builds: the planted sweep cases and the main paths
@@ -1476,6 +2215,9 @@ def run() -> None:
     log(f"[build] {len(sources)} kernel sources (planning {t_plan:.1f} s), "
         f"nvcc {t_build:.1f} s in parallel, set-up "
         f"{time.perf_counter() - t0:.1f} s")
+    spills = ptxas_spills(sources.values())
+    log(f"[build] ptxas: {len(spills)} kernel functions with spill stores "
+        f"{spills[:8]}")
 
     # 3. kernels vs plain: the sweep ---------------------------------------
     t0 = time.perf_counter()
@@ -1631,7 +2373,23 @@ def run() -> None:
         algo_phase(path, path_cps[path.name], counters, launches, main_err,
                    per_kernel)
 
-    # 12. result lines -------------------------------------------------------
+    # 12.-16. the request axis, CLA, serving, chaos ----------------------
+    bcounters = {"cell_batched": cellwise, "row_batched": rowwise,
+                 "magg_batched": multiagg}
+    batch_err = {k: 0.0 for k in BATCHED}
+    batch_phase(planned_batch, wide_cps, batch_err, per_kernel)
+    cla_phase(counters)
+    serve_launches = {k: 0 for k in BATCHED}
+    serve_phase(counters, bcounters, serve_launches)
+    serve_wide_phase(counters, bcounters, serve_launches)
+    log(f"[serve] request-axis launches over the fault-free serving runs "
+        f"{json.dumps(serve_launches)}")
+    missing = [k for k, c in serve_launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"serving never launched: {missing}")
+    chaos_phase()
+
+    # 17. result lines -------------------------------------------------------
     rows = []
     for k, (src, replaces) in KERNELS.items():
         agg = per_kernel[k]
@@ -1646,6 +2404,20 @@ def run() -> None:
                     "update, loss)" if k == "outer" else
                     "one call of each main-path CPlan it runs, summed over "
                     "L2SVM, MLogReg, GLM, KMeans and the autoencoder"),
+            "parts": agg["parts"]})
+    for bname, k in BATCHED.items():
+        agg = per_kernel[bname]
+        rows.append({
+            "name": bname, "route": "cuda", "source": KERNELS[k][0],
+            "replaces": KERNELS[k][1], "launches": serve_launches[bname],
+            "max_abs_err": batch_err[bname], "ms": agg["ms"],
+            "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"],
+            "bound_by": max(agg["bound_by"], key=agg["bound_by"].get),
+            "library_ms": None,
+            "per": (f"one batched call of {WIDE_BATCH} requests x "
+                    f"{WIDE_ROWS} x {N_MAIN} of each main-width batch "
+                    f"region it runs; launches over the fault-free serving "
+                    f"runs"),
             "parts": agg["parts"]})
     log(json.dumps({"kernels": rows}))
     log(card_line())

@@ -24,9 +24,10 @@ region executes generated fused operators in both directions.
 on the context's device — the card unless the context says
 ``device="cpu"``; asking for the card without one raises.
 
-Operands may be 2-D matrices (dense, or block-sparse
-:class:`~repro_torch.kernels.blocksparse.BCSR`), 1-D vectors, or 0-D
-scalars; non-2-D inputs
+Operands may be 2-D matrices (dense, block-sparse
+:class:`~repro_torch.kernels.blocksparse.BCSR`, or CLA-compressed
+:class:`~repro_torch.kernels.blocksparse.DictCompressed`), 1-D vectors, or
+0-D scalars; non-2-D inputs
 are canonicalized to column / 1×1 matrices for planning.  **Round-trip
 rule:** when a call passes any 1-D/0-D operand, outputs of shape ``(n, 1)``
 are returned as 1-D ``(n,)`` and ``(1, 1)`` outputs as 0-D scalars; calls
@@ -43,9 +44,10 @@ import numpy as np
 import torch
 
 from repro_torch.interop import resolve_device
-from repro_torch.kernels.blocksparse import BCSR
+from repro_torch.kernels.blocksparse import BCSR, DictCompressed
 from . import ir
-from .codegen import CompiledPlan, compile_plan, freed_intermediates
+from .codegen import (CompiledPlan, compile_plan, freed_intermediates,
+                      plan_fallbacks, staged_plan_key)
 from .context import FusionContext, current_context, require_local
 from .cost import CostParams
 from .grad import vjp_graph
@@ -65,7 +67,7 @@ def _canon_shape(name: str, v) -> tuple[tuple[int, int], int]:
     """(canonical 2-D shape, original ndim) of one operand: a 1-D vector
     of length n plans as an (n, 1) column, a 0-D / python scalar as
     (1, 1); ranks above 2 raise :class:`FusionInputError`."""
-    if isinstance(v, BCSR):
+    if isinstance(v, (BCSR, DictCompressed)):
         return tuple(v.shape), 2
     if isinstance(v, (int, float)):
         return (1, 1), 0
@@ -86,9 +88,9 @@ def _canon_shape(name: str, v) -> tuple[tuple[int, int], int]:
 
 def _canon_value(name: str, v, device: torch.device):
     """The operand as a contiguous fp32 (2-D) tensor on ``device``;
-    tensors keep their autograd history.  A BCSR moves to ``device`` and
-    stays sparse."""
-    if isinstance(v, BCSR):
+    tensors keep their autograd history.  A BCSR or DictCompressed moves
+    to ``device`` and stays compressed."""
+    if isinstance(v, (BCSR, DictCompressed)):
         return v.to(device)
     shape, _nd = _canon_shape(name, v)
     if isinstance(v, torch.Tensor):
@@ -125,6 +127,8 @@ def _signature(args: dict[str, object], ctx: FusionContext):
         if isinstance(v, BCSR):
             sig.append((name, "bcsr", v.shape, v.bs,
                         round(v.block_sparsity, 4)))
+        elif isinstance(v, DictCompressed):
+            sig.append((name, "dict", v.shape))
         else:
             shape, nd = _canon_shape(name, v)
             sig.append((name, "dense", shape, nd))
@@ -344,7 +348,9 @@ class Planned:
                 "device": self.context.device,
                 "donated_inputs": [],       # inputs are never donated
                 "freed_intermediates": freed_intermediates(self.eplan),
-                "fallbacks": [],            # one device: none to record
+                "fallbacks": plan_fallbacks(self.eplan,
+                                            kernels=self.context.kernels,
+                                            staged=self.context.staged),
             },
             "layout": None,
         }
@@ -364,18 +370,25 @@ class Planned:
         return report
 
     def compile(self, kernels: Optional[str] = None,
-                device: Optional[str] = None) -> "Compiled":
+                device: Optional[str] = None,
+                staged: Optional[bool] = None) -> "Compiled":
         """Stage 3: bind the plan to generated operators.
 
-        ``kernels`` (``"cuda"`` | ``"never"``) and ``device`` override the
-        context.  The returned :class:`Compiled` is callable on arrays and
-        differentiable (a ``torch.autograd.Function`` whose backward is the
-        *planned* gradient DAG)."""
+        ``kernels`` (``"cuda"`` | ``"never"``), ``device`` and ``staged``
+        override the context: ``staged=True`` (default) runs the staged
+        plan function, shared across structurally-equal plans through the
+        whole-plan cache; ``staged=False`` dispatches per operator (the
+        serving ladder's bottom tier).  The returned :class:`Compiled` is
+        callable on arrays and differentiable (a
+        ``torch.autograd.Function`` whose backward is the *planned*
+        gradient DAG)."""
         ctx = self.context
         if kernels is not None:
             ctx = ctx.with_(kernels=kernels)
         if device is not None:
             ctx = ctx.with_(device=device)
+        if staged is not None:
+            ctx = ctx.with_(staged=staged)
         if ctx.verify != "off":
             # the compile() stage boundary re-checks the execution-level
             # invariants (liveness, aliasing, whole-plan key)
@@ -430,8 +443,34 @@ class Compiled:
         ctx = planned.context
         self.device = resolve_device(ctx.device)
         self._cplan: CompiledPlan = compile_plan(
-            planned.eplan, kernels=ctx.kernels, device=str(self.device))
+            planned.eplan, kernels=ctx.kernels, device=str(self.device),
+            staged=ctx.staged)
         self._bwd_compiled: Optional[CompiledPlan] = None
+
+    # -- serving hooks ------------------------------------------------------
+    @property
+    def input_order(self) -> list[str]:
+        """Operand names in the staged function's positional order
+        (``graph.inputs()`` order — may differ from the expression
+        function's signature order)."""
+        return [n.name for n in self.planned.eplan.graph.inputs()]
+
+    def plan_key(self) -> tuple:
+        """Structural whole-plan signature of this compiled plan (the
+        staged cache key).  Two Compiled objects with equal plan keys share
+        one staged function — the bucketing identity the fused-plan server
+        (:mod:`repro_torch.serve.fusion`) batches concurrent requests by."""
+        return staged_plan_key(self.planned.eplan,
+                               kernels=self.planned.context.kernels)
+
+    def batched(self):
+        """The staged plan function over a leading request axis: takes
+        each input stacked to ``(B, *shape)`` in :attr:`input_order` and
+        returns the output tuple stacked the same way (requests
+        independent); each fused operator is one launch of its kernel's
+        request-axis form for the whole batch.  Dense plans only; shared
+        across structurally-equal plans via the whole-plan cache."""
+        return self._cplan.batched_callable()
 
     # -- execution ----------------------------------------------------------
     def _run_plain(self, arrs):
@@ -442,7 +481,7 @@ class Compiled:
         if self._bwd_compiled is None:
             self._bwd_compiled = compile_plan(
                 bwd.eplan, kernels=self.planned.context.kernels,
-                device=str(self.device))
+                device=str(self.device), staged=self.planned.context.staged)
         ct_names = [n for n in bwd.traced.in_names if n.startswith("__ct")]
         return self._bwd_compiled, bwd.grad_names, ct_names  # type: ignore
 
@@ -457,7 +496,8 @@ class Compiled:
     def __call__(self, *args, **kwargs):
         """Execute on concrete operands (positional or by name).  Dense
         calls run through the ``torch.autograd.Function``; a call with any
-        BCSR operand takes the direct forward-only dispatch.  Any 1-D/0-D
+        BCSR or DictCompressed operand takes the direct forward-only
+        dispatch.  Any 1-D/0-D
         operand puts the call in "vector world": outputs round-trip back
         through :func:`_uncanon_output`."""
         bound = self._bind(args, kwargs)
@@ -465,7 +505,7 @@ class Compiled:
             _canon_shape(n, v)[1] < 2 for n, v in bound.items())
         names = self.planned.traced.in_names
         arrs = [_canon_value(n, bound[n], self.device) for n in names]
-        if any(isinstance(a, BCSR) for a in arrs):
+        if any(isinstance(a, (BCSR, DictCompressed)) for a in arrs):
             outs = self._run_plain(arrs)
         else:
             outs = _PlannedFunction.apply(self, *arrs)
@@ -504,7 +544,9 @@ class Fused:
             outs = (outs,)
         graph = ir.Graph.build(list(outs))
         meta = {name: {"shape": _canon_shape(name, v)[0],
-                       "format": "bcsr" if isinstance(v, BCSR) else "dense",
+                       "format": ("bcsr" if isinstance(v, BCSR) else
+                                  "dict" if isinstance(v, DictCompressed)
+                                  else "dense"),
                        "sparsity": exprs[name].node.sparsity}
                 for name, v in bound.items()}
         return Traced(getattr(self.fn, "__name__", "<expr>"), graph,

@@ -61,6 +61,12 @@ class FusionContext:
         Where operands are placed and the plan runs: ``"cuda"`` (default)
         or ``"cpu"``.  Asking for ``"cuda"`` without a card raises; there
         is no fallback to the CPU.
+    staged : bool
+        Staged plan function (default True): the whole ExecPlan runs as one
+        callable shared across structurally-equal plans through the
+        whole-plan cache.  False keeps per-operator dispatch without the
+        whole-plan cache (the serving ladder's bottom tier and a debug
+        path), under the same ``kernels`` policy.
     params : CostParams
         Analytical cost-model constants (the reference's TPU v5e figures
         by default, so the port selects the reference's plans).
@@ -81,6 +87,7 @@ class FusionContext:
     mode: str = "gen"
     kernels: str = "cuda"
     device: str = "cuda"
+    staged: bool = True
     params: CostParams = field(default_factory=lambda: TPU_V5E)
     layout: Optional[Any] = None
     verify: str = "cheap"               # "off" | "cheap" | "strict"
@@ -105,8 +112,8 @@ class FusionContext:
                 p.sparse_idx_bytes, p.max_fused_inputs,
                 tuple(sorted(p.input_read_bw.items())),
                 p.dist.signature() if p.dist is not None else None)
-        return (self.mode, self.kernels, self.device, pkey, self.verify,
-                self.rewrite)
+        return (self.mode, self.kernels, self.device, self.staged, pkey,
+                self.verify, self.rewrite)
 
     # -- scoping ------------------------------------------------------------
     def __enter__(self) -> "FusionContext":

@@ -2,14 +2,16 @@
 crosses is data and the iterate.  :func:`to_torch` turns numpy arrays (or
 arrays produced by another framework and converted to numpy) into
 contiguous fp32 tensors on a device; :func:`to_bcsr` carries a block-sparse
-matrix across (the reference's ``BCSR`` or anything with its attributes)."""
+matrix across (the reference's ``BCSR`` or anything with its attributes),
+and :func:`to_dict_compressed` a CLA-compressed one (the reference's
+``DictCompressed`` or anything with its attributes)."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.blocksparse import BCSR
+from repro_torch.kernels.blocksparse import BCSR, DictCompressed
 
 
 def resolve_device(device) -> torch.device:
@@ -49,3 +51,19 @@ def to_bcsr(x, device="cuda"):
                                     device=device)
     return BCSR(to_torch(np.array(x.data, dtype=np.float32), device),
                 idx(x.rows), idx(x.cols), tuple(x.shape), int(x.bs))
+
+
+def to_dict_compressed(x, device="cuda"):
+    """The port's :class:`~repro_torch.kernels.blocksparse.DictCompressed`
+    on ``device`` from any object with numpy-convertible ``values`` (ncol,
+    ndist) fp32, ``codes`` (nrow, ncol) int32 and ``counts`` (ncol, ndist)
+    fp32 and a ``shape``: the reference's DictCompressed (duck-typed,
+    nothing of its package is imported) or the port's own."""
+    device = resolve_device(device)
+    if isinstance(x, DictCompressed):
+        return x.to(device)
+    return DictCompressed(
+        to_torch(np.array(x.values, dtype=np.float32), device),
+        torch.as_tensor(np.array(x.codes, dtype=np.int32), device=device),
+        to_torch(np.array(x.counts, dtype=np.float32), device),
+        tuple(x.shape))

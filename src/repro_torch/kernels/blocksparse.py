@@ -8,9 +8,11 @@ Sparsity exploitation happens at block granularity: the Outer kernel
 run of at most :data:`PIECE_BLOCKS` consecutive blocks of one block row,
 cut from :attr:`BCSR.rowptr`, the block-row pointer.
 
-CLA compression (``DictCompressed``) and the block-row partition for
-distributed segments (``ShardedBCSR``, ``partition_block_rows``) are not
-ported yet (ROADMAP queue A item 3).
+CLA compression keeps a matrix as per-column dictionaries
+(:class:`DictCompressed`, the same arrays as the reference's, bit for bit).
+The block-row partition for distributed segments (``ShardedBCSR``,
+``partition_block_rows``) lands with the distributed-segments slice
+(ROADMAP queue A item 5).
 """
 
 from __future__ import annotations
@@ -189,3 +191,89 @@ def pad_to_blocks(x, bs: int = DEFAULT_BLOCK) -> torch.Tensor:
     if pm or pn:
         x = F.pad(x, (0, pn, 0, pm))
     return x
+
+
+# --------------------------------------------------------------------------
+# CLA compression
+# --------------------------------------------------------------------------
+
+#: rows a chunk of :meth:`DictCompressed.todense` gathers at once (its
+#: int64 gather index is 8 bytes a cell)
+TODENSE_ROWS = 1 << 20
+
+
+@dataclass
+class DictCompressed:
+    """CLA-style column-compressed matrix (paper ref [28]).
+
+    values: (ncol, ndist) fp32 per-column dictionary (padded with 0),
+            each column's distinct values in ascending order
+    codes:  (nrow, ncol) int32 indices into the column dictionary
+    counts: (ncol, ndist) fp32 occurrences of each distinct value
+    """
+    values: torch.Tensor
+    codes: torch.Tensor
+    counts: torch.Tensor
+    shape: tuple[int, int]
+
+    def __post_init__(self) -> None:
+        self.shape = (int(self.shape[0]), int(self.shape[1]))
+
+    @property
+    def device(self) -> torch.device:
+        return self.values.device
+
+    def to(self, device) -> "DictCompressed":
+        """This matrix on ``device`` (itself when it is already there)."""
+        device = torch.device(device)
+        if self.values.device == device:
+            return self
+        return DictCompressed(self.values.to(device), self.codes.to(device),
+                              self.counts.to(device), self.shape)
+
+    @staticmethod
+    def from_dense(x, max_distinct: int = 256) -> "DictCompressed":
+        """Compress a dense (m, n) matrix (numpy array or tensor, on any
+        device): one sorted ``torch.unique`` per column, on the matrix's
+        device.  Raises ``ValueError`` on a column with more than
+        ``max_distinct`` distinct values."""
+        x = _tensor(x)
+        m, n = x.shape
+        vals_l, codes_l, counts_l = [], [], []
+        for c in range(n):
+            v, code, cnt = torch.unique(x[:, c], sorted=True,
+                                        return_inverse=True,
+                                        return_counts=True)
+            if v.numel() > max_distinct:
+                raise ValueError(f"column {c}: {v.numel()} distinct values")
+            vals_l.append(v)
+            codes_l.append(code.to(torch.int32))
+            counts_l.append(cnt)
+        ndist = max([1] + [v.numel() for v in vals_l])
+        values = torch.zeros((n, ndist), dtype=x.dtype, device=x.device)
+        counts = torch.zeros((n, ndist), dtype=x.dtype, device=x.device)
+        for c in range(n):
+            values[c, :vals_l[c].numel()] = vals_l[c]
+            counts[c, :counts_l[c].numel()] = counts_l[c].to(x.dtype)
+        codes = torch.stack(codes_l, dim=1) if codes_l else \
+            torch.zeros((m, 0), dtype=torch.int32, device=x.device)
+        return DictCompressed(values, codes.contiguous(), counts, (m, n))
+
+    def todense(self) -> torch.Tensor:
+        """The dense (m, n) matrix: ``values[c, codes[i, c]]``, gathered
+        in chunks of :data:`TODENSE_ROWS` rows."""
+        m, n = self.shape
+        vt = self.values.T.contiguous()                   # (ndist, ncol)
+        out = torch.empty((m, n), dtype=vt.dtype, device=vt.device)
+        for r0 in range(0, m, TODENSE_ROWS):
+            idx = self.codes[r0:r0 + TODENSE_ROWS].long()
+            out[r0:r0 + TODENSE_ROWS] = torch.gather(vt, 0, idx)
+        return out
+
+    @property
+    def compression_ratio(self) -> float:
+        m, n = self.shape
+        dense = m * n * 4
+        comp = (self.values.numel() + self.counts.numel()) * 4 \
+            + self.codes.numel()
+        return dense / comp

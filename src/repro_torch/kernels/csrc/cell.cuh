@@ -51,8 +51,19 @@
 // strided run of partials, then a 256-wide shared-memory tree), writes the
 // output and resets the ticket, so the bits do not depend on which CTA
 // finished last.  Ticket and partials live in a scratch buffer the wrapper
-// allocates once per (device, stream) with the ticket zeroed: ticket at
-// part[0], partials from part + 4.
+// allocates once per (device, stream) with its tickets zeroed: the tickets
+// in its head, the partials after it.
+//
+// Request axis (common.cuh): gridDim.z requests in one launch, each with
+// the grid above in x (and y for col_agg) — the wrapper shares the
+// persistent grid out over the requests.  Request q reads its binds at
+// their per-request strides, writes out + q * ostride, and folds its own
+// partials (after request q - 1's) through its own ticket, ticket[q]: the
+// last CTA *of that request* folds them, in CTA order.  A batch of one runs
+// the kernels' REQ = false instances, which read the bind pointers straight
+// from the parameters: an issue-bound chain keeps the registers that
+// per-request pointers would take (GLM's link chain ran 9 % slower with
+// them on the H100; PERF.md, the request-axis findings).
 //
 // Prog contract (written by cuda_src.py):
 //   NB, N, K (= 1), VARIANT, AGG, MEAN
@@ -175,19 +186,27 @@ __device__ __forceinline__ float walk(const rk::Binds<P::NB>& b,
 }
 }  // namespace cell
 
-template <class P>
+template <class P, bool REQ>
 __global__ void __launch_bounds__(P::T, P::CTAS)
-cell_no_agg(rk::Binds<P::NB> b, float* __restrict__ out, long long m) {
-  cell::walk<P>(b, out, m);
+cell_no_agg(rk::BBinds<P::NB> bb, float* __restrict__ out, long long ostride,
+            long long m) {
+  const rk::Binds<P::NB> b = REQ ? bb.at(blockIdx.z) : bb.base();
+  cell::walk<P>(b, REQ ? out + blockIdx.z * ostride : out, m);
 }
 
-template <class P>
+template <class P, bool REQ>
 __global__ void __launch_bounds__(P::T, P::CTAS)
-cell_full_agg(rk::Binds<P::NB> b, float* __restrict__ out,
-              float* __restrict__ part, unsigned* ticket, long long m,
-              double aux) {
+cell_full_agg(rk::BBinds<P::NB> bb, float* __restrict__ out,
+              long long ostride, float* __restrict__ part, unsigned* ticket,
+              long long m, double aux) {
   static_assert(P::T == cell::FOLD_THREADS, "the fold takes the whole CTA");
   __shared__ float ws[P::T / 32];
+  const rk::Binds<P::NB> b = REQ ? bb.at(blockIdx.z) : bb.base();
+  if (REQ) {
+    out += blockIdx.z * ostride;
+    part += (long long)blockIdx.z * gridDim.x;
+    ticket += blockIdx.z;
+  }
   const float acc = cell::walk<P>(b, out, m);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float a = rk::lane_reduce<32>(P::AGG, acc);
@@ -208,10 +227,12 @@ cell_full_agg(rk::Binds<P::NB> b, float* __restrict__ out,
   if (gridDim.x > 1) cell::fold_last<P>(part, out, ticket, gridDim.x, 1, aux);
 }
 
-template <class P>
+template <class P, bool REQ>
 __global__ void __launch_bounds__(256)
-cell_row_agg(rk::Binds<P::NB> b, float* __restrict__ out, long long m,
-             float count) {
+cell_row_agg(rk::BBinds<P::NB> bb, float* __restrict__ out, long long ostride,
+             long long m, float count) {
+  const rk::Binds<P::NB> b = REQ ? bb.at(blockIdx.z) : bb.base();
+  if (REQ) out += blockIdx.z * ostride;
   const int lane = threadIdx.x & 31;
   const long long warp = (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
   const long long nwarps = ((long long)gridDim.x * blockDim.x) >> 5;
@@ -227,12 +248,18 @@ cell_row_agg(rk::Binds<P::NB> b, float* __restrict__ out, long long m,
   }
 }
 
-template <class P>
+template <class P, bool REQ>
 __global__ void __launch_bounds__(256)
-cell_col_agg(rk::Binds<P::NB> b, float* __restrict__ out,
+cell_col_agg(rk::BBinds<P::NB> bb, float* __restrict__ out, long long ostride,
              float* __restrict__ part, unsigned* ticket, long long m,
              double aux) {
   __shared__ float sm[8][33];
+  const rk::Binds<P::NB> b = REQ ? bb.at(blockIdx.z) : bb.base();
+  if (REQ) {
+    out += blockIdx.z * ostride;
+    part += (long long)blockIdx.z * gridDim.y * P::N;
+    ticket += blockIdx.z;
+  }
   const int j = blockIdx.x * 32 + threadIdx.x;
   const long long R = gridDim.y;
   const long long chunk = (m + R - 1) / R;
@@ -256,29 +283,49 @@ cell_col_agg(rk::Binds<P::NB> b, float* __restrict__ out,
   cell::fold_last<P>(part, out, ticket, (int)R, P::N, aux);
 }
 
-// nblocks: grid size (no_agg, row_agg, full_agg) or row chunks R (col_agg);
-// part: the scratch buffer (full_agg, col_agg): the ticket in its first
-// word, partials from part + 4; aux: the mean count (row_agg: N, col_agg:
-// m, full_agg: m·N)
+// binds / strides: each bind's pointer and per-request stride (floats);
+// nreq: requests (gridDim.z); out + q * ostride: request q's output;
+// nblocks: grid size per request (no_agg, row_agg, full_agg) or row chunks
+// R (col_agg); part: the partials, nblocks * PARTS floats per request;
+// ticket: one zeroed word per request (full_agg, col_agg); aux: the mean
+// count (row_agg: N, col_agg: m, full_agg: m·N)
+template <class P, bool REQ>
+void cell_launch_as(const rk::BBinds<P::NB>& b, int nreq, float* out,
+                    long long ostride, float* part, unsigned* tk, long long m,
+                    int nblocks, double aux, cudaStream_t s) {
+  if constexpr (P::VARIANT == cell::NO_AGG) {
+    cell_no_agg<P, REQ><<<dim3(nblocks, 1, nreq), P::T, 0, s>>>(
+        b, out, ostride, m);
+  } else if constexpr (P::VARIANT == cell::ROW_AGG) {
+    cell_row_agg<P, REQ><<<dim3(nblocks, 1, nreq), 256, 0, s>>>(
+        b, out, ostride, m, (float)aux);
+  } else if constexpr (P::VARIANT == cell::COL_AGG) {
+    cell_col_agg<P, REQ><<<dim3((P::N + 31) / 32, nblocks, nreq),
+                           dim3(32, 8), 0, s>>>(b, out, ostride, part, tk, m,
+                                                aux);
+  } else {
+    cell_full_agg<P, REQ><<<dim3(nblocks, 1, nreq), P::T, 0, s>>>(
+        b, out, ostride, part, tk, m, aux);
+  }
+}
+
 template <class P>
-int cell_launch(void* const* binds, float* out, float* part, long long m,
-                int nblocks, double aux, void* stream, int device) {
+int cell_launch(void* const* binds, const long long* strides, int nreq,
+                float* out, long long ostride, float* part, void* ticket,
+                long long m, int nblocks, double aux, void* stream,
+                int device) {
   static_assert(P::WALK == 0 || (P::G == 4 && P::U >= 1 && P::NV >= 1),
                 "vector walk: groups of four cells");
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const rk::Binds<P::NB> b = rk::pack_binds<P::NB>(binds);
-  if constexpr (P::VARIANT == cell::NO_AGG) {
-    cell_no_agg<P><<<nblocks, P::T, 0, s>>>(b, out, m);
-  } else if constexpr (P::VARIANT == cell::ROW_AGG) {
-    cell_row_agg<P><<<nblocks, 256, 0, s>>>(b, out, m, (float)aux);
-  } else if constexpr (P::VARIANT == cell::COL_AGG) {
-    cell_col_agg<P><<<dim3((P::N + 31) / 32, nblocks), dim3(32, 8), 0, s>>>(
-        b, out, part + 4, reinterpret_cast<unsigned*>(part), m, aux);
-  } else {
-    cell_full_agg<P><<<nblocks, P::T, 0, s>>>(
-        b, out, part + 4, reinterpret_cast<unsigned*>(part), m, aux);
-  }
+  const rk::BBinds<P::NB> b = rk::pack_bbinds<P::NB>(binds, strides);
+  unsigned* tk = static_cast<unsigned*>(ticket);
+  if (nreq == 1)
+    cell_launch_as<P, false>(b, 1, out, ostride, part, tk, m, nblocks, aux,
+                             s);
+  else
+    cell_launch_as<P, true>(b, nreq, out, ostride, part, tk, m, nblocks,
+                            aux, s);
   return (int)cudaGetLastError();
 }

@@ -11,6 +11,14 @@
 // Reductions are deterministic: no float atomics.  Partials are written
 // in a fixed layout and combined by `combine` in partial order with a
 // fixed tree, so a run gives the same bits as the run before it.
+//
+// The request axis (Cell, MAgg, Row): one launch serves a batch of
+// requests, the counterpart of a vmapped pallas_call.  The request index
+// is blockIdx.z (gridDim.z = the batch); each CTA takes its request's
+// bind pointers from `BBinds::at` (bind k of request q at p[k] + q * s[k];
+// s[k] = 0 for a value every request shares, such as a literal) and
+// offsets its output and partials by its request, so the per-request
+// geometry of every kernel is unchanged.  A single call is a batch of one.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,6 +30,26 @@ namespace rk {
 template <int NB>
 struct Binds {
   const float* p[NB > 0 ? NB : 1];
+};
+
+// bind pointers and per-request strides (floats) of a batched launch
+template <int NB>
+struct BBinds {
+  const float* p[NB > 0 ? NB : 1];
+  long long s[NB > 0 ? NB : 1];
+  __device__ __forceinline__ Binds<NB> at(long long q) const {
+    Binds<NB> b;
+#pragma unroll
+    for (int k = 0; k < NB; ++k) b.p[k] = p[k] + q * s[k];
+    return b;
+  }
+  // request 0's pointers, the parameters themselves (a batch of one)
+  __device__ __forceinline__ Binds<NB> base() const {
+    Binds<NB> b;
+#pragma unroll
+    for (int k = 0; k < NB; ++k) b.p[k] = p[k];
+    return b;
+  }
 };
 
 // aggregation codes; "mean" accumulates as AGG_SUM and divides at the end
@@ -92,13 +120,17 @@ __device__ __forceinline__ float f_cmp(bool c) { return c ? 1.f : 0.f; }
 __device__ __forceinline__ float f_where(float c, float a, float b) { return c != 0.f ? a : b; }
 
 // second pass of every reducing variant: out[e] = fin(e, combine over
-// nparts partials part[p * E + e], in p order); E = gridDim.x
+// nparts partials part[p * E + e], in p order); E = gridDim.x.  Request
+// q = blockIdx.z folds its own nparts * E partials (they follow request
+// q - 1's) into out + q * ostride.
 template <class P>
 __global__ void __launch_bounds__(256)
 combine(const float* __restrict__ part, float* __restrict__ out, int nparts,
-        double aux) {
+        double aux, long long ostride = 0) {
   __shared__ float sm[256];
   const int e = blockIdx.x, E = gridDim.x, tx = threadIdx.x;
+  part += (long long)blockIdx.z * nparts * E;
+  out += blockIdx.z * ostride;
   const int op = P::agg_of(e);
   float acc = agg_init(op);
   for (int p = tx; p < nparts; p += 256) {
@@ -122,6 +154,17 @@ template <int NB>
 __host__ inline Binds<NB> pack_binds(void* const* ptrs) {
   Binds<NB> b;
   for (int k = 0; k < NB; ++k) b.p[k] = static_cast<const float*>(ptrs[k]);
+  return b;
+}
+
+template <int NB>
+__host__ inline BBinds<NB> pack_bbinds(void* const* ptrs,
+                                       const long long* strides) {
+  BBinds<NB> b;
+  for (int k = 0; k < NB; ++k) {
+    b.p[k] = static_cast<const float*>(ptrs[k]);
+    b.s[k] = strides[k];
+  }
   return b;
 }
 

@@ -13,6 +13,10 @@
 // second pass (rk::combine) folds the partials in CTA order.  No float
 // atomics: the Pallas grid accumulates in order, and so does this.
 //
+// Request axis (common.cuh): gridDim.z requests in one launch; request q
+// scans its own binds, writes its nblocks * K partials after request
+// q - 1's, and rk::combine folds them into out + q * ostride.
+//
 // Prog contract (written by cuda_src.py):
 //   NB, N, K                     bind count, domain width, number of roots
 //   eval(b, i, j, r[K])          the program at cell (i, j)
@@ -23,8 +27,10 @@
 
 template <class P>
 __global__ void __launch_bounds__(256)
-magg_scan(rk::Binds<P::NB> b, float* __restrict__ part, long long m) {
+magg_scan(rk::BBinds<P::NB> bb, float* __restrict__ part, long long m) {
   __shared__ float sm[P::K][8];
+  const rk::Binds<P::NB> b = bb.at(blockIdx.z);
+  part += (long long)blockIdx.z * gridDim.x * P::K;
   float acc[P::K];
 #pragma unroll
   for (int k = 0; k < P::K; ++k) acc[k] = rk::agg_init(P::agg_of(k));
@@ -54,15 +60,20 @@ magg_scan(rk::Binds<P::NB> b, float* __restrict__ part, long long m) {
   }
 }
 
-// out (K,1); part holds nblocks·K floats
+// out (K,1) per request, request q's at out + q * ostride; part holds
+// nblocks·K floats per request; binds / strides: bind pointers and
+// per-request strides (floats); nreq requests (gridDim.z)
 template <class P>
-int magg_launch(void* const* binds, float* out, float* part, long long m,
-                int nblocks, double aux, void* stream, int device) {
+int magg_launch(void* const* binds, const long long* strides, int nreq,
+                float* out, long long ostride, float* part, void* ticket,
+                long long m, int nblocks, double aux, void* stream,
+                int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const rk::Binds<P::NB> b = rk::pack_binds<P::NB>(binds);
-  magg_scan<P><<<nblocks, 256, 0, s>>>(b, part, m);
-  rk::combine<P><<<P::K, 256, 0, s>>>(part, out, nblocks, aux);
+  const rk::BBinds<P::NB> b = rk::pack_bbinds<P::NB>(binds, strides);
+  magg_scan<P><<<dim3(nblocks, 1, nreq), 256, 0, s>>>(b, part, m);
+  rk::combine<P><<<dim3(P::K, 1, nreq), 256, 0, s>>>(part, out, nblocks, aux,
+                                                     ostride);
   return (int)cudaGetLastError();
 }

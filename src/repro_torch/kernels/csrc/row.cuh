@@ -63,6 +63,12 @@
 // Both: IEEE fp32 FMAs (no TF32, no fast-math); partials are folded in
 // order by rk::combine, no float atomics, so a rerun gives the same bits.
 //
+// Request axis (common.cuh): gridDim.z requests in one launch, each with
+// the persistent grid above in x (the wrapper shares it out over the
+// requests) and its own tile geometry; request q reads its binds at their
+// per-request strides, writes out + q * ostride (no_agg, row_agg) or its
+// partials after request q - 1's, which rk::combine folds per request.
+//
 // Prog contract, warp layout (written by cuda_src.py):
 //   LAYOUT = 0, NB, L, WPB, SMW   binds, lanes per row, warps per CTA,
 //                                 staging floats per warp (>= 1)
@@ -98,9 +104,14 @@ enum { NO_AGG = 0, ROW_AGG = 1, COL_AGG = 2, FULL_AGG = 3, COL_T_AGG = 4 };
 
 template <class P>
 __global__ void __launch_bounds__(P::WPB * 32)
-row_kernel(rk::Binds<P::NB> b, float* __restrict__ out,
+row_kernel(rk::BBinds<P::NB> bb, float* __restrict__ out, long long ostride,
            float* __restrict__ part, long long m, float count) {
   constexpr int L = P::L;
+  constexpr int E = P::VARIANT == row::COL_AGG ? P::C
+                    : P::VARIANT == row::COL_T_AGG ? P::KC * P::C : 1;
+  const rk::Binds<P::NB> b = bb.at(blockIdx.z);
+  out += blockIdx.z * ostride;
+  part += (long long)blockIdx.z * gridDim.x * P::WPB * E;
   __shared__ float smem[P::WPB][P::SMW];
   const int lane = threadIdx.x & 31, wib = threadIdx.x >> 5;
   const int sub = (L == 32) ? lane : 0;          // lane within the row group
@@ -253,10 +264,16 @@ __device__ __forceinline__ void load_tile(const rk::Binds<P::NB>& b,
 
 template <class P>
 __global__ void __launch_bounds__(P::T, P::CTAS)
-row_tile_kernel(rk::Binds<P::NB> b, float* __restrict__ out,
-                float* __restrict__ part, long long m, float count) {
+row_tile_kernel(rk::BBinds<P::NB> bb, float* __restrict__ out,
+                long long ostride, float* __restrict__ part, long long m,
+                float count) {
   using L = rowtile::Layout<P>;
   constexpr int T = P::T, R = P::R, S = P::STAGES, C = P::C;
+  constexpr int E = P::VARIANT == row::COL_AGG ? C
+                    : P::VARIANT == row::COL_T_AGG ? P::KC * C : 1;
+  const rk::Binds<P::NB> b = bb.at(blockIdx.z);
+  out += blockIdx.z * ostride;
+  part += (long long)blockIdx.z * gridDim.x * E;
   extern __shared__ __align__(16) float smem[];
   float* gs = smem + S * L::STAGE;
   float* sb = gs + L::GSF;
@@ -415,36 +432,42 @@ row_tile_kernel(rk::Binds<P::NB> b, float* __restrict__ out,
   }
 }
 
-// nblocks: grid size; partials: one per CTA (tile layout) or per warp
-// (warp layout) x E elements (E = 1 full_agg, C col_agg, KC·C col_t_agg);
-// aux: the mean count of the variant (row_agg: root width, col_agg: m,
-// full_agg: m·width)
+// binds / strides: bind pointers and per-request strides (floats); nreq:
+// requests (gridDim.z); out + q * ostride: request q's output; nblocks:
+// grid size per request; partials: one per CTA (tile layout) or per warp
+// (warp layout) x E elements (E = 1 full_agg, C col_agg, KC·C col_t_agg)
+// per request; aux: the mean count of the variant (row_agg: root width,
+// col_agg: m, full_agg: m·width)
 template <class P>
-int row_launch(void* const* binds, float* out, float* part, long long m,
-               int nblocks, double aux, void* stream, int device) {
+int row_launch(void* const* binds, const long long* strides, int nreq,
+               float* out, long long ostride, float* part, void* ticket,
+               long long m, int nblocks, double aux, void* stream,
+               int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const rk::Binds<P::NB> b = rk::pack_binds<P::NB>(binds);
+  const rk::BBinds<P::NB> b = rk::pack_bbinds<P::NB>(binds, strides);
+  const dim3 grid(nblocks, 1, nreq);
   int nparts;
   if constexpr (P::LAYOUT == 1) {
     err = cudaFuncSetAttribute(row_tile_kernel<P>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                P::SMEM);
     if (err != cudaSuccess) return (int)err;
-    row_tile_kernel<P><<<nblocks, P::T, P::SMEM, s>>>(b, out, part, m,
-                                                       (float)aux);
+    row_tile_kernel<P><<<grid, P::T, P::SMEM, s>>>(b, out, ostride, part, m,
+                                                   (float)aux);
     nparts = nblocks;
   } else {
-    row_kernel<P><<<nblocks, P::WPB * 32, 0, s>>>(b, out, part, m,
-                                                   (float)aux);
+    row_kernel<P><<<grid, P::WPB * 32, 0, s>>>(b, out, ostride, part, m,
+                                               (float)aux);
     nparts = nblocks * P::WPB;
   }
   if constexpr (P::VARIANT == row::COL_AGG || P::VARIANT == row::FULL_AGG ||
                 P::VARIANT == row::COL_T_AGG) {
     constexpr int E = P::VARIANT == row::FULL_AGG ? 1
                     : (P::VARIANT == row::COL_AGG ? P::C : P::KC * P::C);
-    rk::combine<P><<<E, 256, 0, s>>>(part, out, nparts, aux);
+    rk::combine<P><<<dim3(E, 1, nreq), 256, 0, s>>>(part, out, nparts, aux,
+                                                    ostride);
   }
   return (int)cudaGetLastError();
 }

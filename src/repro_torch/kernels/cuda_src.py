@@ -13,8 +13,10 @@ module writes, per CPlan, a ``struct Prog`` holding
   the variant / aggregation codes,
 
 plus an ``extern "C"`` launcher that instantiates the skeleton
-(``repro_launch``; ``repro_launch_outer`` for Outer, whose kernel also
-takes the BCSR's block indices and is generated per block size).  The Row
+(``repro_launch``, whose launch serves a batch of requests — one request
+for a plain call — with per-request bind strides; ``repro_launch_outer``
+for Outer, whose kernel also takes the BCSR's block indices and is
+generated per block size).  The Row
 template has two layouts, chosen per CPlan here (:func:`row_source`): the
 tile layout (a thread per row over tiles of rows in shared memory, every
 computed value in registers) and the warp layout (a warp per row) for
@@ -146,13 +148,23 @@ def _header(template: str) -> list[str]:
     return [f'#include "{template}.cuh"', ""]
 
 
+#: the launcher ABI of the Cell, MAgg and Row kernels (``build.launch``):
+#: bind pointers, per-request bind strides (floats), the request count,
+#: out, out's per-request stride, partials, tickets (Cell), m, the grid per
+#: request, aux, stream, device
+LAUNCH_SIGNATURE = (
+    'extern "C" int repro_launch(void* const* binds, '
+    'const long long* strides, int nreq, void* out, long long ostride, '
+    'void* part, void* ticket, long long m, int nblocks, double aux, '
+    'void* stream, int device)')
+
+
 def _launcher(fn: str) -> list[str]:
     return [
-        'extern "C" int repro_launch(void* const* binds, void* out, '
-        'void* part, long long m, int nblocks, double aux, void* stream, '
-        'int device) {',
-        f"  return {fn}<Prog>(binds, static_cast<float*>(out), "
-        "static_cast<float*>(part), m, nblocks, aux, stream, device);",
+        LAUNCH_SIGNATURE + " {",
+        f"  return {fn}<Prog>(binds, strides, nreq, static_cast<float*>(out), "
+        "ostride, static_cast<float*>(part), ticket, m, nblocks, aux, "
+        "stream, device);",
         "}", ""]
 
 

@@ -20,23 +20,45 @@ the reference's ``repro/kernels/ops.py``, kept exactly:
   routes and runs its jnp block loop there.  A main the plan cannot
   exploit is densified and takes the dense paths.
 
+* **CLA main** (:class:`~repro_torch.kernels.blocksparse.DictCompressed`)
+  — a qualifying single-input ``sum`` chain runs over the per-column
+  dictionaries and aggregates through the counts (:func:`_execute_dict`,
+  paper Fig. 9); any other plan densifies the main through ``todense()``
+  and re-dispatches on the dense paths, as the reference does.
+
+:func:`execute_batched` is the request-axis form of the dense dispatch:
+every bound value carries a leading request axis (B, r, c) — a 2-D value
+is shared by every request — and one call of the Cell, MAgg or Row kernel
+serves the whole batch (the counterpart of one vmapped ``pallas_call``).
+
 Each kernel wrapper takes its plain version for CPU tensors only.  Also
 hosts the block-sparse *basic* operators (sparse matmul etc.) that a plan
 leaves unfused.  Sums over blocks are deterministic: blocks are grouped by
 block row (or column) and summed in order (:func:`_segment_sum`), never
-with float atomics.  CLA-compressed operands (``DictCompressed``) are not
-ported yet (ROADMAP queue A item 3).
+with float atomics.
 """
 
 from __future__ import annotations
 
 import torch
 
+from typing import Optional
+
+from repro_torch import faults
 from repro_torch.core.cplan import (CPlan, COL_AGG, FULL_AGG, LEFT_MM,
                                     NO_AGG, RIGHT_MM, ROW_AGG)
 from repro_torch.core.templates import TType
 from . import cellwise, multiagg, ref, rowwise
-from .blocksparse import BCSR
+from .blocksparse import BCSR, DictCompressed
+
+faults.register_site(
+    "kernels.launch",
+    "a fused operator's dispatch to a generated CUDA kernel (kernels != "
+    "'never'), before the kernel is built or launched",
+    kinds=("error", "latency"),
+    handler="per-plan: FusionServer degradation ladder re-executes the "
+            "request at a lower tier; per-op: the error surfaces to the "
+            "caller — nothing is cached, a retry re-dispatches")
 
 
 # --------------------------------------------------------------------------
@@ -46,12 +68,19 @@ from .blocksparse import BCSR
 def execute(cplan: CPlan, env: dict, *, kernels: str = "never"):
     """Run one fused operator.  ``kernels`` ∈ {"never", "cuda"}."""
     for v in env.values():
-        if not isinstance(v, (torch.Tensor, BCSR)):
+        if not isinstance(v, (torch.Tensor, BCSR, DictCompressed)):
             raise NotImplementedError(
                 f"operand of type {type(v).__name__}: the port takes dense "
-                f"tensors and BCSR; CLA compression is ROADMAP.md queue A "
-                f"item 3")
+                f"tensors, BCSR and DictCompressed")
+    if kernels != "never":
+        faults.fault_point("kernels.launch")
     main = env.get(cplan.main.nid)
+    if isinstance(main, DictCompressed):
+        out = _execute_dict(cplan, env)
+        if out is not None:
+            return out
+        env = dict(env)
+        env[cplan.main.nid] = main = main.todense()
     if isinstance(main, BCSR):
         has_mm = any(op == "matmul" for (_, op, *_rest) in cplan.prog)
         if cplan.main.exploit and (cplan.ttype == TType.OUTER or not has_mm):
@@ -71,6 +100,65 @@ def execute(cplan: CPlan, env: dict, *, kernels: str = "never"):
         # Outer over a dense main: the torch oracle, as the reference
         # falls through to XLA
     return ref.execute_dense(cplan, env)
+
+
+def execute_batched(cplan: CPlan, env: dict, *, kernels: str = "never"):
+    """Run one fused operator over a batch of requests: every 3-D value of
+    ``env`` is (B, *shape) with the requests on its leading axis, a 2-D
+    value is shared by all of them; returns the output stacked (B, ...).
+    Dense operands only (the server batches dense requests only).  Under
+    ``kernels="cuda"`` a CUDA batch is one launch of the Cell, MAgg or Row
+    kernel's request-axis form; an Outer CPlan over a dense main runs the
+    oracle per request, as :func:`execute` does."""
+    for v in env.values():
+        if not isinstance(v, torch.Tensor):
+            raise NotImplementedError(
+                f"batched operand of type {type(v).__name__}: batched "
+                f"execution takes dense tensors only")
+    if kernels != "never":
+        faults.fault_point("kernels.launch")
+        if cplan.extra:
+            return multiagg.multiagg_batched(cplan, env)
+        if cplan.ttype in (TType.CELL, TType.MAGG):
+            return cellwise.cell_batched(cplan, env)
+        if cplan.ttype == TType.ROW:
+            return rowwise.row_batched(cplan, env)
+    return ref.execute_dense_batched(cplan, env)
+
+
+# --------------------------------------------------------------------------
+# CLA (DictCompressed) fast path — paper Fig. 9
+# --------------------------------------------------------------------------
+
+def _execute_dict(cplan: CPlan, env: dict) -> Optional[torch.Tensor]:
+    """CLA fast path over a :class:`~repro_torch.kernels.blocksparse.
+    DictCompressed` main: evaluate the program on the per-column
+    dictionary values only, then aggregate through the occurrence counts
+    (``Σ f(distinct) · count``).  It qualifies, as in the reference, only
+    when exactly one bound input is not a scalar (the compressed main),
+    the variant is ``full_agg`` with ``agg_op == "sum"``, the CPlan is not
+    a multi-aggregate (``cplan.extra`` empty), and every other bound value
+    is (1, 1) — a side read returns None and the program evaluation's
+    ``TypeError`` disqualifies it.  Returns the (1, 1) aggregate, or None:
+    :func:`execute` then densifies the main and re-dispatches."""
+    mats = [b for b in cplan.binds if b.kind != "scalar"]
+    if len(mats) != 1 or cplan.variant != FULL_AGG \
+            or cplan.agg_op not in ("sum",) or cplan.extra:
+        return None
+    X: DictCompressed = env[cplan.main.nid]
+
+    def read(nid: int):
+        if nid == cplan.main.nid:
+            return X.values                 # (ncol, ndist)
+        v = env[nid]
+        if hasattr(v, "shape") and tuple(v.shape) == (1, 1):
+            return v
+        return None
+    try:
+        (val,) = ref.apply_program(cplan, read, [cplan.prog_root])
+    except TypeError:
+        return None
+    return torch.sum(val * X.counts).reshape(1, 1)
 
 
 # --------------------------------------------------------------------------
@@ -253,7 +341,7 @@ def _kind_nid(cplan: CPlan, kind: str) -> int:
 
 
 def _as_dense(v):
-    return v.todense() if isinstance(v, BCSR) else v
+    return v.todense() if isinstance(v, (BCSR, DictCompressed)) else v
 
 
 # --------------------------------------------------------------------------

@@ -12,7 +12,10 @@ the port, ported from the reference's ``repro/kernels/ref.py``:
 Semantics follow the reference exactly: ``gelu`` is the tanh
 approximation (``jax.nn.gelu``'s default), comparisons cast back to the
 input dtype, ``where`` tests ``!= 0``, aggregates reshape to (1,1), (m,1)
-or (1,n).
+or (1,n).  :func:`eval_node` also takes values with a leading request
+axis (B, r, c) — the batched plan function's basic operators — and
+:func:`execute_dense_batched` is the plain version of every request-axis
+kernel: the oracle once per request.
 """
 
 from __future__ import annotations
@@ -79,10 +82,33 @@ def _as_tensors(ins: Sequence) -> list:
             for v in ins]
 
 
+def _eval_batched(op: str, ins: list, attrs: dict):
+    """:func:`eval_node` over (B, r, c) values (2-D values broadcast over
+    the requests): aggregates, transposes and slices act on the last two
+    axes, matmuls are batched."""
+    if op in _AGG_FN and "axis" in attrs:
+        dim = {"full": (-2, -1), "row": -1, "col": -2}[attrs["axis"]]
+        return _AGG_FN[op](ins[0], dim=dim, keepdim=True)
+    if op == "matmul":
+        a, b = ins
+        a = a.transpose(-2, -1) if attrs.get("ta", False) else a
+        b = b.transpose(-2, -1) if attrs.get("tb", False) else b
+        return torch.matmul(a, b)
+    if op == "t":
+        return ins[0].transpose(-2, -1)
+    if op == "idx":
+        return ins[0][..., attrs["lo"]:attrs["hi"]]
+    return None
+
+
 def eval_node(op: str, ins: Sequence, attrs: dict):
     """Evaluate one IR operation on torch values (used for basic operators
     and inside program interpretation)."""
     ins = _as_tensors(ins)
+    if any(v.dim() == 3 for v in ins):
+        r = _eval_batched(op, ins, attrs)
+        if r is not None:
+            return r
     if op in _AGG_FN and "axis" in attrs:     # min/max are also binary ops
         axis = attrs.get("axis", "full")
         ax = {"full": None, "row": 1, "col": 0}[axis]
@@ -150,6 +176,22 @@ def execute_dense(cplan: CPlan, env: dict[int, torch.Tensor]):
     ``env`` maps bound nids to dense tensors.  Returns the contiguous
     output tensor (or a (k,1) stack for multi-aggregates)."""
     return _execute_dense(cplan, env).contiguous()
+
+
+def execute_dense_batched(cplan: CPlan, env: dict[int, torch.Tensor]):
+    """:func:`execute_dense` once per request: every 3-D value of ``env``
+    is (B, *shape), a 2-D value is shared; returns the outputs stacked
+    (B, ...) — the plain version of the Cell, MAgg and Row kernels'
+    request-axis forms."""
+    counts = {v.shape[0] for v in env.values() if v.dim() == 3}
+    if len(counts) != 1:
+        raise ValueError(f"batched operands need one request count, got "
+                         f"{sorted(counts)}")
+    (nreq,) = counts
+    return torch.stack([
+        execute_dense(cplan, {nid: (v[q] if v.dim() == 3 else v)
+                              for nid, v in env.items()})
+        for q in range(nreq)])
 
 
 def _execute_dense(cplan: CPlan, env: dict[int, torch.Tensor]):

@@ -1,6 +1,7 @@
 // Host declarations standing in for the CUDA ones that the generated
 // kernels use (csrc/*.cuh), so that `g++ -fsyntax-only` parses a generated
-// source where there is no nvcc (tests/test_torch_cell_layout.py).  The
+// source where there is no nvcc (tests/test_torch_cell_layout.py,
+// tests/test_torch_batched.py).  The
 // test rewrites each `kernel<<<grid, block, smem, stream>>>(args)` launch
 // into a plain call before parsing; nothing here is ever run.
 #pragma once
@@ -13,9 +14,9 @@
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __shared__ static
+#define __shared__
 #define __launch_bounds__(...)
-#define __align__(n) alignas(n)
+#define __align__(n) __attribute__((aligned(n)))
 
 struct float4 { float x, y, z, w; };
 float4 make_float4(float x, float y, float z, float w);

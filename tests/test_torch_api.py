@@ -79,7 +79,11 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.interop, repro_torch.kernels.blocksparse, "
             "repro_torch.kernels.outerprod, repro_torch.kernels.cuda_src, "
             "repro_torch.kernels.ops, repro_torch.kernels.build, "
-            "repro_torch.kernels.sweep, repro_torch.core.api\n"
+            "repro_torch.kernels.sweep, repro_torch.core.api, "
+            "repro_torch.faults, repro_torch.serve, "
+            "repro_torch.serve.fusion, repro_torch.serve.metrics\n"
+            "from repro_torch import faults\n"
+            "faults.ensure_registered()\n"
             "from repro_torch.kernels import cuda_src, sweep\n"
             "for c in sweep.cases():\n"
             "    sweep.fused_cplan(c, 8, 4)\n"

@@ -7,11 +7,14 @@ mlogreg / GLM / kmeans / autoencoder region forward and planned backward
 on the card against the CPU, L2SVM and ALS-CG on the card against the
 CPU, MLogReg, GLM, KMeans and the autoencoder on the card against
 ``kernels="never"``, KMeans' assignment rows, and the Outer kernel
-launched exactly for a BCSR on the card.  Marked ``gpu``; without a card
+launched exactly for a BCSR on the card; the request-axis kernels per
+request and the fusion server on the card.  Marked ``gpu``; without a card
 every test skips.  Imports no JAX (the machine with the card has none):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 """
+
+import time
 
 import numpy as np
 import pytest
@@ -180,8 +183,12 @@ def test_cell_calls_are_one_deterministic_launch(card, case, shape):
     a = run()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # idle time at each end, as chip_smoke.device_ms pads its traces:
+        # without it a short kernel's launch can go missing from the trace
+        time.sleep(chip_smoke().PROFILE_PAD_S)
         b = run()
         torch.cuda.synchronize()
+        time.sleep(chip_smoke().PROFILE_PAD_S)
     kernels = [e for e in prof.key_averages()
                if e.self_device_time_total > 0]
     assert len(kernels) == 1 and kernels[0].count == 1, kernels
@@ -348,3 +355,57 @@ def test_kmeans_assignment_rows_sum_to_one_on_the_card(card):
     for Cs in (C0, C):
         missed, off = chip_smoke().kmeans_assignment(X, Cs)
         assert missed == 0 and off <= 4 * chip_smoke().EPS32
+
+
+# --------------------------------------------------------------------------
+# the request axis and the server on the card
+# --------------------------------------------------------------------------
+
+BATCH_CASES = [c for c in sweep.cases() if c.template in ("cell", "row",
+                                                            "magg")]
+
+
+@pytest.mark.parametrize("case", [pytest.param(c, id=c.name)
+                                  for c in BATCH_CASES])
+def test_batched_kernel_is_one_launch_per_request_within_the_limit(card,
+                                                                   case):
+    """Three requests in one launch of the request-axis kernel, each held
+    to ``chip_smoke.py``'s limit against its plain version; a reducing
+    batch repeats bit for bit."""
+    cp, _names = sweep.fused_cplan(case, *SWEEP_SHAPES[0])
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    env, _real = chip_smoke().batch_env(cp, 3, gen)
+    mods = (cellwise, multiagg, rowwise)
+    before = [m.batched_launches for m in mods]
+    got = ops.execute_batched(cp, env, kernels="cuda")
+    assert sum(m.batched_launches for m in mods) == sum(before) + 1
+    err, share, _lo = chip_smoke().batch_measure(cp, env, got, case.name)
+    assert share <= 1.0, f"max |kernel - plain| {err:.3e}, {share:.3g} x limit"
+    if cp.variant != "no_agg":
+        assert torch.equal(got, ops.execute_batched(cp, env, kernels="cuda"))
+
+
+def test_fusion_server_on_the_card_matches_direct_calls(card):
+    """Two requests of one class served as one batch on the card: one
+    request-axis launch, results on the card equal to the direct calls."""
+    from repro_torch.serve import FusionServer
+    rng = np.random.default_rng(8)
+    cases = [tuple(torch.tensor(rng.normal(size=s).astype(np.float32),
+                                device="cuda")
+                   for s in ((m, 12), (12, 1), (m, 1))) for m in (50, 61)]
+    server = FusionServer(workers=1, max_batch=4, pad_to=64, autostart=False)
+    server._started = True
+    try:
+        futs = [server.submit(l2svm._hinge, *args) for args in cases]
+        before = rowwise.batched_launches
+        server._started = False
+        server.start()
+        for args, f in zip(cases, futs):
+            got = f.result(timeout=300)
+            assert got.device.type == "cuda"
+            torch.testing.assert_close(got, l2svm._hinge(*args), rtol=1e-5,
+                                       atol=1e-5)
+        assert rowwise.batched_launches == before + 1
+        assert server.metrics.snapshot()["runtime_fallbacks"] == []
+    finally:
+        server.close()

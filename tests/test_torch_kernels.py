@@ -155,13 +155,24 @@ def test_wrappers_never_fall_back_off_the_cpu():
 
 
 def test_sparse_operands_wait_for_the_sparse_slice():
-    """BCSR is ported; a compressed (CLA) or any other non-tensor operand
-    is refused with its ROADMAP item."""
+    """BCSR and CLA (DictCompressed) are ported: a compressed main runs
+    (densified for this Cell no_agg, which the CLA path does not take) and
+    equals the dense call; any other non-tensor operand is refused."""
+    from repro_torch.kernels.blocksparse import DictCompressed
     case = next(c for c in sweep.cases() if c.name == "cell/no_agg")
     cp, names = sweep.fused_cplan(case, 8, 3)
+    gen = np.random.default_rng(3)
+    dense = {nid: torch.as_tensor(np.round(gen.normal(
+        size=cp.binds[i].shape) * 2).astype(np.float32))
+        for i, nid in enumerate(names)}
+    env = dict(dense)
+    env[cp.main.nid] = DictCompressed.from_dense(dense[cp.main.nid])
+    got = ops.execute(cp, env, kernels="cuda")
+    assert torch.equal(got, ops.execute(cp, dense, kernels="never"))
     env = {nid: object() for nid in names}
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
+    with pytest.raises(NotImplementedError, match="DictCompressed") as ei:
         ops.execute(cp, env, kernels="cuda")
+    assert "item 3" not in str(ei.value)
 
 
 @pytest.mark.parametrize("case", [pytest.param(c, id=c.name)
