@@ -247,28 +247,6 @@ def card_line() -> str:
 # helpers
 # --------------------------------------------------------------------------
 
-def ptxas_spills(sources) -> list:
-    """[(library, kernel function, spill-store bytes)] from the ``-Xptxas
-    -v`` lines of the build logs this run wrote (a library built earlier
-    has no log here)."""
-    import re
-    from repro_torch.kernels import build
-    out = []
-    for src in sources:
-        path = build.library_path(src).with_suffix(".log")
-        if not path.exists():
-            continue
-        fn = "?"
-        for line in path.read_text().splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                fn = m.group(1)
-            m = re.search(r"(\d+) bytes spill stores", line)
-            if m and int(m.group(1)):
-                out.append((path.stem, fn[:40], int(m.group(1))))
-    return out
-
-
 def region_cplans(entries, prefix: str = ""):
     """CPlans of fused regions planned on shapes alone (meta tensors), in
     order: [(label, cplan)], each region's planned backward after its
@@ -1053,6 +1031,15 @@ def add_part(rec: dict, part: dict) -> None:
     rec["parts"].append(part)
 
 
+def library_ms(rec: dict):
+    """A kernel record's library time: the sum of its parts' when one
+    PyTorch call computes each part, else None (no call does all)."""
+    parts = rec["parts"]
+    if parts and all("library_ms" in p for p in parts):
+        return sum(p["library_ms"] for p in parts)
+    return None
+
+
 def new_record() -> dict:
     return {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": {},
             "parts": []}
@@ -1469,6 +1456,9 @@ SERVE_PAD_TO, SERVE_MAX_BATCH, SERVE_WORKERS = 128, 8, 2
 #: the serving load at the main path's width
 WIDE_SERVE_ROWS, WIDE_SERVE_PAD_TO = (250_000, 500_000, 1_000_000), 262_144
 WIDE_SERVE_CLIENTS, WIDE_SERVE_REQS = 8, 4
+#: the wide load runs this many times: one round of 32 requests lasts
+#: about 50 ms, too short for a rate or a p99 on its own
+WIDE_SERVE_ROUNDS = 10
 #: CLA: X 10^7 x 100 with 64 levels per column
 CLA_ROWS, CLA_LEVELS = 10_000_000, 64
 
@@ -1576,28 +1566,67 @@ def batch_bound_ms(cplan, env, out, nreq: int) -> tuple[float, str]:
         (t_flops, "operations")
 
 
+def _batched_sum_sq_call(cp, env):
+    import torch
+    ((_n, op, args, *_r),) = cp.prog
+    if not (op == "pow2" or op == "mul" and args[0] == args[1]
+            == ("b", cp.main.nid)) or cp.agg_op != "sum":
+        raise AssertionError(f"{cp.prog}: not a sum of squares")
+    X = env[cp.main.nid]
+    return lambda: torch.einsum("bij,bij->b", X, X)
+
+
+#: batched CPlans that one PyTorch call also computes: (region, kernel,
+#: variant) -> that call on the stacked operands (Σx² per request)
+BATCH_LIBRARY_CALLS = {
+    ("sum_sq", "cell", "full_agg"): _batched_sum_sq_call,
+}
+
+
 def batched_time(label, cp, env, nreq: int) -> dict:
     """One batched call's times at the main path's width: the request-axis
     kernel (CUDA events, device), its plain version (the oracle per
-    request), the bound; a ``[time]`` line."""
+    request), one PyTorch call of the same function where there is one
+    (``BATCH_LIBRARY_CALLS``), the bound; a ``[time]`` line."""
+    import torch
     from repro_torch.kernels import ops, ref
     kernel = lambda: ops.execute_batched(cp, env, kernels="cuda")
     plain = lambda: ref.execute_dense_batched(cp, env)
+    kname = kernel_name(cp)
+    library = BATCH_LIBRARY_CALLS.get((label, kname, cp.variant))
     traced = []
     ms, plain_ms = time_ms(kernel, reps=5, rounds=3), \
         time_ms(plain, reps=2, rounds=3)
     dev_ms = device_ms(kernel, reps=5, names=traced)
     b_ms, b_by = batch_bound_ms(cp, env, kernel(), nreq)
-    kname = kernel_name(cp)
-    log(f"[time] batched {label:14s} {kname:4s} {layout_name(cp):4s} "
-        f"{cp.variant:9s} B={nreq} kernel {ms:.4f} ms (device {dev_ms}) "
-        f"plain {plain_ms:.4f} ms bound {b_ms:.4f} ms ({b_by}); per call "
-        f"on the card: " + " + ".join(f"{k.split('(')[0][:40]} x{c:g}"
-                                      for k, c in traced))
-    return {"region": label, "variant": cp.variant, "requests": nreq,
+    part = {"region": label, "variant": cp.variant, "requests": nreq,
             "layout": layout_name(cp), "ms": ms, "plain_ms": plain_ms,
             "device_ms": dev_ms, "bound_ms": b_ms, "bound_by": b_by,
             "device_kernels": [[k[:60], c] for k, c in traced]}
+    lib = ""
+    if library is not None:
+        # the library call must compute the same function: within 1e-2 of
+        # the plain version (a different function is off by far more; its
+        # own rounding over 10^8 terms a request is logged, not held)
+        call = library(cp, env)
+        want = plain().reshape(-1).double()
+        rel = lambda v: float(((v.reshape(-1).double() - want).abs()
+                               / want.abs()).max())
+        lib_rel, ker_rel = rel(call()), rel(kernel())
+        if not lib_rel <= 1e-2:
+            raise AssertionError(f"batched {label}: the library call is "
+                                 f"{lib_rel:.3e} off the plain version")
+        part["library_ms"] = time_ms(call, reps=5, rounds=3)
+        part["library_device_ms"] = device_ms(call, reps=5)
+        lib = (f" library {part['library_ms']:.4f} ms (device "
+               f"{part['library_device_ms']}; relative to plain: library "
+               f"{lib_rel:.3e}, kernel {ker_rel:.3e})")
+    log(f"[time] batched {label:14s} {kname:4s} {layout_name(cp):4s} "
+        f"{cp.variant:9s} B={nreq} kernel {ms:.4f} ms (device {dev_ms}) "
+        f"plain {plain_ms:.4f} ms{lib} bound {b_ms:.4f} ms ({b_by}); per "
+        f"call on the card: " + " + ".join(f"{k.split('(')[0][:40]} x{c:g}"
+                                           for k, c in traced))
+    return part
 
 
 def batch_phase(planned_batch, wide_cps, batch_err, per_kernel) -> None:
@@ -1823,12 +1852,15 @@ def check_parity(server, cases) -> float:
 def run_load(server, cases, n_clients: int, reqs: int,
              seed: int = 10_000) -> dict:
     """``n_clients`` threads x ``reqs`` requests, each a seeded random
-    case (the reference harness's ``run_load``)."""
+    case (the reference harness's ``run_load``); the latencies are this
+    load's own (``latency_values``, the server's reservoir past its count
+    before the load)."""
     import threading
     import numpy as np
     from repro_torch.serve import percentiles
     errors = []
     lock = threading.Lock()
+    seen = server.metrics.latency_us.count
 
     def client(k: int) -> None:
         rng = np.random.default_rng(seed + k)
@@ -1853,24 +1885,62 @@ def run_load(server, cases, n_clients: int, reqs: int,
     elapsed = time.perf_counter() - t0
     total = n_clients * reqs
     snap = server.metrics.snapshot()
+    lat = server.metrics.latency_us.values()
+    lat = lat[len(lat) - (server.metrics.latency_us.count - seen):]
     return {"requests": total, "elapsed_s": elapsed,
             "throughput_rps": total / elapsed,
             "us_per_req": elapsed / total * 1e6,
-            "latency_us": percentiles(server.metrics.latency_us.values()),
+            "latency_values": lat, "latency_us": percentiles(lat),
             "occupancy_mean": snap["batches"]["occupancy_mean"],
             "failed": snap["requests"]["failed"] + len(errors),
             "rejected": snap["requests"]["rejected"], "errors": errors}
 
 
+def pooled(runs) -> dict:
+    """The :func:`run_load` results of several rounds as one load: summed
+    requests and time, percentiles over every round's latencies."""
+    from repro_torch.serve import percentiles
+    if len(runs) == 1:
+        return runs[0]
+    total = sum(r["requests"] for r in runs)
+    elapsed = sum(r["elapsed_s"] for r in runs)
+    lat = [v for r in runs for v in r["latency_values"]]
+    return {"requests": total, "elapsed_s": elapsed,
+            "throughput_rps": total / elapsed,
+            "us_per_req": elapsed / total * 1e6,
+            "latency_values": lat, "latency_us": percentiles(lat),
+            "occupancy_mean": runs[-1]["occupancy_mean"],
+            "failed": sum(r["failed"] for r in runs),
+            "rejected": runs[-1]["rejected"],
+            "errors": [e for r in runs for e in r["errors"]]}
+
+
+def spread(runs) -> str:
+    """Each round's rate and percentiles, least to most."""
+    def span(vals, fmt):
+        return f"{fmt.format(min(vals))}-{fmt.format(max(vals))}"
+    return (f"req/s {span([r['throughput_rps'] for r in runs], '{:.1f}')}, "
+            + ", ".join(
+                f"{q} {span([r['latency_us'][q] for r in runs], '{:.1f}')}"
+                for q in ("p50", "p95", "p99"))
+            + " us across rounds; per round req/s "
+            + json.dumps([r["throughput_rps"] for r in runs])
+            + ", p99 us " + json.dumps([r["latency_us"]["p99"]
+                                        for r in runs]))
+
+
 def serve_arm(label, cases, counters, bcounters, *, max_batch: int,
               pad_to: int, n_clients: int, reqs: int,
-              batch_sizes=(1, 2, 4, 8), profile_rows: int = 0) -> dict:
+              batch_sizes=(1, 2, 4, 8), profile_rows: int = 0,
+              rounds: int = 1) -> dict:
     """One load run of the reference harness's shape: warm at every batch
     size, parity of every case against its direct call, then counters
     set to 0 just before the load and read just after: request-axis
     launches must equal the batches dispatched times the fused CPlans of
     their plan, single-request launches likewise when unbatched; no
-    request fails and no runtime fallback is recorded.  With
+    request fails and no runtime fallback is recorded.  With ``rounds``
+    > 1 the load runs that many times (seeds apart): the rate and the
+    percentiles are over all of them, beside each round's spread.  With
     ``profile_rows``, one batched dispatch of the hinge entry at that
     class is profiled."""
     import torch
@@ -1889,8 +1959,10 @@ def serve_arm(label, cases, counters, bcounters, *, max_batch: int,
             mod.launches = 0
         for mod in bcounters.values():
             mod.batched_launches = 0
-        res = run_load(server, cases, n_clients, reqs)
+        runs = [run_load(server, cases, n_clients, reqs,
+                         seed=10_000 + 1_000 * r) for r in range(rounds)]
         torch.cuda.synchronize()
+        res = pooled(runs)
         single = {k: mod.launches for k, mod in counters.items()}
         batched = {k: mod.batched_launches for k, mod in bcounters.items()}
         snap = server.metrics.snapshot()
@@ -1917,6 +1989,9 @@ def serve_arm(label, cases, counters, bcounters, *, max_batch: int,
             f"{res['latency_us']['p95']:.1f} p99 "
             f"{res['latency_us']['p99']:.1f} us, mean occupancy "
             f"{res['occupancy_mean']:.2f}; batches {snap['batches']}")
+        if rounds > 1:
+            log(f"[{label}] {rounds} rounds of {n_clients} x {reqs}: "
+                + spread(runs))
         log(f"[{label}] launches in the load: request-axis "
             f"{json.dumps(batched)} (want {want_b}), single "
             f"{json.dumps(single)} (want {want_s}); runtime fallbacks "
@@ -1967,38 +2042,50 @@ def profile_batch(label, server, entry) -> None:
 
 def host_costs(label, case, nreq: int = SERVE_MAX_BATCH,
                reps: int = 100) -> None:
-    """The worker's host time for one batch of ``nreq`` requests of one
-    case (stacking, the batched plan function, the event wait, slicing;
-    ``FusionServer._run_batched``) beside one direct call of the region
-    with a synchronize, both on the host clock, no clients running."""
+    """The host time of one batch of ``nreq`` requests of one case through
+    the server's public API, no worker threads and no clients
+    (``workers=0``, ``start()``, ``drain()``): the ``nreq`` submits
+    (canonicalization, routing, enqueue) and the drain (stacking, the
+    batched plan function, the event wait, slicing, resolving the
+    futures), beside one direct call of the region with a synchronize;
+    all on the host clock."""
     import torch
     from repro_torch.serve import FusionServer
     _l, region, ops = case
-    server = FusionServer(workers=0, max_batch=nreq, pad_to=SERVE_PAD_TO,
-                          autostart=False)
+    server = FusionServer(workers=0, max_batch=nreq, pad_to=SERVE_PAD_TO)
     server.warm([(region, ops)], batch_sizes=(nreq,))
-    server._started = True
-    for _ in range(nreq):
-        server.submit(region, **ops)
-    tickets = list(server._queue)
-    entry = tickets[0].entry
+    server.start()
 
-    def per_call(fn) -> float:
-        for _ in range(10):
-            fn()
+    def one_batch() -> tuple[float, float]:
         t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        return (time.perf_counter() - t0) / reps * 1e6
+        futs = [server.submit(region, **ops) for _ in range(nreq)]
+        t1 = time.perf_counter()
+        n = server.drain()
+        t2 = time.perf_counter()
+        if n != 1 or not all(f.done() and f.exception() is None
+                             for f in futs):
+            raise AssertionError(f"[{label}] host cost: {n} batches for "
+                                 f"{nreq} requests of one class")
+        return t1 - t0, t2 - t1
 
-    with torch.no_grad():
-        batch_us = per_call(lambda: server._run_batched(entry, tickets))
-        direct_us = per_call(lambda: (region(**ops),
-                                      torch.cuda.synchronize()))
+    def direct() -> float:
+        t0 = time.perf_counter()
+        region(**ops)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    for _ in range(10):
+        one_batch(), direct()
+    batches = [one_batch() for _ in range(reps)]
+    submit_us = sum(b[0] for b in batches) / reps * 1e6
+    drain_us = sum(b[1] for b in batches) / reps * 1e6
+    direct_us = sum(direct() for _ in range(reps)) / reps * 1e6
+    plan = server.warmed_plans()[0][0]
     server.close()
-    log(f"[{label}] host time, no clients: a batch of {nreq} {entry.label} "
-        f"{batch_us:.1f} us ({batch_us / nreq:.1f} us a request); one "
-        f"direct call with a synchronize {direct_us:.1f} us")
+    log(f"[{label}] host time, no clients, no worker threads: a batch of "
+        f"{nreq} {plan}: {nreq} submits {submit_us:.1f} us, drain "
+        f"{drain_us:.1f} us ({(submit_us + drain_us) / nreq:.1f} us a "
+        f"request); one direct call with a synchronize {direct_us:.1f} us")
 
 
 def serve_phase(counters, bcounters, serve_launches) -> dict:
@@ -2032,14 +2119,15 @@ def serve_phase(counters, bcounters, serve_launches) -> dict:
 
 def serve_wide_phase(counters, bcounters, serve_launches) -> dict:
     """[serve-wide]: the same regions at the main path's width, rows 250k
-    / 500k / 1M in classes of 262,144, 8 clients x 4 requests, one batched
-    dispatch profiled."""
+    / 500k / 1M in classes of 262,144, 8 clients x 4 requests in each of
+    WIDE_SERVE_ROUNDS rounds, one batched dispatch profiled."""
     import torch
     t0 = time.perf_counter()
     cases = serve_cases(WIDE_SERVE_ROWS, N_MAIN, MLR_K, 11, card=True)
     res = serve_arm("serve-wide", cases, counters, bcounters,
                     max_batch=SERVE_MAX_BATCH, pad_to=WIDE_SERVE_PAD_TO,
                     n_clients=WIDE_SERVE_CLIENTS, reqs=WIDE_SERVE_REQS,
+                    rounds=WIDE_SERVE_ROUNDS,
                     profile_rows=-(-WIDE_SERVE_ROWS[-1] // WIDE_SERVE_PAD_TO)
                     * WIDE_SERVE_PAD_TO)
     for k, c in res["batched"].items():
@@ -2215,9 +2303,6 @@ def run() -> None:
     log(f"[build] {len(sources)} kernel sources (planning {t_plan:.1f} s), "
         f"nvcc {t_build:.1f} s in parallel, set-up "
         f"{time.perf_counter() - t0:.1f} s")
-    spills = ptxas_spills(sources.values())
-    log(f"[build] ptxas: {len(spills)} kernel functions with spill stores "
-        f"{spills[:8]}")
 
     # 3. kernels vs plain: the sweep ---------------------------------------
     t0 = time.perf_counter()
@@ -2399,7 +2484,7 @@ def run() -> None:
             "ms": agg["ms"], "plain_ms": agg["plain_ms"],
             "bound_ms": agg["bound_ms"],
             "bound_by": max(agg["bound_by"], key=agg["bound_by"].get),
-            "library_ms": None,
+            "library_ms": library_ms(agg),
             "per": ("one call of each ALS-CG CPlan (sum over U update, V "
                     "update, loss)" if k == "outer" else
                     "one call of each main-path CPlan it runs, summed over "
@@ -2413,7 +2498,7 @@ def run() -> None:
             "max_abs_err": batch_err[bname], "ms": agg["ms"],
             "plain_ms": agg["plain_ms"], "bound_ms": agg["bound_ms"],
             "bound_by": max(agg["bound_by"], key=agg["bound_by"].get),
-            "library_ms": None,
+            "library_ms": library_ms(agg),
             "per": (f"one batched call of {WIDE_BATCH} requests x "
                     f"{WIDE_ROWS} x {N_MAIN} of each main-width batch "
                     f"region it runs; launches over the fault-free serving "

@@ -326,6 +326,22 @@ def _uncanon(v: torch.Tensor):
     return v
 
 
+def _slice_back(t: "_Ticket", outs):
+    """One request's result from its outputs at class shapes: each output
+    cut back along its padded axis (``entry.out_axes``) to the request's
+    ``m`` rows, then the 1-D/0-D round trip where the request had
+    vectors.  The batched and per-request tiers share it."""
+    vals = []
+    for k, v in enumerate(outs):
+        ax = t.entry.out_axes[k]
+        if ax == 0 and t.m and v.dim() >= 1 and v.shape[0] != t.m:
+            v = v[:t.m]
+        elif ax == 1 and t.m and v.dim() >= 2 and v.shape[1] != t.m:
+            v = v[:, :t.m]
+        vals.append(_uncanon(v) if t.vector_world else v)
+    return vals[0] if len(vals) == 1 else tuple(vals)
+
+
 # --------------------------------------------------------------------------
 # circuit breaker
 # --------------------------------------------------------------------------
@@ -527,7 +543,9 @@ class FusionServer:
         and the kernels run asynchronously on the card, so >1 worker
         overlaps one batch's marshalling with another's kernels.
         ``workers=0`` builds a warm-only server (``warm()`` /
-        ``warmed_plans()`` work; ``submit`` raises).
+        ``warmed_plans()`` work; ``submit`` raises) until ``start()``
+        is called; then it admits requests and the caller serves them
+        with :meth:`drain`.
     max_batch
         Requests per batched dispatch.  Batch sizes are padded up to
         powers of two (≤ ``max_batch``), as in the reference, so a
@@ -614,8 +632,10 @@ class FusionServer:
 
     # -- lifecycle -----------------------------------------------------------
     def start(self) -> None:
-        """Spin up the worker threads (idempotent)."""
-        if self._started or self.workers <= 0:
+        """Spin up the worker threads (idempotent).  A server built with
+        ``workers=0`` starts with none: it admits requests, and serves
+        them only when the caller runs :meth:`drain`."""
+        if self._started:
             return
         self._started = True
         for i in range(self.workers):
@@ -681,8 +701,8 @@ class FusionServer:
         if not self._started:
             self.metrics.on_reject()
             raise ServerClosedError(
-                "FusionServer has no running workers (workers=0 or not "
-                "started); call start() or construct with autostart=True")
+                "FusionServer is not started; call start() or construct "
+                "with autostart=True and workers > 0")
         names = getattr(region, "names", None)
         if names is None or not hasattr(region, "trace"):
             self.metrics.on_reject()
@@ -963,25 +983,47 @@ class FusionServer:
                         if self._stop:
                             return
                         continue
-                    head = self._queue.popleft()
-                    batch = [head]
-                    if self.max_batch > 1:
-                        rest: "deque[_Ticket]" = deque()
-                        bk = head.entry.bucket_key
-                        while self._queue:
-                            t = self._queue.popleft()
-                            if len(batch) < self.max_batch and \
-                                    t.entry.bucket_key == bk:
-                                batch.append(t)
-                            else:
-                                rest.append(t)
-                        self._queue.extend(rest)
-                    depth = len(self._queue)
+                    batch, depth = self._take_batch()
                 faults.fault_point("serve.worker")
                 self._execute(batch, depth)
                 batch = []
         except BaseException as e:        # noqa: BLE001 — crash: respawn
             self._on_worker_crash(batch, e)
+
+    def _take_batch(self) -> tuple[list[_Ticket], int]:
+        """Under ``_cv``, with the queue not empty: pop the head ticket and
+        up to ``max_batch - 1`` more of its bucket, in queue order; the
+        others keep their places.  Returns (batch, queue depth left)."""
+        head = self._queue.popleft()
+        batch = [head]
+        if self.max_batch > 1:
+            rest: "deque[_Ticket]" = deque()
+            bk = head.entry.bucket_key
+            while self._queue:
+                t = self._queue.popleft()
+                if len(batch) < self.max_batch and \
+                        t.entry.bucket_key == bk:
+                    batch.append(t)
+                else:
+                    rest.append(t)
+            self._queue.extend(rest)
+        return batch, len(self._queue)
+
+    def drain(self) -> int:
+        """Serve every queued request in the calling thread, batch by
+        batch as a worker does, and return the number of batches taken.
+        This is how a started server with ``workers=0`` serves: its
+        batches are exactly the requests submitted before the call, and
+        their host time is the worker's, without threads."""
+        n = 0
+        with torch.no_grad():
+            while True:
+                with self._cv:
+                    if not self._queue:
+                        return n
+                    batch, depth = self._take_batch()
+                self._execute(batch, depth)
+                n += 1
 
     def _on_worker_crash(self, inflight: list[_Ticket], err) -> None:
         """Crash containment: requeue the dead worker's unresolved
@@ -1195,17 +1237,9 @@ class FusionServer:
                 v = buf
             kwargs[name] = v
         out = fn(**kwargs)
-        outs = out if isinstance(out, tuple) else (out,)
-        vals = []
-        for k, v in enumerate(outs):
-            ax = entry.out_axes[k]
-            if ax == 0 and t.m and v.dim() >= 1 and v.shape[0] != t.m:
-                v = v[:t.m]
-            elif ax == 1 and t.m and v.dim() >= 2 and v.shape[1] != t.m:
-                v = v[:, :t.m]
-            vals.append(_uncanon(v) if t.vector_world else v)
+        result = _slice_back(t, out if isinstance(out, tuple) else (out,))
         _wait(self.device)
-        return vals[0] if len(vals) == 1 else tuple(vals)
+        return result
 
     def _run_batched(self, entry: _PlanEntry,
                      batch: list[_Ticket]) -> list:
@@ -1241,16 +1275,5 @@ class FusionServer:
             stacked.append(buf)
         outs = entry.batched_fn(*stacked)
         _wait(self.device)                   # the batch's kernels are done
-        per = []
-        for j, t in enumerate(batch):
-            vals = []
-            for k in range(entry.n_outputs):
-                v = outs[k][j]
-                ax = entry.out_axes[k]
-                if ax == 0 and t.m and v.shape[0] != t.m:
-                    v = v[:t.m]
-                elif ax == 1 and t.m and v.shape[1] != t.m:
-                    v = v[:, :t.m]
-                vals.append(_uncanon(v) if t.vector_world else v)
-            per.append(vals[0] if len(vals) == 1 else tuple(vals))
-        return per
+        return [_slice_back(t, [outs[k][j] for k in range(entry.n_outputs)])
+                for j, t in enumerate(batch)]

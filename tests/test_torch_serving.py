@@ -297,6 +297,39 @@ def test_warm_and_warmed_plans():
     assert type(ei.value).__name__ == "ServerClosedError"
 
 
+def test_drain_serves_a_started_server_without_workers():
+    """The port's own: a ``workers=0`` server admits once started and
+    serves in the caller's thread at ``drain()``: the requests of one
+    class queued before the call are one batch, two classes two, and
+    the results equal the reference's batch and the direct calls."""
+    region, ref_region = _hinge_pair()
+    ms = (20, 31, 40)
+    cases = [_hinge_args(m) for m in ms]
+    port = FusionServer(context=CTX, workers=0, max_batch=4, pad_to=32)
+    ref = RefServer(workers=1, max_batch=4, pad_to=32, autostart=False)
+    ref._started = True
+    try:
+        port.start()
+        assert not port._threads
+        futs = [(port.submit(region, *a), ref.submit(ref_region, *a))
+                for a in cases]
+        assert not any(f.done() for f, _rf in futs)
+        assert port.drain() == 2 and port.drain() == 0
+        _drain(ref)
+        for m, args, (f, rf) in zip(ms, cases, futs):
+            got, want = f.result(timeout=0), rf.result(timeout=300)
+            assert tuple(got.shape) == want.shape == (m, 1)
+            _parity(got, want)
+            _parity(got, _direct(region, *args))
+        snap = port.metrics.snapshot()
+        assert snap["batches"]["count"] == 2
+        assert snap["batches"]["occupancy_max"] == 2
+        assert snap["requests"]["completed"] == 3
+    finally:
+        port.close()
+        ref.close()
+
+
 def test_submit_typed_errors():
     region, ref_region = _hinge_pair()
     X, w, y = _hinge_args(20)
