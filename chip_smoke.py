@@ -107,10 +107,35 @@ Phases, each reported on its own lines with its wall time:
 16. ``[chaos]``: a seeded schedule over ``serve.batch_dispatch`` (error,
    nonfinite) and ``serve.worker`` (crash) on the card: no request lost,
    every result equal to the direct call, the ladder's counters;
-17. one JSON line with every kernel (launches and times summed over every
-   path; the request-axis forms with their serving launches and their
-   times at 8 x 1,048,576 x 100), the card line, and the final
-   ``{"ok": true, ...}`` line.
+17. ``[dist]``: distributed segments on ``Mesh({"data": 4})``: 4 rank
+   processes of this script (``--dist-rank``) on the one card over gloo
+   (NCCL refuses two ranks on one device; gloo takes CUDA tensors through
+   host memory), ``file://`` rendezvous in a temporary directory, a 120 s
+   process-group timeout, and a deadline after which every rank is
+   killed; every kernel they launch is built here first.  Each rank runs
+   ``l2svm.run`` (5 iterations) and ``mlogreg.run`` (3 x 3) on the whole X
+   10,000,000 x 100 with ``layout=mesh`` — traces held to this process's
+   single-device ``kernels="cuda"`` traces and to the mesh's
+   ``kernels="never"`` ones (1e-5), every Row and MAgg launch on a
+   2,500,000-row panel, ≥ 1 distributed operator, no fallback — then the
+   reference's 6-operand segment program at 4,000,000 x 64 (one segment
+   step of ≥ 2 members, each exported output within the kernel limit of
+   its member's plain version on whole operands) and ALS's ``right_mm``
+   over the Netflix-shaped BCSR (938 block rows a rank, held to the
+   single-device Outer kernel); planted faults that must fail: an
+   all-reduce skipped and rank 1's panel dropped from an all-gather (the
+   segment program), and the Row fold under the mesh (L2SVM, 2
+   iterations); every panel call run again one rank at a time as the
+   CPlan of its panel, held to its plain version on the same panel within
+   the kernel limit per element and timed beside its panel bound (device
+   ms from CUDA events queued behind a spin kernel, the profiler's, and
+   the call's CUDA-event ms), and the collectives' wall time;
+18. one JSON line with every kernel (launches and times summed over the
+   single-device paths; the request-axis forms with their serving
+   launches and their times at 8 x 1,048,576 x 100; a ``dist`` record per
+   kernel with the [dist] ranks' own launches, its worst panel check and
+   its panel times), the card line, and the final ``{"ok": true, ...}``
+   line.
 
 Any failed check raises; the script then prints the traceback and exits 1
 without a result line.  It imports nothing of JAX or of ``repro``.
@@ -247,14 +272,15 @@ def card_line() -> str:
 # helpers
 # --------------------------------------------------------------------------
 
-def region_cplans(entries, prefix: str = ""):
+def region_cplans(entries, prefix: str = "", layout=None):
     """CPlans of fused regions planned on shapes alone (meta tensors), in
     order: [(label, cplan)], each region's planned backward after its
-    forward where ``entries`` (region, args, backward?) asks for it."""
+    forward where ``entries`` (region, args, backward?) asks for it;
+    planned under ``layout`` where given."""
     from repro_torch.core import FusionContext
     from repro_torch.core.codegen import compile_plan
     out = []
-    with FusionContext():
+    with FusionContext(layout=layout):
         for region, args, bwd in entries:
             planned = region.trace(*args).plan()
             label = prefix + region.fn.__name__
@@ -634,6 +660,41 @@ def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
             fn()
         b.record()
         b.synchronize()
+        per.append(a.elapsed_time(b) / reps)
+    return statistics.median(per)
+
+
+#: GPU clock cycles of the spin kernel :func:`queued_ms` puts ahead of
+#: the calls it times, and the H100's top SM clock (50.5 ms at it)
+QUEUE_SPIN_CYCLES = 100_000_000
+SM_MAX_HZ = 1.98e9
+
+
+def queued_ms(fn, reps: int = 10, rounds: int = 5) -> float | None:
+    """Device time per call from CUDA events with the host's launch path
+    hidden: a spin kernel (``torch.cuda._sleep``) keeps the stream busy
+    while the host enqueues the start event, ``reps`` calls and the end
+    event, so the events time the calls' kernels back to back.  Median
+    over ``rounds``; None when the host took longer to enqueue a round
+    than the spin lasted (the events would hold host time)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    spin_s = QUEUE_SPIN_CYCLES / SM_MAX_HZ     # the shortest it can last
+    per = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(QUEUE_SPIN_CYCLES)
+        t0 = time.perf_counter()
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        host_s = time.perf_counter() - t0
+        b.synchronize()
+        if host_s >= 0.5 * spin_s:
+            return None
         per.append(a.elapsed_time(b) / reps)
     return statistics.median(per)
 
@@ -1343,13 +1404,13 @@ def path_cplans(path) -> list:
     return region_cplans(path.regions, path.name + " ")
 
 
-def algo_phase(path, cps, counters, launches, main_err, per_kernel) -> None:
+def algo_phase(path, cps, counters, launches, main_err, per_kernel) -> list:
     """One dense algorithm at the main path's width: the run with
     ``kernels="cuda"`` (counters set to 0 just before it and read just
     after, added into ``launches``), its checks, its trace against
     ``kernels="never"``, a planted fault and the hand baseline, a profile,
     then its CPlans against plain and timed (into ``main_err`` and
-    ``per_kernel``)."""
+    ``per_kernel``); returns the ``kernels="cuda"`` trace."""
     import torch
     name = path.name
     t_phase = time.perf_counter()
@@ -1428,6 +1489,7 @@ def algo_phase(path, cps, counters, launches, main_err, per_kernel) -> None:
     log(f"[{name}] phase wall {time.perf_counter() - t_phase:.1f} s")
     if failed:
         raise AssertionError("; ".join(failed))
+    return trace
 
 
 # --------------------------------------------------------------------------
@@ -2202,6 +2264,618 @@ def chaos_phase() -> None:
 
 
 # --------------------------------------------------------------------------
+# [dist]: distributed segments on a mesh of rank processes (phase 17)
+# --------------------------------------------------------------------------
+
+#: rank processes of the [dist] phase, all on the one card
+DIST_RANKS = 4
+#: the reference's segment program (tests/test_pallas_segments.py:164-200)
+#: at six (m, 64) operands: 6.1 GB a rank
+DIST_SEG_SHAPE = (4_000_000, 64)
+#: iterations of the L2SVM run with the planted Row fold under the mesh
+DIST_FAULT_ITERS = 2
+#: seconds the rank processes may take together; then they are killed
+DIST_TIMEOUT_S = 600
+#: the process group's timeout: a collective whose peer is gone fails
+DIST_PG_TIMEOUT_S = 120
+#: the sizes a rank takes from the phase that starts it (a run at reduced
+#: sizes reduces its ranks' too)
+#: the [dist] paths each rank runs, counted and checked one by one
+DIST_PATHS = ("l2svm", "mlogreg", "segment", "outer")
+DIST_SIZES = ("M_MAIN", "ITERS", "MLR_OUTER", "MLR_INNER", "DIST_SEG_SHAPE",
+              "ALS_SHAPE", "DIST_FAULT_ITERS")
+
+
+def dist_segment_expr(ir):
+    """The reference's 6-operand segment program: A materialized once and
+    read by three aggregates (one segment of ≥ 2 operators), and a
+    w-space aggregate."""
+    def segment(X1, X2, X3, X4, X5, X6, w):
+        A = ir.sigmoid(X1 + X2 + X3 + X4 + X5 + X6)
+        return ((A * X1 + X2).sum(), (A - X3).rowsums(),
+                (A * A + X4).sum(), (w ** 2).sum())
+    return segment
+
+
+def dist_regions(m: int):
+    """The L2SVM and MLogReg regions at m rows (region, meta args,
+    backward?), as the [dist] ranks run them."""
+    from repro_torch.algos import l2svm, mlogreg
+    n, k = N_MAIN, MLR_K
+    X, col, lam = meta(m, n), meta(m, 1), meta(1, 1)
+    return [(l2svm._hinge, (X, meta(n, 1), col), False),
+            (l2svm._search_terms, (col, col), False),
+            (l2svm._objective_full, (X, meta(n, 1), col, lam), True),
+            (mlogreg._probs, (X, meta(n, k)), False),
+            (mlogreg._nll_obj_reg, (X, meta(n, k), meta(m, k), lam), True),
+            (mlogreg._hvp, (X, meta(n, k), meta(m, k)), False)]
+
+
+def dist_sources() -> list:
+    """Every kernel source the [dist] ranks launch, sound and planted: the
+    CPlans of their regions planned under an abstract mesh of the ranks'
+    shape (a rank's panel CPlan generates the source of its whole CPlan:
+    ``tests/test_torch_layout.py``), the segment program's and the ALS
+    ``right_mm``'s."""
+    from repro_torch.algos import als_cg
+    from repro_torch.core import FusionContext, fused, ir
+    from repro_torch.core.codegen import compile_plan
+    from repro_torch.dist import LogicalMesh
+    from repro_torch.kernels import cuda_src
+    mesh = LogicalMesh({"data": DIST_RANKS})
+    m, n = DIST_SEG_SHAPE
+    cps = [cp for _l, cp in region_cplans(
+        dist_regions(M_MAIN) + [(fused(dist_segment_expr(ir)),
+                                 [meta(m, n)] * 6 + [meta(10, 1)], False)],
+        layout=mesh)]
+    srcs = [cuda_src.source_for(cp) for cp in cps]
+    shape = padded(ALS_SHAPE)
+    with FusionContext(layout=mesh):
+        (cp,) = compile_plan(als_cg._wsq_mm.trace(
+            meta_bcsr(shape), meta(shape[0], ALS_RANK),
+            meta(shape[1], ALS_RANK)).plan().eplan).cplans()
+    srcs.append(cuda_src.source_for(cp, ALS_BS))
+    return srcs + [planted(s) for s in srcs]
+
+
+def one_rank_at_a_time(mesh, fn):
+    """``fn()`` on each rank in turn, the others waiting at a barrier: the
+    card serves one rank's checks or timings at a time."""
+    import torch.distributed as dist
+    out = None
+    for r in range(mesh.n):
+        dist.barrier(group=mesh.group)
+        if mesh.part == r:
+            out = fn()
+    dist.barrier(group=mesh.group)
+    return out
+
+
+class LaunchRows:
+    """(kernel, main rows) of every kernel launch while recording: the
+    port's two launchers (``build.launch``, ``build.launch_outer``) wrapped
+    in this process."""
+
+    def __init__(self):
+        import collections
+        from repro_torch.kernels import build
+        self.counts = collections.Counter()
+        self.on = False
+        launch, launch_outer = build.launch, build.launch_outer
+
+        def rec(src, binds, out, part, m, *a, **kw):
+            if self.on:
+                self.counts[f"{src.template}@{int(m)}"] += 1
+            return launch(src, binds, out, part, m, *a, **kw)
+
+        def rec_outer(src, binds, xdata, cols, rowptr, pieces, closer, out,
+                      part, m, *a, **kw):
+            if self.on:
+                self.counts[f"outer@{int(m)}"] += 1
+            return launch_outer(src, binds, xdata, cols, rowptr, pieces,
+                                closer, out, part, m, *a, **kw)
+
+        build.launch, build.launch_outer = rec, rec_outer
+
+    @contextlib.contextmanager
+    def recording(self):
+        self.counts.clear()
+        self.on = True
+        try:
+            yield self.counts
+        finally:
+            self.on = False
+
+
+class PanelCalls:
+    """The first call of each panel CPlan (``ops.execute`` with
+    ``shard_rows``, under ``kernels="cuda"``) while recording, kept with
+    its operands to be checked and timed after the run."""
+
+    def __init__(self):
+        import torch
+        from repro_torch.kernels import ops
+        self.calls: dict = {}
+        self.on = False
+        self.execute = execute = ops.execute
+
+        def rec(cplan, env, *, kernels="never", shard_rows=None):
+            if self.on and shard_rows is not None and kernels == "cuda":
+                # detached: a backward plan's operands may carry autograd
+                self.calls.setdefault(id(cplan), (cplan, {
+                    k: v.detach() if isinstance(v, torch.Tensor) else v
+                    for k, v in env.items()}, shard_rows))
+            return execute(cplan, env, kernels=kernels,
+                           shard_rows=shard_rows)
+
+        ops.execute = rec
+
+
+def panel_checks(mesh, calls: PanelCalls, label: str) -> list:
+    """Each recorded panel call again, one rank at a time, as the CPlan of
+    its panel (``panel_cplan``) on its panel operands, aligned once
+    before: its CUDA output held to its plain version on the same panel
+    within the kernel limit per element (:func:`measure`) and timed
+    beside the panel's bound three ways: device ms from CUDA events
+    queued behind a spin kernel (:func:`queued_ms`: the host's launch
+    path and the panel's preparation are outside it), the profiler's
+    device ms (:func:`device_ms`, kept to compare: in a rank process it
+    has read panels under their HBM bound) and the call's CUDA-event ms
+    (:func:`time_ms`, the host's launch path included)."""
+    import torch
+    from repro_torch.core.cplan import panel_cplan
+    from repro_torch.kernels import cuda_src
+    from repro_torch.kernels.blocksparse import BCSR
+    from repro_torch.kernels.ops import _aligned
+
+    def checked():
+        parts = []
+        for cplan, env, rows in calls.calls.values():
+            panels = frozenset(b.nid for b in cplan.binds
+                               if tuple(env[b.nid].shape)[0] != b.shape[0])
+            pcp = panel_cplan(cplan, rows, panels)
+            penv = {k: _aligned(v) if k in panels else v
+                    for k, v in env.items()}
+            kname = "outer" if isinstance(penv[pcp.main.nid], BCSR) else \
+                cuda_src.source_for(pcp).template
+            fn = lambda: calls.execute(pcp, penv, kernels="cuda")
+            out = fn()
+            torch.cuda.synchronize()
+            err, share = measure(pcp, penv, out, f"[dist] {label} {kname}")
+            ms = time_ms(fn)
+            dev = queued_ms(fn)
+            prof = device_ms(fn)
+            b_ms, b_by = bound_ms(pcp, penv, out)
+            part = {"region": label, "kernel": kname,
+                    "variant": pcp.variant, "rows": rows,
+                    "binds": [list(b.shape) for b in pcp.binds],
+                    "max_abs_err": err, "share": share, "ms": ms,
+                    "device_ms": dev, "profiler_ms": prof,
+                    "bound_ms": b_ms, "bound_by": b_by}
+            parts.append(part)
+            dev_s, prof_s = ("not measured" if v is None else f"{v:.4f} ms"
+                             for v in (dev, prof))
+            log(f"[dist] rank {mesh.rank} {label} panel {kname:5s} "
+                f"{pcp.variant:9s} binds {part['binds']}: against plain "
+                f"{err:.3e} = {share:.3g} x limit; device {dev_s} (queued "
+                f"events), profiler {prof_s}, call {ms:.4f} ms (CUDA "
+                f"events), bound {b_ms:.4f} ms ({b_by})")
+            del out
+        return parts
+
+    return one_rank_at_a_time(mesh, checked)
+
+
+def mesh_report(regions, mesh) -> dict:
+    """Distributed operators and recorded fallbacks over every Compiled
+    the regions' call sugar built under this mesh (forward and backward)."""
+    n_dist, fbs = 0, []
+    for region in regions:
+        for compiled in region._staged.values():
+            if getattr(compiled.planned.context.layout, "mesh", None) \
+                    is not mesh:
+                continue
+            rep = compiled.explain()
+            n_dist += rep["distributed"]["n_fused_distributed"]
+            fbs += rep["execution"]["fallbacks"]
+            if compiled._bwd_compiled is not None:
+                n_dist += sum(len(sp.items) for sp in
+                              compiled._bwd_compiled._seg_plans)
+    return {"n_fused_distributed": n_dist, "fallbacks": fbs}
+
+
+def dist_counters():
+    from repro_torch.kernels import cellwise, multiagg, outerprod, rowwise
+    return {"cell": cellwise, "magg": multiagg, "row": rowwise,
+            "outer": outerprod}
+
+
+@contextlib.contextmanager
+def dist_run(mesh, rows: LaunchRows, calls: PanelCalls, rec: dict):
+    """Launch counters set to 0 just before the block and read just after
+    into ``rec``, with the launches' row counts, the collectives and their
+    wall time, and the panel calls recorded."""
+    import torch
+    counters = dist_counters()
+    torch.cuda.synchronize()
+    for mod in counters.values():
+        mod.launches = 0
+    c0, s0 = mesh.collectives, mesh.collective_s
+    calls.calls.clear()
+    calls.on = True
+    t0 = time.perf_counter()
+    with rows.recording() as counts:
+        yield
+        torch.cuda.synchronize()
+    calls.on = False
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["launches"] = {k: mod.launches for k, mod in counters.items()}
+    rec["launch_rows"] = dict(counts)
+    rec["collectives"] = mesh.collectives - c0
+    rec["collective_ms"] = (mesh.collective_s - s0) * 1e3
+
+
+def dist_algo(mesh, rows, calls, name: str, data, run, regions,
+              fault_kw=None) -> dict:
+    """One algorithm under the mesh: ``kernels="cuda"`` (counted), the same
+    run with ``kernels="never"``, with ``fault_kw`` a planted-fault run,
+    then its panel calls checked and timed (:func:`panel_checks`)."""
+    import torch
+    ops_ = data()
+    rec = {}
+    with dist_run(mesh, rows, calls, rec):
+        _params, trace = run(ops_, kernels="cuda", layout=mesh)
+    rec["trace"] = trace
+    rec.update(mesh_report(regions, mesh))
+    rec["trace_never"] = run(ops_, kernels="never", layout=mesh)[1]
+    if fault_kw is not None:
+        with planted_fault():
+            rec["trace_fault"] = run(ops_, kernels="cuda", layout=mesh,
+                                     **fault_kw)[1]
+    log(f"[dist] rank {mesh.rank} {name}: trace {trace}, never "
+        f"{rec['trace_never']}, planted {rec.get('trace_fault')}; launches "
+        f"{rec['launches']} by rows {rec['launch_rows']}; "
+        f"{rec['collectives']} collectives, {rec['collective_ms']:.1f} ms; "
+        f"wall {rec['wall_s']:.2f} s")
+    rec["panels"] = panel_checks(mesh, calls, name)
+    calls.calls.clear()
+    del ops_, _params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def segment_shares(compiled, sp, args, outs, label: str) -> list:
+    """Each exported member of segment step ``sp`` held to its plain
+    version on whole operands (the members run in order on the whole
+    values): [(max |error|, share of the kernel limit)]."""
+    from repro_torch.kernels import ops
+    import torch
+    graph = compiled.planned.eplan.graph
+    bound = dict(zip(compiled.planned.traced.in_names, args))
+    genv = {n.nid: bound[n.name] for n in graph.inputs()}
+    genv.update(compiled._cplan._literals())
+    out_pos = {o.nid: i for i, o in enumerate(graph.outputs)}
+    shares = []
+    for k, it in enumerate(sp.items):
+        venv = {b.nid: genv[b.nid] for b in it.cplan.binds}
+        whole = ops.execute(it.cplan, venv, kernels="never")
+        if it.export:
+            got = torch.cat([outs[out_pos[r]].reshape(1, 1) for r in
+                             it.roots]) if len(it.roots) > 1 \
+                else outs[out_pos[it.roots[0]]]
+            shares.append(measure(it.cplan, venv, got,
+                                  f"{label} member {k}"))
+        if len(it.roots) > 1:
+            for j, r in enumerate(it.roots):
+                genv[r] = whole[j].reshape(1, 1)
+        else:
+            genv[it.roots[0]] = whole
+    return shares
+
+
+def dist_segment(mesh, rows, calls) -> dict:
+    """The segment program at DIST_SEG_SHAPE under the mesh: one segment
+    step of ≥ 2 members, every exported output held to its member's plain
+    version on whole operands, and the planted collective faults (an
+    all-reduce skipped, rank 1's panel dropped from the all-gather)."""
+    import torch
+    from repro_torch.core import FusionContext, fused, ir
+    m, n = DIST_SEG_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(11)
+    args = [torch.randn((m, n), generator=g, device="cuda")
+            for _ in range(6)] + [torch.randn((10, 1), generator=g,
+                                              device="cuda")]
+    with FusionContext(layout=mesh, device=str(mesh.device)):
+        compiled = fused(dist_segment_expr(ir)).trace(*args).plan() \
+            .compile()
+    rec = {}
+    with dist_run(mesh, rows, calls, rec):
+        outs = compiled(*args)
+    sps = compiled._cplan._seg_plans
+    rec["members"] = [len(sp.items) for sp in sps]
+    rec["fallbacks"] = compiled.explain()["execution"]["fallbacks"]
+    if len(sps) != 1 or len(sps[0].items) < 2 or rec["fallbacks"]:
+        raise AssertionError(f"segment program: steps {rec['members']}, "
+                             f"fallbacks {rec['fallbacks']}")
+    rec["shares"] = one_rank_at_a_time(mesh, lambda: segment_shares(
+        compiled, sps[0], args, outs, "segment"))
+
+    # planted collective faults: each must fail the same check
+    mesh.all_reduce = lambda t, epilogue: t.clone()      # psum skipped
+    try:
+        bad = compiled(*args)
+    finally:
+        del mesh.all_reduce
+    rec["shares_psum_skipped"] = one_rank_at_a_time(
+        mesh, lambda: segment_shares(compiled, sps[0], args, bad,
+                                     "segment, psum skipped"))
+    gather = mesh.all_gather_rows
+
+    def drop_rank1(panel):
+        out = gather(panel)
+        out[panel.shape[0]:2 * panel.shape[0]] = 0.0
+        return out
+
+    mesh.all_gather_rows = drop_rank1
+    try:
+        bad = compiled(*args)
+    finally:
+        del mesh.all_gather_rows
+    rec["shares_gather_dropped"] = one_rank_at_a_time(
+        mesh, lambda: segment_shares(compiled, sps[0], args, bad,
+                                     "segment, rank 1's panel dropped"))
+    log(f"[dist] rank {mesh.rank} segment program {m}x{n}: members "
+        f"{rec['members']}, launches {rec['launches']} by rows "
+        f"{rec['launch_rows']}, {rec['collectives']} collectives "
+        f"{rec['collective_ms']:.1f} ms; shares of the kernel limit "
+        f"{rec['shares']}; psum skipped {rec['shares_psum_skipped']}; "
+        f"rank 1's panel dropped {rec['shares_gather_dropped']}")
+    rec["panels"] = panel_checks(mesh, calls, "segment")
+    calls.calls.clear()
+    del args, outs, bad, compiled
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dist_outer(mesh, rows, calls) -> dict:
+    """ALS's ``right_mm`` over the Netflix-shaped BCSR under the mesh (938
+    block rows a rank), held to the single-device Outer kernel over the
+    whole matrix."""
+    import torch
+    from repro_torch.algos import als_cg
+    from repro_torch.core import FusionContext
+    from repro_torch.kernels import ops
+    X = netflix_like(ALS_SHAPE, seed=0)
+    m, n = X.shape
+    g = torch.Generator(device="cuda").manual_seed(8)
+    U = 0.1 * torch.randn((m, ALS_RANK), generator=g, device="cuda")
+    V = 0.1 * torch.randn((n, ALS_RANK), generator=g, device="cuda")
+    with FusionContext(layout=mesh, device=str(mesh.device)):
+        compiled = als_cg._wsq_mm.trace(X, U, V).plan().compile()
+    rec = {"nblocks": X.nblocks}
+    with dist_run(mesh, rows, calls, rec):
+        out = compiled(X, U, V)
+    sps = compiled._cplan._seg_plans
+    rec["fallbacks"] = compiled.explain()["execution"]["fallbacks"]
+    if len(sps) != 1 or rec["fallbacks"]:
+        raise AssertionError(f"outer: {len(sps)} segment steps, "
+                             f"fallbacks {rec['fallbacks']}")
+    cp = sps[0].items[0].cplan
+    env = {b.nid: {"main": X, "factor_u": U, "factor_v": V}[b.kind]
+           for b in cp.binds}
+
+    def check():
+        whole = ops.execute(cp, env, kernels="cuda")   # one device
+        diff = (out - whole).abs()
+        limit = KERNEL_ULPS * EPS32 * bcsr_error_scale(cp, env).clamp_min(
+            torch.finfo(torch.float32).tiny)
+        return {"max_abs_err": float(diff.max()),
+                "share": float((diff / limit).max()),
+                "bit_identical": bool(torch.equal(out, whole))}
+
+    rec.update(one_rank_at_a_time(mesh, check))
+    log(f"[dist] rank {mesh.rank} outer right_mm {m}x{n} ({X.nblocks} "
+        f"blocks): launches {rec['launches']} by rows "
+        f"{rec['launch_rows']}, {rec['collectives']} collectives "
+        f"{rec['collective_ms']:.1f} ms; against the single-device kernel "
+        f"max |diff| {rec['max_abs_err']:.3e} = {rec['share']:.3g} x limit, "
+        f"bit-identical {rec['bit_identical']}")
+    rec["panels"] = panel_checks(mesh, calls, "_wsq_mm")
+    calls.calls.clear()
+    del X, U, V, out, compiled, env
+    torch.cuda.empty_cache()
+    return rec
+
+
+def dist_rank(rank: int, world: int, init: str, outdir: str,
+              sizes: str) -> None:
+    """One rank of the [dist] phase (``--dist-rank``): takes the phase's
+    ``sizes`` (JSON of DIST_SIZES), joins the gloo process group, builds
+    ``Mesh({"data": world})`` on the card and runs L2SVM, MLogReg, the
+    segment program and the Outer ``right_mm`` under it, writing its
+    readings to ``outdir/rank<rank>.json``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    globals().update({k: tuple(v) if isinstance(v, list) else v
+                      for k, v in json.loads(sizes).items()})
+    dist.init_process_group(
+        "gloo", init_method=init, world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=DIST_PG_TIMEOUT_S))
+    try:
+        from repro_torch.algos import l2svm, mlogreg
+        from repro_torch.dist import Mesh
+        mesh = Mesh({"data": world}, device="cuda:0")
+        rows, calls = LaunchRows(), PanelCalls()
+        res = {"rank": rank, "part": mesh.part}
+        res["l2svm"] = dist_algo(
+            mesh, rows, calls, "l2svm", lambda: l2svm_data(M_MAIN),
+            lambda ops_, max_iter=ITERS, **kw: l2svm.run(
+                *ops_, max_iter=max_iter, **kw),
+            [l2svm._hinge, l2svm._search_terms, l2svm._objective_full],
+            fault_kw={"max_iter": DIST_FAULT_ITERS})
+        res["mlogreg"] = dist_algo(
+            mesh, rows, calls, "mlogreg", lambda: mlogreg_data(M_MAIN),
+            lambda ops_, **kw: mlogreg.run(
+                *ops_, lam=LAM, max_outer=MLR_OUTER, max_inner=MLR_INNER,
+                **kw),
+            [mlogreg._probs, mlogreg._nll_obj_reg, mlogreg._hvp])
+        res["segment"] = dist_segment(mesh, rows, calls)
+        res["outer"] = dist_outer(mesh, rows, calls)
+        (Path(outdir) / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_phase(traces: dict) -> dict:
+    """[dist]: DIST_RANKS rank processes on the one card over gloo, each
+    running the [dist] paths under ``Mesh({"data": DIST_RANKS})``; checks
+    their readings: traces against this process's single-device
+    ``kernels="cuda"`` traces (``traces``) and the mesh's
+    ``kernels="never"`` ones, Row and MAgg launches on
+    M_MAIN / DIST_RANKS-row panels, distributed operators and no
+    fallback, the segment program, the Outer and every panel call within
+    the kernel limit, every kernel launched, and every planted fault
+    failing.  Returns each kernel's [dist] record, which holds the ranks'
+    launches (the single-device paths keep their own)."""
+    import tempfile
+    import torch
+    from repro_torch.dist.launch import rank_env, run_ranks
+    t0 = time.perf_counter()
+    log(f"[dist] {DIST_RANKS} rank processes on the one card over gloo: "
+        f"NCCL refuses two ranks on one device, and gloo takes CUDA "
+        f"tensors through host memory; the readings are contention-bound "
+        f"(the ranks share the card, collectives go through the host)")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as tmp:
+        init = f"file://{Path(tmp) / 'rendezvous'}"
+        sizes = json.dumps({k: globals()[k] for k in DIST_SIZES})
+        outs = run_ranks(
+            lambda r: [sys.executable, str(Path(__file__).resolve()),
+                       "--dist-rank", str(r), str(DIST_RANKS), init, tmp,
+                       sizes],
+            DIST_RANKS, timeout=DIST_TIMEOUT_S,
+            env=rank_env(threads=max(1, 8 // DIST_RANKS)), cwd=str(ROOT))
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(DIST_RANKS)]
+    for r, text in enumerate(outs):
+        for line in text.splitlines():
+            if line.startswith("[dist]"):
+                log(line)
+    dist_rec = dist_check(ranks, traces)
+    log(f"[dist] phase wall {time.perf_counter() - t0:.1f} s")
+    return dist_rec
+
+
+def dist_check(ranks: list, traces: dict) -> dict:
+    """The [dist] ranks' readings checked (see :func:`dist_phase`); returns
+    each kernel's [dist] record."""
+    failed = []
+    panel = M_MAIN // DIST_RANKS
+    for res in ranks:
+        r = res["rank"]
+        for name in ("l2svm", "mlogreg"):
+            rec = res[name]
+            rel_dev = trace_rel(rec["trace"], traces[name])
+            rel_never = trace_rel(rec["trace"], rec["trace_never"])
+            log(f"[dist] rank {r} {name}: max relative trace difference vs "
+                f"the single-device kernels {rel_dev:.3e}, vs the mesh's "
+                f"never {rel_never:.3e} (tolerance {TRACE_RTOL:g})")
+            if not (rel_dev <= TRACE_RTOL and rel_never <= TRACE_RTOL):
+                failed.append(f"rank {r} {name}: traces disagree")
+            # every Row and MAgg launch on a panel of X's rows (L2SVM
+            # runs both kernels, MLogReg's plans run no MAgg kernel)
+            rows = rec["launch_rows"]
+            for k in ("row", "magg"):
+                on_panel = rows.get(f"{k}@{panel}", 0)
+                if on_panel != rec["launches"][k] or (
+                        on_panel == 0 and (name, k) != ("mlogreg", "magg")):
+                    failed.append(f"rank {r} {name}: {k} launches "
+                                  f"{rec['launches'][k]}, on {panel}-row "
+                                  f"panels {on_panel}")
+            if rec["n_fused_distributed"] < 1 or rec["fallbacks"]:
+                failed.append(f"rank {r} {name}: distributed operators "
+                              f"{rec['n_fused_distributed']}, fallbacks "
+                              f"{rec['fallbacks']}")
+        fault = res["l2svm"]["trace_fault"]
+        rel_fault = trace_rel(fault, res["l2svm"]["trace"][:len(fault)])
+        log(f"[dist] rank {r} planted Row fold under the mesh: relative "
+            f"trace difference {rel_fault:.3e}")
+        if not rel_fault > TRACE_RTOL:
+            failed.append(f"rank {r}: the planted Row fold passed")
+        seg = res["segment"]
+        worst = max(s for _e, s in seg["shares"])
+        if not worst <= 1.0:
+            failed.append(f"rank {r} segment program: {worst:.3g} x limit")
+        for key in ("shares_psum_skipped", "shares_gather_dropped"):
+            if not max(s for _e, s in seg[key]) > 1.0:
+                failed.append(f"rank {r}: planted {key[7:]} passed")
+        if not res["outer"]["share"] <= 1.0:
+            failed.append(f"rank {r} outer: {res['outer']['share']:.3g} x "
+                          f"limit")
+
+    # every panel call held to its plain version, on every rank
+    for res in ranks:
+        for p in DIST_PATHS:
+            for t in res[p]["panels"]:
+                if not t["share"] <= 1.0:
+                    failed.append(f"rank {res['rank']} {p} {t['kernel']} "
+                                  f"{t['variant']} panel: {t['share']:.3g} "
+                                  f"x limit")
+    # every kernel launched on the [dist] paths (their own counts: the
+    # kernels line's top-level launches are the single-device paths')
+    n_launch = {k: sum(res[p]["launches"][k] for res in ranks
+                       for p in DIST_PATHS) for k in KERNELS}
+    failed += [f"{k} never launched on the [dist] paths"
+               for k, n in n_launch.items() if n == 0]
+    failed += [f"{k}: no panel call recorded on rank {res['rank']}"
+               for res in ranks for k in KERNELS
+               if not any(t["kernel"] == k for p in DIST_PATHS
+                          for t in res[p]["panels"])]
+    if failed:
+        raise AssertionError("[dist]: " + "; ".join(failed))
+
+    # every kernel's [dist] record: launches over the ranks' counted runs,
+    # the worst panel check over every rank, rank 0's panel times (one
+    # rank on the card at a time)
+    dist_rec = {}
+    for k in KERNELS:
+        parts = [t for p in DIST_PATHS for t in ranks[0][p]["panels"]
+                 if t["kernel"] == k]
+        checks = [t for res in ranks for p in DIST_PATHS
+                  for t in res[p]["panels"] if t["kernel"] == k]
+        dev = [t["device_ms"] for t in parts]
+        prof = [t["profiler_ms"] for t in parts]
+        dist_rec[k] = {
+            "launches": n_launch[k],
+            "max_abs_err": max(t["max_abs_err"] for t in checks),
+            "max_share": max(t["share"] for t in checks),
+            "panel_ms": sum(t["ms"] for t in parts),
+            "panel_device_ms": None if None in dev else sum(dev),
+            "panel_profiler_ms": None if None in prof else sum(prof),
+            "panel_bound_ms": sum(t["bound_ms"] for t in parts),
+            "parts": parts}
+        dev_s, prof_s = ("not measured" if None in v else f"{sum(v):.4f} ms"
+                         for v in (dev, prof))
+        log(f"[dist] {k}: {n_launch[k]} panel-path launches over "
+            f"{DIST_RANKS} ranks; {len(checks)} panel calls against plain, "
+            f"worst {dist_rec[k]['max_share']:.3g} x limit; rank 0's "
+            f"{len(parts)}: device {dev_s} (queued events), profiler "
+            f"{prof_s}, calls {dist_rec[k]['panel_ms']:.4f} ms (CUDA "
+            f"events), bound {dist_rec[k]['panel_bound_ms']:.4f} ms")
+    log(f"[dist] collective wall ms per rank (l2svm, mlogreg, segment, "
+        f"outer): " + json.dumps([[round(res[p]["collective_ms"], 1)
+                                   for p in DIST_PATHS] for res in ranks]))
+    return dist_rec
+
+
+# --------------------------------------------------------------------------
 # phases
 # --------------------------------------------------------------------------
 
@@ -2297,6 +2971,9 @@ def run() -> None:
             sources[planted(src).key] = planted(src)
         if name in PLANTED_FOLD or name == "_wsq_mm V-update":
             sources[planted(src, True).key] = planted(src, True)
+    # [dist]: the ranks launch these, built here before they start
+    for src in dist_sources():
+        sources[src.key] = src
     t_plan = time.perf_counter() - t0
     build.build_all(sources.values())
     t_build = time.perf_counter() - t0 - t_plan
@@ -2454,9 +3131,10 @@ def run() -> None:
     log(f"[als] phase wall {time.perf_counter() - t0:.1f} s")
 
     # 8.-11. MLogReg, GLM, KMeans and the autoencoder ----------------------
+    traces = {"l2svm": objs}
     for path in paths:
-        algo_phase(path, path_cps[path.name], counters, launches, main_err,
-                   per_kernel)
+        traces[path.name] = algo_phase(path, path_cps[path.name], counters,
+                                       launches, main_err, per_kernel)
 
     # 12.-16. the request axis, CLA, serving, chaos ----------------------
     bcounters = {"cell_batched": cellwise, "row_batched": rowwise,
@@ -2474,7 +3152,10 @@ def run() -> None:
         raise AssertionError(f"serving never launched: {missing}")
     chaos_phase()
 
-    # 17. result lines -------------------------------------------------------
+    # 17. [dist]: distributed segments on a mesh of 4 ranks on the card ----
+    dist_rec = dist_phase(traces)
+
+    # 18. result lines -------------------------------------------------------
     rows = []
     for k, (src, replaces) in KERNELS.items():
         agg = per_kernel[k]
@@ -2489,7 +3170,7 @@ def run() -> None:
                     "update, loss)" if k == "outer" else
                     "one call of each main-path CPlan it runs, summed over "
                     "L2SVM, MLogReg, GLM, KMeans and the autoencoder"),
-            "parts": agg["parts"]})
+            "parts": agg["parts"], "dist": dist_rec[k]})
     for bname, k in BATCHED.items():
         agg = per_kernel[bname]
         rows.append({
@@ -2689,6 +3370,10 @@ def times_only() -> None:
 
 def main() -> int:
     args = sys.argv[1:]
+    if args[:1] == ["--dist-rank"] and len(args) == 6:
+        # one rank process of the [dist] phase, started by that phase
+        dist_rank(int(args[1]), int(args[2]), args[3], args[4], args[5])
+        return 0
     if args not in ([], ["--times"]):
         print("usage: python3 chip_smoke.py [--times]", file=sys.stderr)
         return 2

@@ -14,8 +14,8 @@ from __future__ import annotations
 
 import torch
 
-from .util import fs
-from repro_torch.core import ir, fused, FusionContext
+from .util import fs, run_context
+from repro_torch.core import ir, fused
 from repro_torch.interop import to_torch
 
 # fused regions ---------------------------------------------------------------
@@ -52,16 +52,20 @@ def _objective(out, w):
 
 
 def run(X, y, lam: float = 1e-3, max_iter: int = 20, eps: float = 1e-12,
-        mode: str = "gen", kernels: str = "cuda", device=None):
+        mode: str = "gen", kernels: str = "cuda", device=None,
+        layout=None):
     """Returns (w, objective per iteration).
 
     ``X`` (m,n) and ``y`` (m,1) may be numpy arrays or tensors; they are
     moved to the context's device (``device``, by default the card).
     ``kernels="never"`` runs every fused operator through the torch-eager
-    interpreter instead of the generated CUDA kernels."""
-    ctx = FusionContext(mode=mode, kernels=kernels)
-    if device is not None:
-        ctx = ctx.with_(device=device)
+    interpreter instead of the generated CUDA kernels.  ``layout`` (a
+    mesh or ``FusionLayout``) plans every fused region hybrid
+    local/distributed: the row-parallel operators over X run on the
+    ranks' row panels of a :class:`~repro_torch.dist.Mesh` (all-reduce or
+    all-gather epilogues), the small w-space aggregates stay local; each
+    rank passes the whole X and y and runs on its mesh's device."""
+    ctx = run_context(mode, kernels, device, layout)
     X, y = to_torch(X, ctx.device), to_torch(y, ctx.device)
     if mode == "hand":
         return _run_hand(X, y, lam, max_iter, eps)

@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import ir, fused, FusionContext
+from repro_torch.core import ir, fused
+from .util import run_context
 from repro_torch.interop import to_torch
 
 
@@ -72,16 +73,16 @@ def _fit_terms(X, B, Y):
 
 def run(X, Y, lam: float = 1e-3, max_outer: int = 10, max_inner: int = 20,
         eps: float = 1e-12, mode: str = "gen", kernels: str = "cuda",
-        device=None):
+        device=None, layout=None):
     """Returns (B, regularized objective per outer iteration).
 
     ``X`` (m,n) and one-hot ``Y`` (m,k) may be numpy arrays or tensors;
     they move to the context's device (``device``, by default the card).
     ``kernels="never"`` runs every fused operator through the torch-eager
-    interpreter instead of the generated CUDA kernels."""
-    ctx = FusionContext(mode=mode, kernels=kernels)
-    if device is not None:
-        ctx = ctx.with_(device=device)
+    interpreter instead of the generated CUDA kernels.  ``layout`` (a
+    mesh or ``FusionLayout``) plans every fused region hybrid
+    local/distributed — see :func:`repro_torch.algos.l2svm.run`."""
+    ctx = run_context(mode, kernels, device, layout)
     X, Y = to_torch(X, ctx.device), to_torch(Y, ctx.device)
     if mode == "hand":
         return _run_hand(X, Y, lam, max_outer, max_inner, eps)

@@ -46,11 +46,12 @@ import torch
 from repro_torch.interop import resolve_device
 from repro_torch.kernels.blocksparse import BCSR, DictCompressed
 from . import ir
-from .codegen import (CompiledPlan, compile_plan, freed_intermediates,
-                      plan_fallbacks, staged_plan_key)
-from .context import FusionContext, current_context, require_local
+from .codegen import (CompiledPlan, _is_real_mesh, compile_plan,
+                      freed_intermediates, plan_fallbacks, staged_plan_key)
+from .context import FusionContext, current_context
 from .cost import CostParams
 from .grad import vjp_graph
+from .layout import FusionLayout, ensure_layout, layout_cost_params
 from .select import ExecPlan, MODES, MultiAggSpec, plan as plan_graph
 from .verify import VerifyReport, verify_exec, verify_plan
 
@@ -98,6 +99,14 @@ def _canon_value(name: str, v, device: torch.device):
     else:
         t = torch.as_tensor(np.asarray(v, dtype=np.float32), device=device)
     return t.reshape(shape).contiguous()
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices name the same one (``cuda`` is the current
+    CUDA device)."""
+    index = lambda d: d.index if d.index is not None or d.type != "cuda" \
+        else torch.cuda.current_device()
+    return a.type == b.type and index(a) == index(b)
 
 
 def _uncanon_output(out):
@@ -155,17 +164,33 @@ class Traced:
              context: Optional[FusionContext] = None) -> "Planned":
         """Stage 2: run explore → select, returning a :class:`Planned`.
 
-        ``mode`` (``"gen"`` | ``"fa"`` | ``"fnr"`` | ``"none"``) and
-        ``params`` override the scoped :class:`FusionContext` (or
-        ``context``); ``layout`` must be None (one device)."""
-        require_local(layout)
+        ``mode`` (``"gen"`` | ``"fa"`` | ``"fnr"`` | ``"none"``),
+        ``params`` and ``layout`` override the scoped
+        :class:`FusionContext` (or ``context``).  ``layout`` is a
+        :class:`~repro_torch.core.layout.FusionLayout` or any mesh
+        exposing ``.shape``/``.axis_names`` — the abstract
+        :class:`~repro_torch.dist.LogicalMesh`, or a
+        :class:`~repro_torch.dist.Mesh` of ranks — auto-fitted to this
+        trace's operand shapes.  With a layout, selection prices every
+        fused operator on the local and the distributed arm and the plan
+        is *hybrid*: the placement of each operator is reported by
+        :meth:`Planned.explain`."""
         ctx = context if context is not None else current_context()
-        require_local(ctx.layout)
         if mode is not None:
             ctx = ctx.with_(mode=mode)
         if params is not None:
             ctx = ctx.with_(params=params)
-        eplan = plan_graph(self.graph, ctx.mode, ctx.params)
+        if layout is not None:
+            ctx = ctx.with_(layout=layout)
+        if ctx.layout is not None and not isinstance(ctx.layout,
+                                                     FusionLayout):
+            # a bare mesh (also through the scoped context): fit the
+            # sharding rules to this trace's operand and output shapes
+            shapes = {name: m["shape"] for name, m in self.in_meta.items()}
+            ctx = ctx.with_(layout=ensure_layout(ctx.layout, self.graph,
+                                                 extra_shapes=shapes))
+        eff = layout_cost_params(ctx.layout, self.graph, ctx.params)
+        eplan = plan_graph(self.graph, ctx.mode, eff)
         rw_report = None
         if ctx.rewrite:
             eplan, rw_report = _rewrite_sweep(self.graph, ctx, eplan)
@@ -201,7 +226,8 @@ def _rewrite_sweep(graph: ir.Graph, ctx: FusionContext,
                              "errors": sorted({d.code
                                                for d in vrep.errors})})
             continue
-        ep = plan_graph(v.graph, ctx.mode, ctx.params)
+        eff_v = layout_cost_params(ctx.layout, v.graph, ctx.params)
+        ep = plan_graph(v.graph, ctx.mode, eff_v)
         entries.append({"rules": list(v.rules), "cost": ep.cost,
                         "selected": False})
         if ep.cost < best.cost:
@@ -232,7 +258,8 @@ def _verified_planned(traced: Traced, ctx: FusionContext,
     :class:`~repro_torch.core.verify.VerificationError` here."""
     planned = Planned(traced, ctx, eplan)
     if ctx.verify != "off":
-        report = verify_plan(eplan, level=ctx.verify, kernels=ctx.kernels)
+        report = verify_plan(eplan, level=ctx.verify, kernels=ctx.kernels,
+                             layout=ctx.layout)
         report.raise_if_errors()
         planned._verify = report
     return planned
@@ -274,17 +301,31 @@ class Planned:
         return self.eplan.cost
 
     def fused_signatures(self) -> list[dict]:
-        """Structural signature of every selected fused operator."""
-        return [_spec_signature(self.eplan.graph, s)
-                for s in self.eplan.fused_specs()]
+        """Structural signature of every selected fused operator.  Under a
+        mesh layout each signature also carries the local/distributed
+        decision: ``placement``, the collective ``epilogue``, and the
+        modeled per-device ``collective_bytes`` (ring all-reduce of the
+        epilogue plus side-input all-gathers)."""
+        out = []
+        for s in self.eplan.fused_specs():
+            sig = _spec_signature(self.eplan.graph, s)
+            pl = getattr(s, "placement", None)
+            if pl is not None:
+                sig["placement"] = pl.arm
+                sig["epilogue"] = pl.epilogue
+                sig["collective_bytes"] = int(round(pl.collective_bytes))
+            out.append(sig)
+        return out
 
     def candidates(self) -> list[dict]:
         """Cost every selection arm on this plan's graph (the winning
         rewrite variant's, when the sweep won)."""
+        eff = layout_cost_params(self.context.layout, self.eplan.graph,
+                                 self.context.params)
         out = []
         for m in MODES:
             p = self.eplan if m == self.context.mode \
-                else plan_graph(self.eplan.graph, m, self.context.params)
+                else plan_graph(self.eplan.graph, m, eff)
             out.append({"mode": m, "cost": p.cost,
                         "n_fused": len(p.fused_specs()),
                         "n_operators": len(p.specs),
@@ -307,7 +348,9 @@ class Planned:
                          list(self.traced.in_names) + ct_names, in_meta)
             self._bwd = _verified_planned(
                 btr, self.context,
-                plan_graph(bgraph, self.context.mode, self.context.params))
+                plan_graph(bgraph, self.context.mode,
+                           layout_cost_params(self.context.layout, bgraph,
+                                              self.context.params)))
             self._bwd.grad_names = fwd_inputs   # type: ignore[attr-defined]
         return self._bwd
 
@@ -348,7 +391,10 @@ class Planned:
                 "device": self.context.device,
                 "donated_inputs": [],       # inputs are never donated
                 "freed_intermediates": freed_intermediates(self.eplan),
+                # every statically known downgrade, with its reason;
+                # Compiled.explain() merges the ones recorded at call time
                 "fallbacks": plan_fallbacks(self.eplan,
+                                            layout=self.context.layout,
                                             kernels=self.context.kernels,
                                             staged=self.context.staged),
             },
@@ -357,9 +403,13 @@ class Planned:
         if self._verify is None and self.context.verify != "off":
             self._verify = verify_plan(self.eplan,
                                        level=self.context.verify,
-                                       kernels=self.context.kernels)
+                                       kernels=self.context.kernels,
+                                       layout=self.context.layout)
         report["verify"] = (self._verify.summary()
                             if self._verify is not None else None)
+        if self.context.layout is not None:
+            report["layout"], report["distributed"] = self._distributed(
+                report["winner"]["operators"])
         if include_backward:
             bwd = self.backward()
             report["backward"] = {
@@ -368,6 +418,40 @@ class Planned:
                 "operators": bwd.fused_signatures(),
             }
         return report
+
+    def _distributed(self, ops: list[dict]) -> tuple[dict, dict]:
+        """``explain()``'s ``layout`` (mesh + specs) and ``distributed``
+        (row-shard axes and degree, the local/distributed operator split,
+        the modeled collective volume, and the plan ``segments`` — runs of
+        adjacent distributed operators that run as one step — each with
+        the intra-segment boundary volume it removes)."""
+        lay = self.context.layout
+        layout = {
+            "mesh": {a: int(lay.mesh.shape[a]) for a in lay.mesh.axis_names},
+            "specs": {n: [list(e) if isinstance(e, tuple) else e
+                          for e in tuple(s)]
+                      for n, s in sorted(lay.specs.items())},
+        }
+        n_dist = sum(1 for o in ops if o.get("placement") == "distributed")
+        segments = [{
+            "specs": list(seg.indices),
+            "n_operators": len(seg.indices),
+            "row_axes": list(seg.axes),
+            "devices": seg.n,
+            "n_sharded_edges": len(seg.sharded_edges),
+            "removed_collective_bytes": int(round(seg.removed_gather_bytes)),
+        } for seg in self.eplan.segments]
+        return layout, {
+            "row_axes": list(lay.row_axes()),
+            "devices": lay.row_devices(),
+            "n_fused_local": len(ops) - n_dist,
+            "n_fused_distributed": n_dist,
+            "collective_bytes": sum(o.get("collective_bytes", 0)
+                                    for o in ops),
+            "segments": segments,
+            "removed_collective_bytes": sum(
+                s["removed_collective_bytes"] for s in segments),
+        }
 
     def compile(self, kernels: Optional[str] = None,
                 device: Optional[str] = None,
@@ -395,7 +479,7 @@ class Planned:
             report = VerifyReport(level=ctx.verify)
             report.diagnostics.extend(verify_exec(
                 self.eplan, strict=ctx.verify == "strict",
-                kernels=ctx.kernels))
+                kernels=ctx.kernels, layout=ctx.layout))
             report.raise_if_errors()
         return Compiled(replace(self, context=ctx))
 
@@ -442,9 +526,17 @@ class Compiled:
         self.planned = planned
         ctx = planned.context
         self.device = resolve_device(ctx.device)
+        mesh = getattr(ctx.layout, "mesh", None)
+        if _is_real_mesh(mesh) and not _same_device(self.device,
+                                                    mesh.device):
+            raise ValueError(
+                f"the context's device {str(self.device)!r} is not the "
+                f"mesh's {str(mesh.device)!r}: a rank runs its plans on its "
+                f"mesh's device (FusionContext(device=mesh.device))")
         self._cplan: CompiledPlan = compile_plan(
             planned.eplan, kernels=ctx.kernels, device=str(self.device),
-            staged=ctx.staged)
+            staged=ctx.staged, layout=ctx.layout,
+            strict=ctx.verify == "strict")
         self._bwd_compiled: Optional[CompiledPlan] = None
 
     # -- serving hooks ------------------------------------------------------
@@ -481,12 +573,24 @@ class Compiled:
         if self._bwd_compiled is None:
             self._bwd_compiled = compile_plan(
                 bwd.eplan, kernels=self.planned.context.kernels,
-                device=str(self.device), staged=self.planned.context.staged)
+                device=str(self.device), staged=self.planned.context.staged,
+                layout=self.planned.context.layout)
         ct_names = [n for n in bwd.traced.in_names if n.startswith("__ct")]
         return self._bwd_compiled, bwd.grad_names, ct_names  # type: ignore
 
     def explain(self, include_backward: bool = False) -> dict:
-        return self.planned.explain(include_backward=include_backward)
+        """The plan's report, with the downgrades recorded at call time
+        (value formats seen by the forward and backward plans) merged into
+        ``execution.fallbacks``, deduped by site and reason."""
+        report = self.planned.explain(include_backward=include_backward)
+        fbs = report["execution"]["fallbacks"]
+        for cp in (self._cplan, self._bwd_compiled):
+            if cp is None:
+                continue
+            seen = {(f["site"], f["reason"]) for f in fbs}
+            fbs.extend(dict(f) for f in cp.fallbacks
+                       if (f["site"], f["reason"]) not in seen)
+        return report
 
     def _bind(self, args, kwargs) -> dict:
         bound = dict(zip(self.planned.traced.in_names, args))

@@ -1,5 +1,5 @@
-"""Code generation & runtime integration (paper §2.1-2.2) on one device,
-over dense and BCSR operands.
+"""Code generation & runtime integration (paper §2.1-2.2) over dense,
+BCSR and CLA operands, on one device or a mesh of ranks.
 
 Turns selected plans into executable operators and whole ExecPlans into
 callables.  Two cache layers memoize the generated code, as in the
@@ -28,6 +28,16 @@ kernel for the whole batch (:func:`repro_torch.kernels.ops.
 execute_batched`), each basic step a batched torch op.
 ``compile_plan(staged=False)`` selects per-operator dispatch without the
 whole-plan cache (:meth:`CompiledPlan._call_per_op`).
+
+Under a layout over a :class:`~repro_torch.dist.Mesh`, each run of
+adjacent distributed operators is one step of the staged function that
+runs their kernels on the rank's row panels
+(:mod:`repro_torch.kernels.distributed`); any downgrade (an abstract
+mesh, block rows that do not split across the ranks) is *recorded*, never
+silent: the reasons surface in ``explain()['execution']['fallbacks']``,
+are checked by the EXE005 verifier invariant, and raise under
+``FusionContext(verify="strict")`` when a costed distributed placement
+on a real mesh is abandoned at execution time.
 """
 
 from __future__ import annotations
@@ -47,6 +57,7 @@ from repro_torch.kernels.blocksparse import BCSR
 from .cost import FusedOpSpec
 from .cplan import CPlan, build_cplan
 from .ir import Graph, Node
+from .partitions import PlanInvariantError
 from .select import ExecPlan, MultiAggSpec
 from .templates import TType
 
@@ -63,8 +74,8 @@ faults.register_site(
 
 
 def _mesh_of(layout):
-    """Mesh carried by a layout-ish object (the port runs on one device:
-    always None for the layouts it accepts)."""
+    """Mesh carried by a layout-ish object: a FusionLayout (``.mesh``),
+    a bare mesh passed directly (``.axis_names``), or None."""
     if layout is None:
         return None
     mesh = getattr(layout, "mesh", None)
@@ -74,8 +85,10 @@ def _mesh_of(layout):
 
 
 def _is_real_mesh(mesh) -> bool:
-    """The port executes no device mesh yet: no mesh is executable."""
-    return False
+    """True for an executable :class:`~repro_torch.dist.Mesh` of ranks
+    (vs an abstract LogicalMesh used for cost-only planning, or None)."""
+    from repro_torch.dist import Mesh
+    return isinstance(mesh, Mesh)
 
 
 # --------------------------------------------------------------------------
@@ -367,6 +380,34 @@ def _spec_roots(spec) -> tuple[int, ...]:
         else (spec.root,)
 
 
+def _is_fused(spec) -> bool:
+    return isinstance(spec, MultiAggSpec) or (
+        isinstance(spec, FusedOpSpec) and spec.fused)
+
+
+def _segment_items(graph: Graph, plan: ExecPlan, seg,
+                   cache: "PlanCache") -> list:
+    """SegmentItems for one plan Segment — shared by the staged lowering
+    and the static fallback report so the two can never drift."""
+    from repro_torch.kernels.distributed import SegmentItem
+    specs = plan.specs
+    output_ids = set(graph.output_ids)
+    cons: dict[int, set[int]] = {}
+    for j, s in enumerate(specs):
+        for i in s.inputs:
+            cons.setdefault(i, set()).add(j)
+    seg_set = set(seg.indices)
+    items = []
+    for j in seg.indices:
+        spec = specs[j]
+        _op, cplan = cache.get_or_build(graph, spec)
+        roots = _spec_roots(spec)
+        export = any(r in output_ids or (cons.get(r, set()) - seg_set)
+                     for r in roots)
+        items.append(SegmentItem(cplan, spec.placement, roots, export))
+    return items
+
+
 @dataclass
 class CompiledPlan:
     """Executable form of an ExecPlan: the staged plan function.
@@ -377,18 +418,65 @@ class CompiledPlan:
     re-calling with the same tensors is always valid.  Staged functions
     (and their batched forms) are shared across structurally-equal plans
     via the :class:`WholePlanCache`.  ``staged=False`` runs
-    :meth:`_call_per_op` instead."""
+    :meth:`_call_per_op` instead.
+
+    When the plan was selected under a mesh layout, fused operators whose
+    placement is ``"distributed"`` run on each rank's row panels over the
+    layout's :class:`~repro_torch.dist.Mesh`, joined by the template's
+    collective (:mod:`repro_torch.kernels.distributed`): the staged path
+    runs each plan :class:`~repro_torch.core.select.Segment` — a run of
+    adjacent distributed operators — as *one* step whose row-partitioned
+    intermediates stay panels.  Every downgrade to local execution is
+    recorded in :attr:`fallbacks` with its reason (``explain()[
+    'execution']['fallbacks']``) and raises under ``strict`` when a
+    costed placement on a real mesh is abandoned.  One plan, hybrid
+    execution."""
     plan: ExecPlan
     kernels: str = "never"
     device: str = "cpu"
     staged: bool = True
     cache: PlanCache = field(default_factory=lambda: PLAN_CACHE)
+    #: FusionLayout the plan was selected under (None: local-only)
+    layout: Optional[object] = None
+    #: raise when a costed distributed placement is abandoned at
+    #: execution time on a real mesh (FusionContext(verify="strict"))
+    strict: bool = False
     #: staged plan function (positional inputs, ``graph.inputs()`` order)
     _staged_fn: Optional[Callable] = field(default=None, repr=False)
     #: structural whole-plan cache key of the staged lowering
     _staged_key: Optional[tuple] = field(default=None, repr=False)
     #: (1,1) literal tensors of the per-op path, built once
     _lit_cache: Optional[dict] = field(default=None, repr=False)
+    #: mesh-validated SegmentPlans of the staged lowering (real mesh)
+    _seg_plans: list = field(default_factory=list, repr=False)
+    #: recorded execution downgrades, deduped by (site, reason, specs)
+    _fallbacks: dict = field(default_factory=dict, repr=False)
+
+    # -- fallback observability --------------------------------------------
+
+    def record_fallback(self, site: str, reason: str,
+                        specs: Optional[tuple] = None,
+                        hard: bool = False) -> None:
+        """Log one execution downgrade (idempotent per site/reason/specs).
+        ``hard`` marks a placement a *real* mesh could have executed —
+        under ``strict`` that abandonment raises instead of downgrading."""
+        key = (site, reason, specs)
+        if key not in self._fallbacks:
+            entry = {"site": site, "reason": reason}
+            if specs is not None:
+                entry["specs"] = list(specs)
+            self._fallbacks[key] = entry
+        if hard and self.strict:
+            raise PlanInvariantError(
+                f"verify=strict: costed distributed placement abandoned "
+                f"at execution time ({site}): {reason}")
+
+    @property
+    def fallbacks(self) -> list:
+        """Recorded execution downgrades (see ``explain()``)."""
+        return list(self._fallbacks.values())
+
+    # -- staged path ---------------------------------------------------------
 
     def staged_callable(self) -> Callable:
         if self._staged_fn is None:
@@ -399,30 +487,82 @@ class CompiledPlan:
         """The CPlan of every fused operator, in plan order."""
         g = self.plan.graph
         return [self.cache.get_or_build(g, s)[1] for s in self.plan.specs
-                if isinstance(s, MultiAggSpec)
-                or (isinstance(s, FusedOpSpec) and s.fused)]
+                if _is_fused(s)]
 
     def _steps(self) -> tuple:
-        """(input nids, output nids, steps, dead values per step): the
-        plan's executable steps, shared by the staged and batched
-        lowerings."""
+        """(input nids, output nids, steps, dead values per step, segment
+        key): the plan's executable steps, shared by the staged and
+        batched lowerings.  Under a mesh layout each plan segment, and
+        each distributed operator outside one, becomes a ``"seg"`` step
+        when :func:`~repro_torch.kernels.distributed.plan_segment`
+        validates it against the mesh; otherwise its members run as
+        local fused steps and the reason is recorded."""
+        from repro_torch.kernels.distributed import (
+            SegmentFallback, SegmentItem, plan_segment)
         graph, plan = self.plan.graph, self.plan
+        specs = plan.specs
         in_nids = tuple(n.nid for n in graph.inputs())
         output_ids = tuple(o.nid for o in graph.outputs)
+        mesh = _mesh_of(self.layout)
+        real = _is_real_mesh(mesh)
         steps: list[tuple] = []
-        for spec in plan.specs:
-            if isinstance(spec, MultiAggSpec) or (
-                    isinstance(spec, FusedOpSpec) and spec.fused):
+        seg_key: list[tuple] = []
+        spec_step: dict[int, int] = {}
+        self._seg_plans = []
+        seg_start = {seg.indices[0]: seg for seg in plan.segments}
+        idx = 0
+        while idx < len(specs):
+            seg = seg_start.get(idx)
+            if seg is not None and mesh is not None:
+                items = _segment_items(graph, plan, seg, self.cache)
+                sp = plan_segment(items, mesh)
+                if isinstance(sp, SegmentFallback):
+                    # the mesh cannot realize the costed placement: record
+                    # it, the members run as local fused steps
+                    self.record_fallback("segment", sp.reason,
+                                         specs=tuple(seg.indices),
+                                         hard=real)
+                else:
+                    step_idx = len(steps)
+                    steps.append(("seg", sp, tuple(it.roots for it in items
+                                                   if it.export)))
+                    seg_key.append((tuple(seg.indices), sp.cache_token))
+                    self._seg_plans.append(sp)
+                    for j in seg.indices:
+                        spec_step[j] = step_idx
+                    idx = seg.indices[-1] + 1
+                    continue
+            spec = specs[idx]
+            spec_step[idx] = len(steps)
+            if _is_fused(spec):
                 _op, cplan = self.cache.get_or_build(graph, spec)
-                steps.append(("fused", cplan,
-                              tuple(b.nid for b in cplan.binds),
-                              _spec_roots(spec)))
+                roots = _spec_roots(spec)
+                pl = getattr(spec, "placement", None)
+                sp = None
+                if pl is not None and pl.arm == "distributed" \
+                        and mesh is not None:
+                    sp = plan_segment([SegmentItem(cplan, pl, roots, True)],
+                                      mesh)
+                    if isinstance(sp, SegmentFallback):
+                        self.record_fallback("operator", sp.reason,
+                                             specs=(idx,), hard=real)
+                        sp = None
+                if sp is not None:
+                    steps.append(("seg", sp, (roots,)))
+                    seg_key.append(((idx,), sp.cache_token))
+                    self._seg_plans.append(sp)
+                else:
+                    steps.append(("fused", cplan,
+                                  tuple(b.nid for b in cplan.binds), roots))
             else:
                 steps.append(("basic", graph.by_id[spec.root]))
+            idx += 1
         keep = set(output_ids)
-        free = {idx: [d for d in dead if d not in keep]
-                for idx, dead in _last_uses(plan).items()}
-        return in_nids, output_ids, steps, free
+        free: dict[int, list[int]] = {}
+        for sidx, dead in _last_uses(plan).items():
+            free.setdefault(spec_step[sidx], []).extend(
+                d for d in dead if d not in keep)
+        return in_nids, output_ids, steps, free, tuple(seg_key)
 
     def _literals(self) -> dict[int, torch.Tensor]:
         """(1,1) fp32 literal tensors on the plan's device, built once."""
@@ -433,29 +573,50 @@ class CompiledPlan:
                 for n in self.plan.graph.nodes if n.op == "lit"}
         return self._lit_cache
 
-    def _plan_fn(self, batched: bool) -> Callable:
+    def _plan_fn(self, batched: bool) -> tuple[Callable, tuple]:
+        from repro_torch.kernels.distributed import (
+            SegmentFallback, lower_segment, run_segment_local)
         graph = self.plan.graph
-        in_nids, output_ids, steps, free = self._steps()
+        in_nids, output_ids, steps, free, seg_key = self._steps()
         kernels = self.kernels
         lits = self._literals()
+        mesh = _mesh_of(self.layout)
         run = kops.execute_batched if batched else kops.execute
         aligned = _stack_aligned if batched else (lambda v: v)
 
-        def plan_fn(*arrays):
+        def unpack(env, out, roots):
+            if len(roots) > 1:
+                for k, r in enumerate(roots):
+                    env[r] = out[..., k:k + 1, :] if batched \
+                        else out[k].reshape(1, 1)
+            else:
+                env[roots[0]] = out
+
+        def plan_fn(*arrays, on_fallback=None):
             env: dict[int, object] = {nid: aligned(a)
                                       for nid, a in zip(in_nids, arrays)}
             env.update(lits)
             for step_idx, step in enumerate(steps):
-                if step[0] == "fused":
-                    _, cplan, bind_nids, roots = step
-                    out = run(cplan, {nid: env[nid] for nid in bind_nids},
-                              kernels=kernels)
-                    if len(roots) > 1:
-                        for k, r in enumerate(roots):
-                            env[r] = out[..., k:k + 1, :] if batched \
-                                else out[k].reshape(1, 1)
+                if step[0] == "seg":
+                    _, sp, out_roots = step
+                    vals = [env[nid] for nid in sp.ext]
+                    # lowered from the values' formats; a format the panels
+                    # cannot take is reported to the caller, and the
+                    # members run on the whole values
+                    lowered = lower_segment(sp, mesh, vals, kernels=kernels)
+                    if isinstance(lowered, SegmentFallback):
+                        if on_fallback is not None:
+                            on_fallback(lowered.reason)
+                        outs = run_segment_local(sp, vals, kernels=kernels)
                     else:
-                        env[roots[0]] = out
+                        outs = lowered(*vals)
+                    for out, roots in zip(outs, out_roots):
+                        unpack(env, out, roots)
+                elif step[0] == "fused":
+                    _, cplan, bind_nids, roots = step
+                    unpack(env, run(cplan, {nid: env[nid]
+                                            for nid in bind_nids},
+                                    kernels=kernels), roots)
                 else:
                     node = step[1]
                     env[node.nid] = aligned(
@@ -464,13 +625,16 @@ class CompiledPlan:
                     env.pop(dead, None)      # release the intermediate
             return tuple(env[o] for o in output_ids)
 
-        return plan_fn
+        return plan_fn, seg_key
 
     def _build_staged(self) -> Callable:
         t0 = time.perf_counter()
-        plan_fn = self._plan_fn(batched=False)
+        plan_fn, seg_key = self._plan_fn(batched=False)
         key = (staged_plan_key(self.plan, kernels=self.kernels,
                                cache=self.cache), self.device)
+        if seg_key:
+            # the mesh and every segment's structure (_seg_key)
+            key += (("seg", _mesh_of(self.layout), seg_key),)
         self._staged_key = key
 
         def _build():
@@ -492,11 +656,16 @@ class CompiledPlan:
         batch (:func:`~repro_torch.kernels.ops.execute_batched`).  Under
         ``kernels="cuda"`` on the card the build generates and compiles
         every fused step's kernel, so a program no kernel can run fails
-        here, at build time.  Shared across structurally-equal plans via
-        the whole-plan cache (key ``("batched", staged key)``)."""
+        here, at build time.  Mesh-free plans only.  Shared across
+        structurally-equal plans via the whole-plan cache (key
+        ``("batched", staged key)``)."""
+        if _mesh_of(self.layout) is not None:
+            raise PlanInvariantError(
+                "batched_callable: batched execution requires a mesh-free "
+                "plan; this plan was compiled under a layout")
         self.staged_callable()
         key = ("batched", self._staged_key)
-        plan_fn = self._plan_fn(batched=True)
+        plan_fn, _seg = self._plan_fn(batched=True)
 
         def _build():
             faults.fault_point("plan.build")
@@ -510,11 +679,33 @@ class CompiledPlan:
 
         return WHOLE_PLAN_CACHE.get_or_create(key, _build)
 
+    # -- per-operator path ---------------------------------------------------
+
+    def _dist_call(self, idx: int, spec, cplan, env: dict):
+        """Run one distributed-placed operator on the mesh, or None to run
+        it locally — recording the downgrade reason (and raising under
+        strict when a real mesh abandons its costed placement)."""
+        pl = getattr(spec, "placement", None)
+        if pl is None or pl.arm != "distributed" or self.layout is None:
+            return None
+        from repro_torch.kernels.distributed import build_dist_fn
+        mesh = _mesh_of(self.layout)
+        vals = [env[b.nid] for b in cplan.binds]
+        built, fb = build_dist_fn(cplan, mesh, pl, kernels=self.kernels,
+                                  values=vals)
+        if built is None:
+            self.record_fallback("operator", fb.reason, specs=(idx,),
+                                 hard=_is_real_mesh(mesh))
+            return None
+        fn, prepared = built
+        return fn(*prepared)
+
     def _call_per_op(self, bindings: dict[str, object]):
         """Per-operator dispatch without the whole-plan cache: each fused
         operator through the operator-level plan cache (positionally
-        re-bound to the cached operator's CPlan), each basic op on its
-        own, under the same ``kernels`` policy."""
+        re-bound to the cached operator's CPlan) — distributed-placed ones
+        on the mesh — each basic op on its own, under the same ``kernels``
+        policy."""
         graph = self.plan.graph
         env: dict[int, object] = {node.nid: bindings[node.name]
                                   for node in graph.inputs()}
@@ -522,13 +713,16 @@ class CompiledPlan:
         env.update(lits)
         last_use = _last_uses(self.plan)
         for idx, spec in enumerate(self.plan.specs):
-            if isinstance(spec, MultiAggSpec) or (
-                    isinstance(spec, FusedOpSpec) and spec.fused):
+            if _is_fused(spec):
                 op, my_cplan = self.cache.get_or_build(graph, spec)
-                # positional re-binding: the cached operator's nids ≠ ours
-                op_env = {ob.nid: env[mb.nid] for ob, mb in
-                          zip(op.cplan.binds, my_cplan.binds)}
-                out = kops.execute(op.cplan, op_env, kernels=self.kernels)
+                out = self._dist_call(idx, spec, my_cplan, env)
+                if out is None:
+                    # positional re-binding: the cached operator's nids ≠
+                    # ours
+                    op_env = {ob.nid: env[mb.nid] for ob, mb in
+                              zip(op.cplan.binds, my_cplan.binds)}
+                    out = kops.execute(op.cplan, op_env,
+                                       kernels=self.kernels)
                 if isinstance(spec, MultiAggSpec):
                     for k, r in enumerate(spec.roots):
                         env[r] = out[k].reshape(1, 1)
@@ -543,6 +737,13 @@ class CompiledPlan:
         outs = [env[o.nid] for o in graph.outputs]
         return outs[0] if len(outs) == 1 else tuple(outs)
 
+    # -- entry point ---------------------------------------------------------
+
+    def _segment_fallback(self, reason: str) -> None:
+        # a bound value the segment's panels cannot take (seen at call time)
+        self.record_fallback("segment", reason,
+                             hard=_is_real_mesh(_mesh_of(self.layout)))
+
     def __call__(self, bindings: dict[str, object]):
         graph = self.plan.graph
         for node in graph.inputs():
@@ -551,7 +752,8 @@ class CompiledPlan:
         if not self.staged:
             return self._call_per_op(bindings)
         fn = self.staged_callable()
-        outs = fn(*[bindings[n.name] for n in graph.inputs()])
+        outs = fn(*[bindings[n.name] for n in graph.inputs()],
+                  on_fallback=self._segment_fallback)
         return outs[0] if len(outs) == 1 else tuple(outs)
 
 
@@ -627,16 +829,48 @@ def staged_plan_key(plan: ExecPlan, kernels: str = "never",
 def plan_fallbacks(plan: ExecPlan, layout=None, kernels: str = "never",
                    staged: bool = True,
                    cache: Optional[PlanCache] = None) -> list:
-    """Statically derivable execution downgrades: on one device (the port
-    accepts no layout yet) only the per-operator dispatch asked for with
-    ``staged=False``."""
-    from .context import require_local
-    require_local(layout)
+    """Statically derivable execution downgrades for this plan — the
+    compile-time portion of ``explain()['execution']['fallbacks']``.
+
+    Replays the same :func:`~repro_torch.kernels.distributed.plan_segment`
+    validation the staged lowering runs (via the shared
+    :func:`_segment_items`), so the report can never drift from what
+    execution does.  Value-format downgrades (a sparse operand whose
+    block rows do not split across the ranks) depend on the bound values
+    and are recorded at call time on :attr:`CompiledPlan.fallbacks`;
+    ``Compiled.explain()`` merges both."""
+    cache = cache if cache is not None else PLAN_CACHE
+    out: list[dict] = []
     if not staged:
-        return [{"site": "plan",
-                 "reason": "staged=False: per-operator debug dispatch "
-                           "requested"}]
-    return []
+        out.append({"site": "plan",
+                    "reason": "staged=False: per-operator debug dispatch "
+                              "requested"})
+    mesh = _mesh_of(layout)
+    if mesh is None:
+        return out
+    from repro_torch.kernels.distributed import (SegmentFallback,
+                                                 SegmentItem, plan_segment)
+    graph = plan.graph
+    seg_member = {j for seg in plan.segments for j in seg.indices}
+    for seg in plan.segments:
+        items = _segment_items(graph, plan, seg, cache)
+        sp = plan_segment(items, mesh)
+        if isinstance(sp, SegmentFallback):
+            out.append({"site": "segment", "specs": list(seg.indices),
+                        "reason": sp.reason})
+    for idx, spec in enumerate(plan.specs):
+        if idx in seg_member:
+            continue
+        pl = getattr(spec, "placement", None)
+        if pl is None or pl.arm != "distributed":
+            continue
+        _op, cplan = cache.get_or_build(graph, spec)
+        sp = plan_segment(
+            [SegmentItem(cplan, pl, _spec_roots(spec), True)], mesh)
+        if isinstance(sp, SegmentFallback):
+            out.append({"site": "operator", "specs": [idx],
+                        "reason": sp.reason})
+    return out
 
 
 def freed_intermediates(plan: ExecPlan) -> int:
@@ -648,7 +882,14 @@ def freed_intermediates(plan: ExecPlan) -> int:
 
 
 def compile_plan(plan: ExecPlan, kernels: str = "never",
-                 device: str = "cpu", staged: bool = True) -> CompiledPlan:
+                 device: str = "cpu", staged: bool = True, layout=None,
+                 strict: bool = False) -> CompiledPlan:
     """Bind an ExecPlan to its executable form on ``device``: the staged
-    plan function, or per-operator dispatch with ``staged=False``."""
-    return CompiledPlan(plan, kernels=kernels, device=device, staged=staged)
+    plan function, or per-operator dispatch with ``staged=False``.  Under
+    a ``layout`` whose mesh is a :class:`~repro_torch.dist.Mesh`, the
+    distributed operators run on the ranks' row panels; every downgrade is
+    recorded on :attr:`CompiledPlan.fallbacks`, and ``strict=True``
+    (``FusionContext(verify="strict")``) raises when a costed distributed
+    placement on a real mesh is abandoned at execution time."""
+    return CompiledPlan(plan, kernels=kernels, device=device, staged=staged,
+                        layout=layout, strict=strict)

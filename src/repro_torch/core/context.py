@@ -1,7 +1,8 @@
 """Immutable fusion contexts.
 
 A :class:`FusionContext` bundles every knob the staged pipeline consumes —
-selection mode, kernel policy, target device, cost-model parameters.
+selection mode, kernel policy, target device, cost-model parameters, and
+an optional distributed :class:`~repro_torch.core.layout.FusionLayout`.
 Contexts are frozen: "changing" one produces a new object via
 :meth:`FusionContext.with_`.
 
@@ -32,16 +33,6 @@ _STACK = threading.local()
 KERNEL_MODES = ("never", "cuda")
 
 
-def require_local(layout) -> None:
-    """The port plans and runs on one device: distributed layouts wait for
-    the distributed-segments slice (ROADMAP.md queue A item 5)."""
-    if layout is not None:
-        raise NotImplementedError(
-            "repro_torch runs on one device: layout=None is the only "
-            "layout this port supports yet (distributed segments are "
-            "ROADMAP.md queue A item 5)")
-
-
 @dataclass(frozen=True)
 class FusionContext:
     """Immutable bundle of every knob the staged pipeline consumes.
@@ -70,9 +61,15 @@ class FusionContext:
     params : CostParams
         Analytical cost-model constants (the reference's TPU v5e figures
         by default, so the port selects the reference's plans).
-    layout : None
-        Distributed layout; only ``None`` is supported (see
-        :func:`require_local`).
+    layout : FusionLayout | mesh | None
+        Distributed layout for fused-operator inputs/outputs.  A bare
+        mesh (anything exposing ``.shape``/``.axis_names``: the abstract
+        :class:`~repro_torch.dist.LogicalMesh` or a
+        :class:`~repro_torch.dist.Mesh` of ``torch.distributed`` ranks) is
+        auto-fitted per trace.  With a layout set, planning enumerates
+        local × distributed placement per fused operator (hybrid plans);
+        on a ``Mesh`` the distributed operators run on each rank's row
+        panels, joined by collectives, and ``device`` must be the mesh's.
     verify : str
         Plan-verifier level at the stage boundaries
         (:mod:`repro_torch.core.verify`) — ``"cheap"`` (default),
@@ -106,14 +103,14 @@ class FusionContext:
         """Hashable identity used in plan-cache signatures — includes the
         cost-model constants so custom CostParams re-plan instead of
         silently reusing a plan selected under different bandwidths."""
-        require_local(self.layout)
+        from .layout import layout_signature
         p = self.params
         pkey = (p.read_bw, p.write_bw, p.compute_bw, p.dtype_bytes,
                 p.sparse_idx_bytes, p.max_fused_inputs,
                 tuple(sorted(p.input_read_bw.items())),
                 p.dist.signature() if p.dist is not None else None)
         return (self.mode, self.kernels, self.device, self.staged, pkey,
-                self.verify, self.rewrite)
+                layout_signature(self.layout), self.verify, self.rewrite)
 
     # -- scoping ------------------------------------------------------------
     def __enter__(self) -> "FusionContext":
@@ -146,11 +143,12 @@ def current_context() -> FusionContext:
 def fusion_mode(mode: Optional[str] = None, kernels: Optional[str] = None,
                 device: Optional[str] = None,
                 params: Optional[CostParams] = None,
+                layout: Any = None,
                 verify: Optional[str] = None,
                 rewrite: Optional[bool] = None):
     """Sugar: scope a context derived from the current one."""
     kw = {k: v for k, v in dict(mode=mode, kernels=kernels, device=device,
-                                params=params, verify=verify,
+                                params=params, layout=layout, verify=verify,
                                 rewrite=rewrite).items() if v is not None}
     ctx = current_context().with_(**kw)
     with ctx:

@@ -38,12 +38,11 @@ from .templates import TType
 class DistParams:
     """Row-partitioned execution geometry for the distributed cost arm.
 
-    Derived from a ``FusionLayout`` by the reference's
-    ``layout_cost_params`` (the port has no layout module yet, ROADMAP.md
-    queue A item 5): the mesh's data/FSDP
-    axes become the row-shard group, and per graph-input shard factors are
-    read off the layout's PartitionSpec trees (``row_factor``: dim-0,
-    ``col_factor``: dim-1).  With this set, :func:`spec_cost` prices every
+    Derived from a ``FusionLayout`` by
+    :func:`repro_torch.core.layout.layout_cost_params`: the mesh's
+    data/FSDP axes become the row-shard group, and per graph-input shard
+    factors are read off the layout's partition specs (``row_factor``:
+    dim-0, ``col_factor``: dim-1).  With this set, :func:`spec_cost` prices every
     fused operator as ``min(local arm, distributed arm)`` — the
     local × distributed template dimension of candidate selection.
     """

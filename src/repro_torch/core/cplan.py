@@ -16,7 +16,7 @@ plan cache (paper §2.1 "identifies equivalent CPlans via hashing").
 from __future__ import annotations
 
 import hashlib
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 from .cost import FusedOpSpec
@@ -93,6 +93,66 @@ class CPlan:
             tuple((local.get(pr, pr), op) for pr, op in self.extra),
         )).encode())
         return h.hexdigest()[:16]
+
+
+# --------------------------------------------------------------------------
+# the CPlan of one row panel (distributed segments)
+# --------------------------------------------------------------------------
+
+def panel_cplan(cplan: CPlan, rows: int, panels: frozenset) -> CPlan:
+    """``cplan`` over a row panel of ``rows`` of its main's rows: the
+    binds in ``panels`` (nids bound to row panels) take ``rows`` rows, and
+    so does every program value computed row-aligned from them — an
+    element-wise or row-aggregate value of a panel, and a matmul whose
+    left operand is one (not ``ta``: Xᵀ·G sums over rows, its result is
+    a per-rank partial of the whole shape).  The output takes ``rows``
+    rows for the variants whose output rows are the main's (``no_agg``,
+    ``row_agg``, ``right_mm``).  Row alignment is read from the program,
+    never from a shape that happens to equal the main's row count.
+    Memoized; the generated kernel source does not depend on the row
+    count, so a panel CPlan shares its whole-operand build."""
+    key = (id(cplan), int(rows), panels)
+    hit = _PANELS.get(key)
+    if hit is not None and hit[0] is cplan:
+        return hit[1]
+    out = _panel_cplan(cplan, int(rows), panels)
+    if len(_PANELS) >= 1024:
+        _PANELS.clear()
+    _PANELS[key] = (cplan, out)
+    return out
+
+
+#: panel CPlans by (CPlan object, rows, panel binds); the object is kept
+#: beside its panel CPlan, so a reused id never hits
+_PANELS: dict[tuple, tuple[CPlan, CPlan]] = {}
+
+
+def _panel_cplan(cplan: CPlan, rows: int, panels: frozenset) -> CPlan:
+    aligned = set(b.nid for b in cplan.binds if b.nid in panels)
+    fit = lambda shape: (rows, shape[1])
+    prog = []
+    for (nid, op, ins, shape, attrs) in cplan.prog:
+        a = dict(attrs)
+        srcs = [r for k, r in ins if k in ("n", "b") and r in aligned]
+        if op == "matmul":
+            row = ins[0][1] in aligned and ins[0][0] in ("n", "b") \
+                and not a.get("ta", False)
+        elif "axis" in a:
+            row = a["axis"] == "row" and bool(srcs)
+        elif op == "t":
+            row = False
+        else:
+            row = bool(srcs) and shape[0] > 1
+        if row:
+            aligned.add(nid)
+            shape = fit(shape)
+        prog.append((nid, op, ins, shape, attrs))
+    binds = [replace(b, shape=fit(b.shape)) if b.nid in panels else b
+             for b in cplan.binds]
+    out = fit(cplan.out_shape) \
+        if cplan.main.nid in panels and cplan.variant in (
+            NO_AGG, ROW_AGG, RIGHT_MM) else cplan.out_shape
+    return replace(cplan, binds=binds, prog=prog, out_shape=out)
 
 
 # --------------------------------------------------------------------------

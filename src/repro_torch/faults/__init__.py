@@ -22,9 +22,8 @@ The port's sites and their counterparts in the JAX package::
                                                to a generated kernel
     serve.batch_dispatch  serve.batch_dispatch the batched serving dispatch
     serve.worker          serve.worker         the server's worker loop
-
-The reference's ``dist.segment`` site (distributed segment planning) waits
-for the distributed-segments slice (ROADMAP.md queue A item 5).
+    dist.segment          dist.segment         distributed segment planning
+                                               (plan_segment)
 
 Fault kinds::
 
@@ -128,6 +127,7 @@ def ensure_registered() -> list[FaultSite]:
     the ``fusionlint --faults`` entry point."""
     import repro_torch.core.codegen   # noqa: F401  plan.build
     import repro_torch.kernels.ops    # noqa: F401  kernels.launch
+    import repro_torch.kernels.distributed  # noqa: F401  dist.segment
     import repro_torch.serve.fusion   # noqa: F401  serve.batch_dispatch/worker
     return sites()
 

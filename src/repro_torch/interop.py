@@ -4,14 +4,17 @@ arrays produced by another framework and converted to numpy) into
 contiguous fp32 tensors on a device; :func:`to_bcsr` carries a block-sparse
 matrix across (the reference's ``BCSR`` or anything with its attributes),
 and :func:`to_dict_compressed` a CLA-compressed one (the reference's
-``DictCompressed`` or anything with its attributes)."""
+``DictCompressed`` or anything with its attributes); :func:`to_sharded_bcsr`
+carries a block-row partition, and :func:`to_layout` a layout over an
+abstract mesh (the reference's ``FusionLayout`` over its ``LogicalMesh``),
+so both packages can be handed the same plan inputs."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.blocksparse import BCSR, DictCompressed
+from repro_torch.kernels.blocksparse import BCSR, DictCompressed, ShardedBCSR
 
 
 def resolve_device(device) -> torch.device:
@@ -67,3 +70,34 @@ def to_dict_compressed(x, device="cuda"):
         torch.as_tensor(np.array(x.codes, dtype=np.int32), device=device),
         to_torch(np.array(x.counts, dtype=np.float32), device),
         tuple(x.shape))
+
+
+def to_sharded_bcsr(x, device="cuda"):
+    """The port's :class:`~repro_torch.kernels.blocksparse.ShardedBCSR` on
+    ``device`` from any object with numpy-convertible ``data`` (nparts,
+    nb_max, bs, bs) fp32, ``rows`` / ``cols`` (nparts, nb_max) block
+    indices, and a ``shape``, ``bs`` and ``nparts``: the reference's
+    ShardedBCSR (duck-typed) or the port's own."""
+    device = resolve_device(device)
+    if isinstance(x, ShardedBCSR):
+        return x.to(device)
+    idx = lambda a: torch.as_tensor(np.array(a, dtype=np.int32),
+                                    device=device)
+    return ShardedBCSR(to_torch(np.array(x.data, dtype=np.float32), device),
+                       idx(x.rows), idx(x.cols), tuple(x.shape), int(x.bs),
+                       int(x.nparts))
+
+
+def to_layout(layout):
+    """The port's :class:`~repro_torch.core.layout.FusionLayout` from a
+    layout over an abstract mesh: anything with a ``mesh`` (``.shape`` and
+    ``.axis_names``) and ``specs`` mapping names to partition specs (each
+    a sequence of entries) — the reference's FusionLayout over its
+    LogicalMesh (duck-typed).  The mesh becomes a
+    :class:`~repro_torch.dist.LogicalMesh`, each spec a tuple."""
+    from repro_torch.core.layout import FusionLayout
+    from repro_torch.dist import LogicalMesh
+    mesh = LogicalMesh({a: int(layout.mesh.shape[a])
+                        for a in layout.mesh.axis_names})
+    return FusionLayout(mesh, {name: tuple(spec)
+                               for name, spec in layout.specs.items()})

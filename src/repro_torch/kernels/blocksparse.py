@@ -10,9 +10,10 @@ cut from :attr:`BCSR.rowptr`, the block-row pointer.
 
 CLA compression keeps a matrix as per-column dictionaries
 (:class:`DictCompressed`, the same arrays as the reference's, bit for bit).
-The block-row partition for distributed segments (``ShardedBCSR``,
-``partition_block_rows``) lands with the distributed-segments slice
-(ROADMAP queue A item 5).
+The block-row partition for distributed segments is
+:class:`ShardedBCSR` (:func:`partition_block_rows`, the reference's arrays
+bit for bit); a rank of a mesh reads its own block rows of a whole BCSR
+through :func:`block_row_panel`, a view.
 """
 
 from __future__ import annotations
@@ -164,9 +165,10 @@ class BCSR:
         mb, nbc = m // self.bs, n // self.bs
         flat = torch.zeros((mb * nbc, self.bs, self.bs),
                            dtype=self.data.dtype, device=self.data.device)
-        # block positions are unique, so assignment is the reference's
-        # scatter-add into zeros
-        flat[self.rows.long() * nbc + self.cols.long()] = self.data
+        # the reference's scatter-add into zeros: a block position repeats
+        # only with zero data (the padding of a ShardedBCSR's part)
+        flat.index_add_(0, self.rows.long() * nbc + self.cols.long(),
+                        self.data)
         return flat.reshape(mb, nbc, self.bs, self.bs) \
                    .permute(0, 2, 1, 3).reshape(m, n)
 
@@ -181,6 +183,127 @@ class BCSR:
                     self.cols[order].contiguous(),
                     self.rows[order].contiguous(),
                     (self.shape[1], self.shape[0]), self.bs)
+
+
+@dataclass
+class ShardedBCSR:
+    """Block-row-partitioned BCSR: the distributed form of :class:`BCSR`.
+
+    :func:`partition_block_rows` splits a row-major BCSR into ``nparts``
+    equal block-row ranges and pads every part to the same block count,
+    so the stacked arrays have one shape.  Padding blocks carry zero data
+    and point at the part's *last* real block row, which keeps each
+    part's block list row-major sorted and makes the padded contributions
+    exact zeros for every sparse path.
+
+    data:   (nparts, nb_max, bs, bs) padded per-part blocks
+    rows:   (nparts, nb_max) int32 *part-local* block-row indices
+    cols:   (nparts, nb_max) int32 block-col indices
+    shape:  global logical (m, n)
+    """
+    data: torch.Tensor
+    rows: torch.Tensor
+    cols: torch.Tensor
+    shape: tuple[int, int]
+    bs: int = DEFAULT_BLOCK
+    nparts: int = 1
+
+    def __post_init__(self) -> None:
+        self.shape = (int(self.shape[0]), int(self.shape[1]))
+        self.bs, self.nparts = int(self.bs), int(self.nparts)
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    def to(self, device) -> "ShardedBCSR":
+        device = torch.device(device)
+        if self.data.device == device:
+            return self
+        return ShardedBCSR(self.data.to(device), self.rows.to(device),
+                           self.cols.to(device), self.shape, self.bs,
+                           self.nparts)
+
+    def local_bcsr(self, part: int = 0) -> BCSR:
+        """Part ``part`` as a BCSR over its (m/nparts, n) row panel, with
+        part-local block-row indices."""
+        m, n = self.shape
+        return BCSR(self.data[part], self.rows[part], self.cols[part],
+                    (m // self.nparts, n), self.bs)
+
+    def unshard(self) -> BCSR:
+        """The global BCSR; padding blocks survive as explicit zero
+        blocks, neutral on every path."""
+        m, n = self.shape
+        per = (m // self.bs) // self.nparts
+        offset = (torch.arange(self.nparts, dtype=self.rows.dtype,
+                               device=self.rows.device) * per)[:, None]
+        return BCSR(self.data.reshape(-1, self.bs, self.bs),
+                    (self.rows + offset).reshape(-1),
+                    self.cols.reshape(-1), (m, n), self.bs)
+
+    def todense(self) -> torch.Tensor:
+        return self.unshard().todense()
+
+
+def partition_block_rows(x: BCSR, nparts: int) -> Optional[ShardedBCSR]:
+    """Split ``x`` into ``nparts`` equal block-row ranges →
+    :class:`ShardedBCSR` (on ``x``'s device), or None when the block-row
+    count does not divide ``nparts`` (or ``nparts`` ≤ 1)."""
+    m, n = x.shape
+    mb = m // x.bs
+    if nparts <= 1 or mb % nparts:
+        return None
+    rows = x.rows.cpu().numpy()
+    cols = x.cols.cpu().numpy()
+    per = mb // nparts
+    shard_of = rows // per
+    counts = np.bincount(shard_of, minlength=nparts)
+    nb_max = max(int(counts.max()), 1)
+    data = x.data
+    pdata = torch.zeros((nparts, nb_max, x.bs, x.bs), dtype=data.dtype,
+                        device=data.device)
+    prows = np.zeros((nparts, nb_max), np.int32)
+    pcols = np.zeros((nparts, nb_max), np.int32)
+    for s in range(nparts):
+        idx = np.nonzero(shard_of == s)[0]        # row-major order kept
+        k = len(idx)
+        if k:
+            pdata[s, :k] = data[torch.as_tensor(idx, device=data.device)]
+            prows[s, :k] = rows[idx] - s * per
+            pcols[s, :k] = cols[idx]
+            # padding points at the last real block row
+            prows[s, k:] = prows[s, k - 1]
+            pcols[s, k:] = pcols[s, k - 1]
+    dev = x.rows.device
+    return ShardedBCSR(pdata, torch.as_tensor(prows, device=dev),
+                       torch.as_tensor(pcols, device=dev), (m, n), x.bs,
+                       nparts)
+
+
+def block_row_panel(x: BCSR, nparts: int, part: int) -> Optional[BCSR]:
+    """Block rows ``part·mb/nparts : (part+1)·mb/nparts`` of ``x`` as a
+    BCSR over its (m/nparts, n) row panel — the blocks of
+    ``partition_block_rows(x, nparts).local_bcsr(part)`` without the
+    padding: a view of ``x``'s blocks (rows are sorted, so a block-row
+    range is one run of them), part-local row indices; a panel with no
+    block keeps one zero block, as :meth:`BCSR.from_dense` does.  None
+    when the block rows do not divide ``nparts``."""
+    m, n = x.shape
+    mb = m // x.bs
+    if nparts < 1 or mb % nparts:
+        return None
+    per = mb // nparts
+    rp = x.rowptr
+    lo, hi = int(rp[part * per]), int(rp[(part + 1) * per])
+    shape = (m // nparts, n)
+    if hi == lo:
+        zero = torch.zeros(1, dtype=torch.int32, device=x.rows.device)
+        return BCSR(x.data.new_zeros((1, x.bs, x.bs)), zero, zero, shape,
+                    x.bs)
+    local_rp = (rp[part * per:(part + 1) * per + 1] - lo).contiguous()
+    return BCSR(x.data[lo:hi], (x.rows[lo:hi] - part * per).contiguous(),
+                x.cols[lo:hi], shape, x.bs, local_rp)
 
 
 def pad_to_blocks(x, bs: int = DEFAULT_BLOCK) -> torch.Tensor:

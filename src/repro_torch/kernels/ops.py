@@ -46,7 +46,7 @@ from typing import Optional
 
 from repro_torch import faults
 from repro_torch.core.cplan import (CPlan, COL_AGG, FULL_AGG, LEFT_MM,
-                                    NO_AGG, RIGHT_MM, ROW_AGG)
+                                    NO_AGG, RIGHT_MM, ROW_AGG, panel_cplan)
 from repro_torch.core.templates import TType
 from . import cellwise, multiagg, ref, rowwise
 from .blocksparse import BCSR, DictCompressed
@@ -65,13 +65,31 @@ faults.register_site(
 # public entry: execute a CPlan on bound values
 # --------------------------------------------------------------------------
 
-def execute(cplan: CPlan, env: dict, *, kernels: str = "never"):
-    """Run one fused operator.  ``kernels`` ∈ {"never", "cuda"}."""
+def execute(cplan: CPlan, env: dict, *, kernels: str = "never",
+            shard_rows: Optional[int] = None):
+    """Run one fused operator.  ``kernels`` ∈ {"never", "cuda"}.
+
+    ``shard_rows`` is the main's row count on one rank's row panel, when
+    the operator runs inside a distributed segment
+    (:mod:`repro_torch.kernels.distributed`): the operands bound to row
+    panels are those whose rows differ from the CPlan's, and the operator
+    runs as the CPlan of that panel (:func:`~repro_torch.core.cplan.
+    panel_cplan`), so the kernels size their grids, partials and (Outer)
+    piece tables from the panel.  A CUDA panel that starts off a 16-byte
+    boundary — the panel of an (m, c) operand starts at r·(m/n)·c·4 bytes
+    — is copied into a new, aligned tensor: the Cell kernel's vector walk
+    reads float4 and refuses it (the scalar walk would be slower on every
+    panel, for the sake of a few)."""
     for v in env.values():
         if not isinstance(v, (torch.Tensor, BCSR, DictCompressed)):
             raise NotImplementedError(
                 f"operand of type {type(v).__name__}: the port takes dense "
                 f"tensors, BCSR and DictCompressed")
+    if shard_rows is not None and shard_rows != cplan.main.shape[0]:
+        panels = frozenset(b.nid for b in cplan.binds
+                           if tuple(env[b.nid].shape)[0] != b.shape[0])
+        cplan = panel_cplan(cplan, shard_rows, panels)
+        env = {k: _aligned(v) if k in panels else v for k, v in env.items()}
     if kernels != "never":
         faults.fault_point("kernels.launch")
     main = env.get(cplan.main.nid)
@@ -338,6 +356,15 @@ def _kind_nid(cplan: CPlan, kind: str) -> int:
         if b.kind == kind:
             return b.nid
     raise KeyError(kind)
+
+
+def _aligned(v):
+    """A CUDA tensor that starts off a 16-byte boundary, copied; anything
+    else as it is."""
+    if isinstance(v, torch.Tensor) and v.device.type == "cuda" \
+            and v.data_ptr() % 16:
+        return v.clone()
+    return v
 
 
 def _as_dense(v):

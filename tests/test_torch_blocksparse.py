@@ -12,9 +12,11 @@ import torch
 from repro.algos import data as ref_data
 from repro.kernels import blocksparse as rbs
 from repro_torch.algos import data
-from repro_torch.interop import to_bcsr
+from repro_torch.interop import to_bcsr, to_sharded_bcsr
 from repro_torch.kernels.blocksparse import (BCSR, PIECE_BLOCKS,
-                                            pad_to_blocks)
+                                            ShardedBCSR, block_row_panel,
+                                            pad_to_blocks,
+                                            partition_block_rows)
 
 torch.set_num_threads(1)
 
@@ -178,3 +180,89 @@ def test_piece_table_splits_long_rows_and_matches_the_transpose():
         assert torch.equal(a, b)
     moved = x.to("meta")
     assert all(t.device.type == "meta" for t in moved.pieces)
+
+
+# --------------------------------------------------------------------------
+# the block-row partition of distributed segments
+# --------------------------------------------------------------------------
+
+#: (grid, bs, density, empty block rows, parts): parts that divide the
+#: block rows, with empty rows and whole empty parts among them
+SHARD_CASES = [((8, 4), 16, 0.4, (), 4), ((16, 4), 128, 0.05, (), 8),
+               ((12, 3), 16, 0.5, (0, 1, 2), 4), ((6, 5), 32, 0.3, (5,), 2),
+               ((8, 2), 16, 0.0, (), 8), ((4, 4), 16, 1.0, (), 4)]
+
+
+@pytest.mark.parametrize("grid,bs,density,empty,parts", SHARD_CASES)
+def test_partition_block_rows_matches_reference_bit_for_bit(
+        grid, bs, density, empty, parts):
+    dense = _dense(grid, bs, density, seed=3 * sum(grid) + parts,
+                   empty_rows=empty)
+    ref = rbs.partition_block_rows(rbs.BCSR.from_dense(dense, bs=bs), parts)
+    port = partition_block_rows(BCSR.from_dense(dense, bs=bs), parts)
+    assert isinstance(port, ShardedBCSR)
+    assert (port.shape, port.bs, port.nparts) == \
+        (tuple(ref.shape), ref.bs, ref.nparts)
+    for name in ("data", "rows", "cols"):
+        got, want = getattr(port, name), np.asarray(getattr(ref, name))
+        assert got.numpy().dtype == want.dtype
+        np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(port.todense().numpy(), dense)
+    _same(port.unshard(), ref.unshard())
+    for part in range(parts):
+        want = rbs.ShardedBCSR(ref.data[part:part + 1],
+                               ref.rows[part:part + 1],
+                               ref.cols[part:part + 1], ref.shape, ref.bs,
+                               ref.nparts).local_bcsr()
+        local = port.local_bcsr(part)
+        assert local.shape == (dense.shape[0] // parts, dense.shape[1])
+        _same(local, want)
+    _same(to_sharded_bcsr(ref, device="cpu").local_bcsr(0),
+          port.local_bcsr(0))
+
+
+@pytest.mark.parametrize("grid,bs,parts", [((12, 4), 16, 8), ((6, 2), 32, 4),
+                                           ((3, 3), 16, 2)])
+def test_indivisible_block_rows_do_not_partition(grid, bs, parts):
+    dense = _dense(grid, bs, 0.5, seed=41)
+    assert rbs.partition_block_rows(rbs.BCSR.from_dense(dense, bs=bs),
+                                    parts) is None
+    x = BCSR.from_dense(dense, bs=bs)
+    assert partition_block_rows(x, parts) is None
+    assert block_row_panel(x, parts, 0) is None
+    assert partition_block_rows(x, 1) is None
+
+
+@pytest.mark.parametrize("grid,bs,density,empty,parts", SHARD_CASES)
+def test_block_row_panel_is_the_partition_without_padding(
+        grid, bs, density, empty, parts):
+    """A rank's block rows of a whole BCSR: a view of its blocks, equal to
+    the partition's part less its padding blocks (or one zero block where
+    the part has none), with the part's block-row pointer."""
+    dense = _dense(grid, bs, density, seed=3 * sum(grid) + parts,
+                   empty_rows=empty)
+    x = BCSR.from_dense(dense, bs=bs)
+    sharded = partition_block_rows(x, parts)
+    pm = dense.shape[0] // parts
+    for part in range(parts):
+        panel = block_row_panel(x, parts, part)
+        assert panel.shape == (pm, dense.shape[1])
+        np.testing.assert_array_equal(
+            panel.todense().numpy(), dense[part * pm:(part + 1) * pm])
+        np.testing.assert_array_equal(panel.todense().numpy(),
+                                      sharded.local_bcsr(part)
+                                      .todense().numpy())
+        local_rows = (x.rows.numpy() // (grid[0] // parts)) == part
+        k = int(local_rows.sum())
+        if k:
+            assert panel.data.data_ptr() == \
+                x.data[int(np.argmax(local_rows))].data_ptr()   # a view
+            np.testing.assert_array_equal(
+                panel.data.numpy(), sharded.data[part, :k].numpy())
+            np.testing.assert_array_equal(
+                panel.rows.numpy(), sharded.rows[part, :k].numpy())
+        else:
+            assert panel.nblocks == 1 and not panel.data.any()
+        assert panel.rowptr.numpy().tolist() == BCSR(
+            panel.data, panel.rows, panel.cols, panel.shape,
+            bs).rowptr.numpy().tolist()

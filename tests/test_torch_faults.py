@@ -8,9 +8,8 @@ against the direct call of the reference's region on the same numpy
 inputs, and of the port's) or a typed :class:`FusionServeError`; the
 worker pool recovers to full size.  The port's sites map to the
 reference's: ``plan.build`` ↔ ``plan.jit_build``, ``kernels.launch`` ↔
-``kernels.pallas_call``, ``serve.batch_dispatch`` and ``serve.worker``
-alike.  The reference's ``dist.segment`` site waits for the port's
-distributed segments (ROADMAP.md queue A item 5), and so does its test.
+``kernels.pallas_call``, ``serve.batch_dispatch``, ``serve.worker`` and
+``dist.segment`` alike.
 
 Fault-test regions use distinct literal constants on purpose: the
 whole-plan cache is process-global and keyed structurally, so a region
@@ -44,7 +43,8 @@ CTX = FusionContext(device="cpu", kernels="never")
 SITE_MAP = {"plan.build": "plan.jit_build",
             "kernels.launch": "kernels.pallas_call",
             "serve.batch_dispatch": "serve.batch_dispatch",
-            "serve.worker": "serve.worker"}
+            "serve.worker": "serve.worker",
+            "dist.segment": "dist.segment"}
 
 
 def _hinge(c=1.0):
@@ -97,7 +97,7 @@ def test_registry_covers_the_stack():
     sites = {s.name: s for s in faults.ensure_registered()}
     ref_sites = {s.name for s in ref_faults.ensure_registered()}
     assert set(sites) == set(SITE_MAP)
-    assert set(SITE_MAP.values()) == ref_sites - {"dist.segment"}
+    assert set(SITE_MAP.values()) == ref_sites
     for name, site in sites.items():
         assert site.handler.strip(), f"{name} has no handler"
         assert site.kinds
@@ -154,6 +154,21 @@ def test_poison_structure():
 # --------------------------------------------------------------------------
 # fault sites outside the server
 # --------------------------------------------------------------------------
+
+def test_dist_segment_fault_degrades_to_fallback():
+    from repro_torch.kernels.distributed import (SegmentFallback,
+                                                 plan_segment)
+    sched = faults.FaultSchedule([
+        faults.FaultRule("dist.segment", kind="error", at=(0,),
+                         message="mesh gone")])
+    with faults.inject(sched):
+        fb = plan_segment([], mesh=None)
+        assert isinstance(fb, SegmentFallback)
+        assert "injected fault" in fb.reason           # recorded, not raised
+        fb2 = plan_segment([], mesh=None)              # next hit: normal path
+        assert "injected" not in fb2.reason
+    assert sched.events() == [("dist.segment", "error", 0)]
+
 
 def test_kernels_launch_fault_surfaces_and_recovers():
     """The counterpart of ``kernels.pallas_call``: a kernel dispatch that

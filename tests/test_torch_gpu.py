@@ -8,7 +8,8 @@ on the card against the CPU, L2SVM and ALS-CG on the card against the
 CPU, MLogReg, GLM, KMeans and the autoencoder on the card against
 ``kernels="never"``, KMeans' assignment rows, and the Outer kernel
 launched exactly for a BCSR on the card; the request-axis kernels per
-request and the fusion server on the card.  Marked ``gpu``; without a card
+request and the fusion server on the card; a distributed segment's
+misaligned row panel copied, not refused.  Marked ``gpu``; without a card
 every test skips.  Imports no JAX (the machine with the card has none):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -212,6 +213,23 @@ def test_misaligned_cell_operand_raises_on_the_card(card):
     with pytest.raises(ValueError, match="16-byte"):
         ops.execute(cp, {**env, cp.main.nid: shifted}, kernels="cuda")
     assert cellwise.launches == before
+
+
+def test_misaligned_panel_is_copied_on_the_card(card):
+    """A rank's row panels that start off a 16-byte boundary (rows 2,501
+    to 5,002 of (m, 1) operands) run the Cell kernel's vector walk on
+    aligned copies, to the plain version's value on the same panels."""
+    case, _shape = CELL_VECTOR_RUNS[2]                  # (m, 1) vector walk
+    cp, names = sweep.fused_cplan(case, 10_004, 1)
+    env = _env(case, (10_004, 1), names, card)
+    panels = {nid: v[2501:5002] for nid, v in env.items()}
+    assert all(v.data_ptr() % 16 for v in panels.values())
+    before = cellwise.launches
+    got = ops.execute(cp, panels, kernels="cuda", shard_rows=2501)
+    assert cellwise.launches == before + 1
+    want = ops.execute(cp, {nid: v.cpu() for nid, v in panels.items()},
+                       kernels="never", shard_rows=2501)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=1e-5)
 
 
 def test_l2svm_on_the_card_matches_the_cpu(card):

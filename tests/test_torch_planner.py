@@ -108,13 +108,23 @@ def test_planning_default_is_the_reference_tpu_constants():
     assert H100_SXM.hbm_bytes == 80e9
 
 
-def test_layout_is_refused_with_the_roadmap_item():
+@pytest.mark.parametrize("n", [1, 8])
+def test_layout_is_accepted_and_plans_as_the_reference(n):
+    """``plan(layout=)`` and a context layout are accepted: under an
+    abstract mesh the hinge region plans the reference's operators, costs
+    and placements, and the layout enters the context key."""
+    from repro.dist.planner import LogicalMesh as RefMesh
+    from repro_torch.dist import LogicalMesh
     ref, port, shapes = REGIONS["l2svm/hinge"]
-    traced = port.trace(**_zeros(shapes))
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        traced.plan(layout=object())
-    with pytest.raises(NotImplementedError, match="queue A item 5"):
-        FusionContext(layout=object()).key()
+    want = ref.trace(**_zeros(shapes)).plan(mode="gen",
+                                            layout=RefMesh({"data": n}))
+    with fusion_mode(device="cpu"):
+        got = port.trace(**_zeros(shapes)).plan(
+            mode="gen", layout=LogicalMesh({"data": n}))
+    assert got.cost == want.cost
+    assert got.fused_signatures() == want.fused_signatures()
+    assert FusionContext(layout=LogicalMesh({"data": n})).key() != \
+        FusionContext().key()
 
 
 def _bcsr_pair(shape, bs, nb):
