@@ -130,12 +130,30 @@ Phases, each reported on its own lines with its wall time:
    the kernel limit per element and timed beside its panel bound (device
    ms from CUDA events queued behind a spin kernel, the profiler's, and
    the call's CUDA-event ms), and the collectives' wall time;
-18. one JSON line with every kernel (launches and times summed over the
+18. ``[lm]``: the LM serving path at minitron-4b's full width (32
+   layers, d_model 3,072, vocab 256,000; 4,190,306,304 parameters drawn
+   on the card from a seeded ``torch.Generator``, bf16, and an fp32 model
+   of the same draws): ``serve.Engine`` (4 slots of 2,304 positions) serves
+   five requests of 2,048 / 777 / 512 / 33 / 1 prompt tokens and 32 new
+   tokens each through its queue, token for token equal to a direct run
+   of ``LM.apply`` + ``decode_step`` (bf16); fp32 ``decode_step`` logits
+   over the last 8 of 2,048 positions within 1e-4 of max |logit| of the
+   full forward's, and a planted fault (K/V written at pos + 1) must fail;
+   layer 0's attention chunked (1,024) against dense within 1e-5 (fp32);
+   bf16 against fp32 prefill logits (worst error and top-1 agreement,
+   recorded); ``models.layers.norm(fusion="gen")`` over layer 0's input
+   (2,048 x 3,072 fp32) with the counters set to 0 just before it and read
+   just after: exactly one Row launch, no fallback, every element within
+   the kernel limit of its plain version, a planted fault in its row mean
+   that must fail, and its time beside its bound and ``F.rms_norm``;
+   prefill at 2,048 and 512 tokens and one decode step, beside their
+   bounds; the host share of one profiled ``Engine.step()``;
+19. one JSON line with every kernel (launches and times summed over the
    single-device paths; the request-axis forms with their serving
    launches and their times at 8 x 1,048,576 x 100; a ``dist`` record per
    kernel with the [dist] ranks' own launches, its worst panel check and
-   its panel times), the card line, and the final ``{"ok": true, ...}``
-   line.
+   its panel times; ``row_rmsnorm``, the Row kernel's fused-rmsnorm call
+   of [lm]), the card line, and the final ``{"ok": true, ...}`` line.
 
 Any failed check raises; the script then prints the traceback and exits 1
 without a result line.  It imports nothing of JAX or of ``repro``.
@@ -603,8 +621,10 @@ def compare(cplan, env, label: str) -> tuple[float, float]:
 def planted(src, fold: bool = False, group: bool = False):
     """``src`` built with a planted fault: the Cell kernel's fold and
     ``rk::combine`` drop the middle partial, the Row ``row_agg`` variant the middle element of every
-    row (tile layout) or the middle lane's partial (warp layout), the Row
-    tile layout's ``col_t_agg`` close the middle row slice of each CTA, the
+    row (tile layout) or the middle lane's partial (warp layout), as does
+    a warp-layout Row program's own row aggregate (the rmsnorm's row mean),
+    the Row tile layout's ``col_t_agg`` close the middle row slice of each
+    CTA, the
     Outer ``right_mm`` skips the middle block of every block row; with ``fold``, the Outer ``right_mm`` fold drops the middle
     piece of every row of two or more pieces instead; with ``group``, the
     Cell kernel's vector walk drops the second cell of every group instead.
@@ -617,7 +637,9 @@ def planted(src, fold: bool = False, group: bool = False):
             if src.template == "outer" and not src.elems else src
     return dataclasses.replace(src, text=PLANT + src.text) \
         if src.elems or src.template == "outer" or \
-        (src.template, src.variant) == ("row", "row_agg") else src
+        (src.template, src.variant) == ("row", "row_agg") or \
+        (getattr(src, "layout", "") == "warp"
+         and "rowtile::kPlanted" in src.text) else src
 
 
 @contextlib.contextmanager
@@ -897,10 +919,11 @@ def issue_floor(src, cells: int, busy=None) -> dict:
             * 1e3}
 
 
-def profile_run(label: str, fn) -> None:
+def profile_run(label: str, fn) -> tuple[float, float]:
     """Where the time goes: one more run of ``fn`` (plans already cached)
     under ``torch.profiler``; device busy time per kernel name and the
-    idle share of the host-clock wall time (profiler on)."""
+    idle share of the host-clock wall time (profiler on).  Returns (wall
+    ms, device busy ms)."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     with profile(activities=[ProfilerActivity.CUDA],
@@ -924,6 +947,7 @@ def profile_run(label: str, fn) -> None:
     for e in events[:12]:
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms "
             f"x{e.count:<4d} {e.key[:90]}")
+    return wall_ms, busy_ms
 
 
 # --------------------------------------------------------------------------
@@ -2876,6 +2900,340 @@ def dist_check(ranks: list, traces: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
+# [lm]: the LM serving path at minitron-4b's full width (phase 18)
+# --------------------------------------------------------------------------
+
+#: the model: minitron-4b (src/repro_torch/configs/minitron_4b.py) at full
+#: width and depth, bf16 weights drawn on the card from a seeded generator,
+#: and an fp32 model of the same draws
+LM_ARCH = "minitron-4b"
+LM_SEED = 19
+#: the engine: 4 slots of 2,304 positions; five requests through its queue,
+#: so one slot is reused: prompts of 2,048 tokens (chunked attention: over
+#: attn_chunk 1,024 and a multiple of it), 777 and 512 (dense scores), 33
+#: and 1, each decoding 32 tokens
+LM_SLOTS, LM_MAX_LEN, LM_MAX_NEW = 4, 2304, 32
+LM_PROMPTS = (2048, 777, 512, 33, 1)
+#: the fp32 checks' sequence, and the positions decoded at its end
+LM_SEQ, LM_TAIL = 2048, 8
+#: fp32 decode_step logits against the full forward's at the same
+#: positions, of max |logit|: one query against the cache vs the prefill's
+#: products, summed in other orders (TF32 off)
+LM_DECODE_RTOL = 1e-4
+#: one layer's attention, chunked (attn_chunk 1,024) against dense scores,
+#: fp32, of max |out|: online softmax vs one softmax
+LM_CHUNK_RTOL = 1e-5
+#: prefill lengths timed, and the decode position timed (after the prefill
+#: of the last length)
+LM_PREFILL_TIMES = (2048, 512)
+BF16_PEAK = 989e12           # H100 SXM bf16 dense tensor cores, FLOP/s
+
+
+def lm_norm_cplans():
+    """The fused rmsnorm's CPlans over LM_SEQ rows of the model's width,
+    planned on shapes alone."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers
+    d = get_config(LM_ARCH).d_model
+    return region_cplans([(layers._rms, (meta(LM_SEQ, d), meta(1, d),
+                                         meta(1, 1)), False)])
+
+
+def lm_models():
+    """(cfg, the bf16 model, the fp32 model) on the card, both drawn from
+    a generator seeded with LM_SEED (the same draws, cast)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    cfg = get_config(LM_ARCH)
+    models = []
+    for c in (cfg, dataclasses.replace(cfg, dtype="float32")):
+        gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+        models.append(LM(c, device="cuda").init(gen).requires_grad_(False))
+    return cfg, *models
+
+
+def lm_tokens(gen, n: int, vocab: int):
+    import torch
+    return torch.randint(0, vocab, (n,), generator=gen, device="cuda")
+
+
+def lm_direct(model, prompt, max_new: int, max_len: int) -> list:
+    """Greedy tokens of one prompt from ``LM.apply`` + ``decode_step``
+    directly, fed in the engine's order: the prompt's last token again at
+    position P first."""
+    import torch
+    cache = model.init_cache(1, max_len)
+    with torch.no_grad():
+        model.apply(prompt[None], caches=cache)
+        out, pos, cur = [], len(prompt), int(prompt[-1])
+        for _ in range(max_new):
+            logits, cache = model.decode_step(cache, [[cur]], pos)
+            cur = int(torch.argmax(logits[0, -1]))
+            out.append(cur)
+            pos += 1
+    return out
+
+
+@contextlib.contextmanager
+def planted_cache_write():
+    """A fault planted in decode: every layer writes the token's K/V at
+    pos + 1 instead of pos."""
+    from repro_torch.models import attention
+    orig = attention._write_decode
+    attention._write_decode = lambda cache, k, v, pos: orig(cache, k, v,
+                                                            pos + 1)
+    try:
+        yield
+    finally:
+        attention._write_decode = orig
+
+
+def lm_decode_share(model, toks, full) -> float:
+    """Worst |decode_step logits - full forward logits| over the last
+    LM_TAIL positions of ``toks`` (prefill of the rest), as a share of the
+    full forward's max |logit| there."""
+    import torch
+    P = LM_SEQ - LM_TAIL
+    cache = model.init_cache(1, LM_SEQ + LM_TAIL)   # room for pos + 1
+    worst = 0.0
+    with torch.no_grad():
+        model.apply(toks[:, :P], caches=cache)
+        for t in range(P, LM_SEQ):
+            logits, cache = model.decode_step(cache, toks[:, t:t + 1], t)
+            worst = max(worst, float((logits[0, 0] - full[0, t]).abs()
+                                     .max()))
+    return worst / float(full[0, P:].abs().max())
+
+
+def lm_norm(x, s):
+    """``layers.norm(x, s, fusion="gen")`` on the card with
+    ``kernels="cuda"``, every launch counter set to 0 just before it and
+    read just after: (out, launches by kernel, the Compiled operator)."""
+    import torch
+    from repro_torch.core import fusion_mode
+    from repro_torch.kernels import cellwise, multiagg, outerprod, rowwise
+    from repro_torch.models import layers
+    counters = {"cell": cellwise, "magg": multiagg, "row": rowwise,
+                "outer": outerprod}
+    torch.cuda.synchronize()
+    for mod in counters.values():
+        mod.launches = 0
+    with fusion_mode(kernels="cuda"):
+        out = layers.norm(x, s, fusion="gen")
+    torch.cuda.synchronize()
+    launches = {k: mod.launches for k, mod in counters.items()}
+    rows = math.prod(x.shape[:-1])
+    compiled = next(
+        c for c in layers._rms._staged.values()
+        if c.device.type == x.device.type
+        and c.planned.context.kernels == "cuda"
+        and c.planned.traced.in_meta["X"]["shape"] == (rows, x.shape[-1]))
+    return out, launches, compiled
+
+
+def lm_norm_check(x, s) -> dict:
+    """The fused rmsnorm on the Row kernel: one Row launch and nothing
+    else, no fallback recorded, every element within the kernel limit of
+    the plain version on the same operands, and the planted fault (the
+    row mean drops the middle lane's partial) over it.  Returns the
+    CPlan, its operands, the output and the errors."""
+    import torch
+    from repro_torch.kernels import ops
+    out, launches, compiled = lm_norm(x, s)
+    want = {k: int(k == "row") for k in launches}
+    if launches != want:
+        raise AssertionError(f"rmsnorm launched {launches}, not one Row "
+                             f"kernel")
+    fbs = compiled.explain()["execution"]["fallbacks"]
+    if fbs:
+        raise AssertionError(f"rmsnorm recorded fallbacks {fbs}")
+    (cp,) = compiled._cplan.cplans()
+    d = x.shape[-1]
+    by_name = {"X": x.reshape(-1, d).float(), "s": s.float().reshape(1, d),
+               "eps_s": torch.full((1, 1), 1e-6, device=x.device)}
+    names = {n.nid: n.name for n in compiled.planned.eplan.graph.inputs()}
+    env = {b.nid: by_name[names[b.nid]] for b in cp.binds}
+    got = out.reshape(-1, d)
+    err, share = measure(cp, env, got, "rmsnorm")
+    if not share <= 1.0:
+        raise AssertionError(f"rmsnorm: max |kernel - plain| = {err:.3e}, "
+                             f"{share:.3g} x its limit")
+    with planted_fault():
+        bad = ops.execute(cp, env, kernels="cuda")
+    _e, fault_share = measure(cp, env, bad, "planted rmsnorm")
+    if not fault_share > 1.0:
+        raise AssertionError("planted fault in the rmsnorm's row mean "
+                             "passed the kernel check")
+    return {"cplan": cp, "env": env, "out": got, "launches": launches,
+            "err": err, "share": share, "fault_share": fault_share}
+
+
+def lm_phase() -> dict:
+    """[lm]: minitron-4b at full width on the card.  The engine's greedy
+    tokens equal a direct run of LM.apply + decode_step (bf16); fp32
+    decode_step logits equal the full forward's at the end of a 2,048-token
+    sequence (and a planted cache-write fault fails); chunked attention
+    equals dense; bf16 against fp32 prefill logits (recorded); the fused
+    rmsnorm of layer 0's input as one Row launch, held to its plain
+    version, with a planted fault, and timed; prefill and decode times
+    beside their bounds and the engine's host share.  Returns the fused
+    norm's kernel record."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import ref, rowwise
+    from repro_torch.launch.serve import make_prefill_step, make_serve_step
+    from repro_torch.models import attention, layers
+    from repro_torch.serve import Engine, Request
+    t0 = time.perf_counter()
+    cfg, m16, m32 = lm_models()
+    n_params = sum(p.numel() for p in m16.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in m16.parameters())
+    # the config's count leaves out the final norm's scale
+    counted = n_params - sum(p.numel() for p in m16.final_norm.parameters())
+    if counted != cfg.total_params:
+        raise AssertionError(f"{counted} parameters besides the final "
+                             f"norm, the config counts {cfg.total_params}")
+    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd}, d_ff "
+        f"{cfg.d_ff} ({cfg.mlp_type}), vocab {cfg.vocab}; {n_params:,} "
+        f"parameters ({cfg.total_params:,} besides the final norm) drawn "
+        f"on the card (seed {LM_SEED}) as bf16 "
+        f"({w_bytes / 1e9:.2f} GB) and fp32; set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED + 1)
+
+    # the engine against direct decode, bf16
+    prompts = [lm_tokens(gen, n, cfg.vocab).cpu().numpy().astype(np.int32)
+               for n in LM_PROMPTS]
+    engine = Engine(m16, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    reqs = [Request(prompt=p, max_new=LM_MAX_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    for p, r in zip(prompts, reqs):
+        want = lm_direct(m16, p, LM_MAX_NEW, LM_MAX_LEN)
+        if not (r.done and r.error is None and r.out == want):
+            raise AssertionError(f"engine tokens of the {len(p)}-token "
+                                 f"prompt {r.out} != direct decode {want}")
+    log(f"[lm] engine ({LM_SLOTS} slots x {LM_MAX_LEN} positions, bf16): "
+        f"{len(reqs)} requests of {list(LM_PROMPTS)} tokens, "
+        f"{LM_MAX_NEW} new each, equal to direct LM.apply + decode_step "
+        f"token for token; wall {wall:.2f} s for "
+        f"{sum(len(r.out) for r in reqs)} tokens (prefills included)")
+    del engine
+
+    # prefill -> decode, chunked vs dense, bf16 vs fp32: one sequence
+    toks = lm_tokens(gen, LM_SEQ, cfg.vocab)[None]
+    with torch.no_grad():
+        full32 = m32.apply(toks)[0]
+    share = lm_decode_share(m32, toks, full32)
+    with planted_cache_write():
+        fault = lm_decode_share(m32, toks, full32)
+    log(f"[lm] fp32 decode_step vs the full forward over the last {LM_TAIL} "
+        f"of {LM_SEQ} positions: worst {share:.3e} of max |logit| (limit "
+        f"{LM_DECODE_RTOL:g}); planted fault (K/V written at pos + 1): "
+        f"{fault:.3e}")
+    if not share <= LM_DECODE_RTOL:
+        raise AssertionError("prefill -> decode logits disagree")
+    if not fault > LM_DECODE_RTOL:
+        raise AssertionError("the planted cache-write fault passed the "
+                             "prefill -> decode check")
+    layer = m32.layers[0]
+    with torch.no_grad():
+        h = layers.apply_norm(m32._embed(toks), layer["ln1"], m32.cfg)
+        pos = torch.arange(LM_SEQ, device="cuda")[None]
+        chunked, dense = (attention.attention(
+            h, layer["inner"], dataclasses.replace(m32.cfg, attn_chunk=c),
+            positions=pos, window=m32.specs[0].window)[0]
+            for c in (m32.cfg.attn_chunk, 0))
+    rel = float((chunked - dense).abs().max() / dense.abs().max())
+    log(f"[lm] layer 0 attention at S = {LM_SEQ}, fp32: chunked "
+        f"({m32.cfg.attn_chunk}) vs dense, {rel:.3e} of max |out| (limit "
+        f"{LM_CHUNK_RTOL:g})")
+    if not rel <= LM_CHUNK_RTOL:
+        raise AssertionError("chunked and dense attention disagree")
+    del chunked, dense, h
+    with torch.no_grad():
+        full16 = m16.apply(toks)[0]
+    diff = float((full16.float() - full32).abs().max())
+    top1 = float((full16.argmax(-1) == full32.argmax(-1)).float().mean())
+    log(f"[lm] bf16 vs fp32 prefill logits over {LM_SEQ} positions: worst "
+        f"{diff / float(full32.abs().max()):.3e} of max |logit|, top-1 "
+        f"token equal at {top1:.4f} of positions (recorded, no limit)")
+    del full16, full32, m32
+    torch.cuda.empty_cache()
+
+    # the fused rmsnorm of layer 0's input (the embeddings, cast to fp32
+    # as norm does) on the Row kernel; the model's own ln1 scale is 0 at
+    # init, which would hide a misread side, so the scale is drawn
+    x = m16._embed(toks).float()
+    s = 0.1 * torch.randn((cfg.d_model,), generator=gen, device="cuda")
+    chk = lm_norm_check(x, s)
+    cp, env = chk["cplan"], chk["env"]
+    log(f"[lm] fused rmsnorm {tuple(x.shape)} -> one ROW "
+        f"{cp.variant} CPlan ({layout_name(cp)} layout), launches "
+        f"{json.dumps(chk['launches'])}; max|kernel-plain| "
+        f"{chk['err']:.3e} = {chk['share']:.3g} x limit; planted fault "
+        f"{chk['fault_share']:.3g} x limit")
+    weight = 1.0 + s
+    x2 = env[cp.main.nid]
+    calls = {"kernel": lambda: rowwise.row(cp, env),
+             "plain": lambda: ref.execute_dense(cp, env),
+             "library": lambda: torch.nn.functional.rms_norm(
+                 x2, (cfg.d_model,), weight=weight, eps=1e-6)}
+    part = time_part("lm rmsnorm", "row", cp, env, calls["kernel"],
+                     calls["plain"], chk["out"], calls["library"])
+    # device time a second way, without the profiler: CUDA events queued
+    # behind a spin kernel, so the host's launch path is outside them
+    queued = {k: queued_ms(fn) for k, fn in calls.items()}
+    part["queued_ms"] = queued
+    log(f"[lm] rmsnorm device ms by CUDA events queued behind a spin "
+        f"kernel: {json.dumps(queued)}; bound {part['bound_ms']:.4f} ms")
+    rec = new_record()
+    add_part(rec, part)
+    rec.update(launches=chk["launches"]["row"], max_abs_err=chk["err"])
+    del x, s, chk, env, x2
+    torch.cuda.empty_cache()
+
+    # times, bf16
+    prefill, decode = make_prefill_step(m16), make_serve_step(m16)
+    cache = m16.init_cache(1, LM_MAX_LEN)
+    for S in LM_PREFILL_TIMES:
+        t = lm_tokens(gen, S, cfg.vocab)[None]
+        ms = time_ms(lambda: prefill(t, cache), reps=3, rounds=3)
+        b_ms = 2 * cfg.total_params * S / BF16_PEAK * 1e3
+        log(f"[lm] prefill {S} tokens: {ms:.3f} ms (CUDA events); bound "
+            f"{b_ms:.3f} ms (2 x {cfg.total_params:,} x {S} FLOP at the "
+            f"bf16 peak)")
+    kv_bytes = (S + 1) * 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2
+    tok = t[:, -1:]
+    ms = time_ms(lambda: decode(cache, tok, S), reps=10, rounds=3)
+    log(f"[lm] decode one token of one slot at position {S}: {ms:.3f} ms "
+        f"(CUDA events); bound {(w_bytes + kv_bytes) / HBM_BW * 1e3:.3f} "
+        f"ms (weights {w_bytes / 1e9:.2f} GB + K/V of {S + 1} positions "
+        f"{kv_bytes / 1e6:.1f} MB at {HBM_BW / 1e12:g} TB/s)")
+    del cache
+    engine = Engine(m16, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    for _ in range(LM_SLOTS):
+        engine.submit(Request(prompt=prompts[3], max_new=LM_MAX_NEW))
+    engine.step()                     # admits (prefills) all four slots
+    wall_ms, busy_ms = profile_run(
+        f"Engine.step(), {LM_SLOTS} slots decoding one token each",
+        engine.step)
+    log(f"[lm] engine host share of one step: {1 - busy_ms / wall_ms:.3f} "
+        f"(wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms)")
+    del engine, m16
+    torch.cuda.empty_cache()
+    log(f"[lm] phase wall {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
+# --------------------------------------------------------------------------
 # phases
 # --------------------------------------------------------------------------
 
@@ -2974,6 +3332,11 @@ def run() -> None:
     # [dist]: the ranks launch these, built here before they start
     for src in dist_sources():
         sources[src.key] = src
+    # [lm]: the fused rmsnorm at minitron-4b's width, sound and planted
+    for _r, cp in lm_norm_cplans():
+        src = cuda_src.source_for(cp)
+        sources[src.key] = src
+        sources[planted(src).key] = planted(src)
     t_plan = time.perf_counter() - t0
     build.build_all(sources.values())
     t_build = time.perf_counter() - t0 - t_plan
@@ -3155,7 +3518,10 @@ def run() -> None:
     # 17. [dist]: distributed segments on a mesh of 4 ranks on the card ----
     dist_rec = dist_phase(traces)
 
-    # 18. result lines -------------------------------------------------------
+    # 18. [lm]: the LM serving path at minitron-4b's full width ------------
+    lm_rec = lm_phase()
+
+    # 19. result lines -------------------------------------------------------
     rows = []
     for k, (src, replaces) in KERNELS.items():
         agg = per_kernel[k]
@@ -3185,6 +3551,17 @@ def run() -> None:
                     f"region it runs; launches over the fault-free serving "
                     f"runs"),
             "parts": agg["parts"]})
+    rows.append({
+        "name": "row_rmsnorm", "route": "cuda", "source": KERNELS["row"][0],
+        "replaces": KERNELS["row"][1], "launches": lm_rec["launches"],
+        "max_abs_err": lm_rec["max_abs_err"], "ms": lm_rec["ms"],
+        "plain_ms": lm_rec["plain_ms"], "bound_ms": lm_rec["bound_ms"],
+        "bound_by": max(lm_rec["bound_by"], key=lm_rec["bound_by"].get),
+        "library_ms": library_ms(lm_rec),
+        "per": (f"one call of models.layers.norm(fusion='gen') over "
+                f"{LM_ARCH}'s layer-0 input of {LM_SEQ} tokens, fp32; "
+                f"launches in the [lm] phase's call"),
+        "parts": lm_rec["parts"]})
     log(json.dumps({"kernels": rows}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

@@ -1,0 +1,8 @@
+"""minitron-4b — 32L dense, pruned nemotron [arXiv:2407.14679; hf]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="minitron-4b", family="dense", n_layers=32, d_model=3072,
+    n_heads=24, n_kv_heads=8, d_ff=9216, vocab=256000,
+    mlp_type="relu2", rope_theta=1e4,
+)

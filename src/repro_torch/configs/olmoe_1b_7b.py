@@ -1,0 +1,8 @@
+"""olmoe-1b-7b — 16L MoE 64e top-8 [arXiv:2409.02060; hf]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="olmoe-1b-7b", family="moe", n_layers=16, d_model=2048,
+    n_heads=16, n_kv_heads=16, d_ff=1024, vocab=50304,
+    n_experts=64, top_k=8, mlp_type="swiglu", rope_theta=1e4,
+)

@@ -1,0 +1,8 @@
+"""starcoder2-7b — 32L dense GQA, RoPE [arXiv:2402.19173; hf]."""
+from .base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="starcoder2-7b", family="dense", n_layers=32, d_model=4608,
+    n_heads=36, n_kv_heads=4, d_ff=18432, vocab=49152,
+    mlp_type="gelu", norm_type="layernorm", rope_theta=1e5,
+)

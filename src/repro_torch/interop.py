@@ -1,5 +1,5 @@
-"""Operands carried across packages: the system has no weights, so what
-crosses is data and the iterate.  :func:`to_torch` turns numpy arrays (or
+"""Operands carried across packages: data, the iterate and, for the LM,
+its weights.  :func:`to_torch` turns numpy arrays (or
 arrays produced by another framework and converted to numpy) into
 contiguous fp32 tensors on a device; :func:`to_bcsr` carries a block-sparse
 matrix across (the reference's ``BCSR`` or anything with its attributes),
@@ -7,7 +7,9 @@ and :func:`to_dict_compressed` a CLA-compressed one (the reference's
 ``DictCompressed`` or anything with its attributes); :func:`to_sharded_bcsr`
 carries a block-row partition, and :func:`to_layout` a layout over an
 abstract mesh (the reference's ``FusionLayout`` over its ``LogicalMesh``),
-so both packages can be handed the same plan inputs."""
+so both packages can be handed the same plan inputs;
+:func:`lm_params_from_jax` turns the reference's LM params tree into the
+port's LM state dict."""
 
 from __future__ import annotations
 
@@ -101,3 +103,42 @@ def to_layout(layout):
                         for a in layout.mesh.axis_names})
     return FusionLayout(mesh, {name: tuple(spec)
                                for name, spec in layout.specs.items()})
+
+
+def _leaf_tensor(a) -> torch.Tensor:
+    """A CPU tensor of one array leaf in its own dtype.  A JAX bf16 array
+    comes across as numpy's ``ml_dtypes.bfloat16``, which
+    ``torch.from_numpy`` refuses: it is widened to fp32 (exact) and cast
+    back."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(a))
+
+
+def lm_params_from_jax(tree) -> dict:
+    """The port's :class:`~repro_torch.models.LM` state dict from the
+    reference's params tree (leaves as numpy arrays): ``blocks[i]`` leaves
+    (G, ...) are unstacked into layer ``g * P + i`` (P pattern layers a
+    group), ``rest[j]`` becomes layer ``G * P + j``; load it with
+    ``LM.load_state_dict``."""
+    state = {"embed": _leaf_tensor(tree["embed"])}
+    if "head" in tree:
+        state["head"] = _leaf_tensor(tree["head"])
+    for k, v in tree["final_norm"].items():
+        state[f"final_norm.{k}"] = _leaf_tensor(v)
+    blocks = tree["blocks"]
+    P = len(blocks)
+    G = 0
+    for i, block in enumerate(blocks):
+        for name, params in block.items():
+            for k, v in params.items():
+                t = _leaf_tensor(v)
+                G = t.shape[0]
+                for g in range(G):
+                    state[f"layers.{g * P + i}.{name}.{k}"] = t[g].clone()
+    for j, layer in enumerate(tree.get("rest", [])):
+        for name, params in layer.items():
+            for k, v in params.items():
+                state[f"layers.{G * P + j}.{name}.{k}"] = _leaf_tensor(v)
+    return state

@@ -193,7 +193,9 @@ namespace rowtile {
 #ifdef RK_PLANTED_FAULT
 // a fault planted only in chip_smoke.py's own builds: the tile layout's
 // row_agg drops the middle element of each row (cuda_src.py reads this
-// flag), and its col_t_agg close drops the middle row slice's partial
+// flag), and its col_t_agg close drops the middle row slice's partial; a
+// warp-layout program's own row aggregates (the rmsnorm's row mean) drop
+// the middle lane's partial
 constexpr bool kPlanted = true;
 #else
 constexpr bool kPlanted = false;

@@ -509,11 +509,16 @@ class _RowEmitter:
             expr = {"sum_sq": f"({x} * {x})"}.get(op, x)
             self.emit(f"const float {name} = {expr};")
             return
+        # the planted fault (chip_smoke.py's builds only) drops the middle
+        # lane's partial (L = 32) or the middle element (L = 1)
+        drop = f"sub == {min(w, self.L) // 2}" if self.L > 1 else \
+            f"t == {w // 2}"
         self.emit(f"float {name};", "{",
                   f"  float s = rk::agg_init({a});",
                   "#pragma unroll",
                   f"  for (int t = 0; t < {self.slots(w)}; ++t)",
-                  f"    if (t * {self.L} + sub < {w}) "
+                  f"    if (t * {self.L} + sub < {w} && "
+                  f"!(rowtile::kPlanted && {drop})) "
                   f"s = rk::agg_add({a}, s, {x});",
                   f"  {name} = rk::lane_reduce<{self.L}>({a}, s);",
                   "}")

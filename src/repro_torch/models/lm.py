@@ -1,0 +1,243 @@
+"""Decoder LM over the attention-only architectures, as an ``nn.Module``.
+
+The reference groups layers into the architecture's repeating *pattern*
+(gemma: 5 local + 1 global; plain: period 1) and scans stacked parameters
+over the groups; here the layers are held one by one (a ``ModuleList`` in
+execution order: group 0's pattern, group 1's, ..., then the rest layers)
+and run in a Python loop.  ``cfg.remat`` and ``cfg.scan_layers`` are JAX's
+knobs and have no effect here.  The KV cache keeps the reference's
+structure, ``{"blocks": [per pattern layer {"k", "v"}], "rest": [...]}``,
+with a leading group axis on block leaves only (rest leaves are
+(B, max_len, KV, hd)).  Modality frontends are stubs as in the reference:
+llava takes precomputed patch embeddings (``prefix_emb``), musicgen sums
+its codebooks' embeddings and has a head per codebook.
+
+The MoE, Mamba and xLSTM blocks are not ported yet (ROADMAP.md queue A
+item 7): a configuration that needs one raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.interop import resolve_device
+from . import attention as attn_mod
+from .layers import apply_norm, mlp, mlp_params, norm_params
+
+N_PATCHES = 256          # llava vision-stub prefix length
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    kind: str            # attn | mamba | mlstm
+    window: int = 0
+    use_moe: bool = False
+
+
+def build_pattern(cfg: ModelConfig) -> list[LayerSpec]:
+    if cfg.block_type == "xlstm":
+        return [LayerSpec("mlstm")]
+    if cfg.block_type == "jamba":
+        p = cfg.attn_period
+        specs = []
+        for i in range(p):
+            kind = "attn" if i == p - 1 else "mamba"
+            specs.append(LayerSpec(kind, 0, cfg.n_experts > 0
+                                   and i % cfg.moe_period == 1))
+        return specs
+    if cfg.local_global_period:
+        p = cfg.local_global_period
+        return [LayerSpec("attn", cfg.sliding_window if i < p - 1 else 0,
+                          cfg.n_experts > 0)
+                for i in range(p)]
+    return [LayerSpec("attn", cfg.sliding_window,
+                      cfg.n_experts > 0)]
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+
+
+def _params(values: dict, dtype, device) -> nn.ParameterDict:
+    """Uninitialised parameters of the shapes of ``values`` (a dict of
+    tensors), under its names."""
+    return nn.ParameterDict({
+        k: nn.Parameter(torch.empty(v.shape, dtype=dtype, device=device))
+        for k, v in values.items()})
+
+
+class LM(nn.Module):
+    """The decoder on ``device`` (the card unless ``"cpu"`` is asked for)
+    in ``cfg.dtype``.  Parameters are allocated here and drawn by
+    :meth:`init`, or loaded from a state dict (e.g.
+    :func:`repro_torch.interop.lm_params_from_jax`)."""
+
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.dtype = _dtype(cfg)
+        self.pattern = build_pattern(cfg)
+        P = len(self.pattern)
+        self.n_groups = cfg.n_layers // P
+        self.rest_specs = self.pattern[:cfg.n_layers % P]
+        self.specs = self.pattern * self.n_groups + self.rest_specs
+        for spec in self.pattern:
+            if spec.kind != "attn" or spec.use_moe:
+                raise NotImplementedError(
+                    f"{cfg.name}: a {'MoE ' if spec.use_moe else ''}"
+                    f"{spec.kind} layer is not ported yet (ROADMAP.md "
+                    f"queue A item 7)")
+        d, V, nc = cfg.d_model, cfg.vocab, cfg.n_codebooks
+        dev, dt = self.device, self.dtype
+        self.embed = nn.Parameter(torch.empty(
+            (nc, V, d) if nc > 1 else (V, d), dtype=dt, device=dev))
+        if not cfg.tie_embeddings:
+            self.head = nn.Parameter(torch.empty(
+                (d, nc * V) if nc > 1 else (d, V), dtype=dt, device=dev))
+        else:
+            self.head = None
+        self.final_norm = _params(norm_params(cfg), dt, dev)
+        shapes = self._layer_params(None)
+        self.layers = nn.ModuleList(
+            nn.ModuleDict({name: _params(p, dt, dev)
+                           for name, p in shapes.items()})
+            for _ in self.specs)
+
+    # ------------------------------------------------------------------ init
+    def _layer_params(self, gen: Optional[torch.Generator]) -> dict:
+        """One layer's parameters drawn from ``gen`` (meta tensors of their
+        shapes without one)."""
+        cfg = self.cfg
+        dev = gen.device if gen is not None else "meta"
+        p = {"ln1": norm_params(cfg, device=dev),
+             "inner": attn_mod.attn_params(gen, cfg)}
+        if cfg.d_ff:
+            p["ln2"] = norm_params(cfg, device=dev)
+            p["mlp"] = mlp_params(gen, cfg)
+        return p
+
+    @torch.no_grad()
+    def init(self, gen: torch.Generator) -> "LM":
+        """Draw every weight from ``gen`` (in fp32 on the generator's
+        device, then cast): embeddings and head N(0, 1/d), each projection
+        N(0, 1/fan_in); rmsnorm scales 0, layernorm scales 1 and biases 0.
+        The same generator state gives the same weights in any dtype up to
+        its rounding.  Returns the module."""
+        cfg = self.cfg
+        d = cfg.d_model
+        self.embed.copy_(torch.randn(self.embed.shape, generator=gen,
+                                     device=gen.device) * d ** -0.5)
+        if self.head is not None:
+            self.head.copy_(torch.randn(self.head.shape, generator=gen,
+                                        device=gen.device) * d ** -0.5)
+        for k, v in norm_params(cfg).items():
+            self.final_norm[k].copy_(v)
+        for layer in self.layers:
+            for name, values in self._layer_params(gen).items():
+                for k, v in values.items():
+                    layer[name][k].copy_(v)
+        return self
+
+    # --------------------------------------------------------------- forward
+    def _apply_layer(self, spec: LayerSpec, p, x, positions, cache=None,
+                     decode=False, pos=None):
+        cfg = self.cfg
+        h = apply_norm(x, p["ln1"], cfg)
+        if decode:
+            y, cache = attn_mod.decode_attention(
+                h, p["inner"], cfg, cache=cache, pos=pos, window=spec.window)
+        else:
+            y, cache = attn_mod.attention(
+                h, p["inner"], cfg, positions=positions, window=spec.window,
+                cache=cache)
+        x = x + y
+        if cfg.d_ff:
+            x = x + mlp(apply_norm(x, p["ln2"], cfg), p["mlp"], cfg.mlp_type)
+        return x, cache
+
+    def _layer_caches(self, caches):
+        """The cache of each layer in execution order (views of the block
+        leaves at their group), or Nones."""
+        if caches is None:
+            return [None] * len(self.specs)
+        P = len(self.pattern)
+        out = [{k: caches["blocks"][i][k][g] for k in ("k", "v")}
+               for g in range(self.n_groups) for i in range(P)]
+        return out + list(caches["rest"])
+
+    def _embed(self, tokens, prefix_emb=None):
+        cfg = self.cfg
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        if cfg.n_codebooks > 1:     # musicgen: (B, S, nc) summed streams
+            x = sum(self.embed[c][tokens[..., c]]
+                    for c in range(cfg.n_codebooks))
+        else:
+            x = self.embed[tokens]
+        if prefix_emb is not None:  # llava: prepend patch embeddings
+            prefix = torch.as_tensor(prefix_emb, device=self.device)
+            x = torch.cat([prefix.to(x.dtype), x], dim=1)
+        return x
+
+    def _logits(self, x):
+        cfg = self.cfg
+        head = self.head if self.head is not None else self.embed.T
+        out = x @ head
+        if cfg.n_codebooks > 1:
+            out = out.reshape(*x.shape[:-1], cfg.n_codebooks, cfg.vocab)
+        return out
+
+    def apply(self, tokens, *, prefix_emb=None, caches=None):
+        """Full-sequence forward (train / prefill).  Returns (logits,
+        caches, moe_aux): with ``caches``, each layer's K/V are written
+        into its first S positions (in place) and the same caches are
+        returned; moe_aux is 0 (no MoE layer is ported)."""
+        x = self._embed(tokens, prefix_emb)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=self.device).expand(B, S)
+        for spec, p, c in zip(self.specs, self.layers,
+                              self._layer_caches(caches)):
+            x, _ = self._apply_layer(spec, p, x, positions, cache=c)
+        x = apply_norm(x, self.final_norm, self.cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        return self._logits(x), caches, aux
+
+    def decode_step(self, caches, token, pos: int):
+        """One decode step.  token: (B, 1) (or (B, 1, nc)); pos: the
+        position it takes.  Returns (logits (B, 1, V...), caches) with
+        every layer's K/V written at ``pos``."""
+        pos = int(pos)
+        x = self._embed(token)
+        for spec, p, c in zip(self.specs, self.layers,
+                              self._layer_caches(caches)):
+            x, _ = self._apply_layer(spec, p, x, None, cache=c, decode=True,
+                                     pos=pos)
+        x = apply_norm(x, self.final_norm, self.cfg)
+        return self._logits(x), caches
+
+    # ---------------------------------------------------------------- caches
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        one = lambda: attn_mod.init_cache(self.cfg, batch, max_len,
+                                          self.dtype, self.device)
+        blocks = [{k: v.expand((self.n_groups,) + v.shape).clone()
+                   for k, v in one().items()} for _ in self.pattern]
+        return {"blocks": blocks, "rest": [one() for _ in self.rest_specs]}
+
+
+# --------------------------------------------------------------------------
+# loss
+# --------------------------------------------------------------------------
+
+def lm_loss(logits: torch.Tensor, targets: torch.Tensor,
+            n_codebooks: int = 1) -> torch.Tensor:
+    """Causal cross-entropy (mean over tokens), in fp32."""
+    lf = logits.float()
+    m = torch.amax(lf, dim=-1, keepdim=True)
+    lse = m + torch.log(torch.sum(torch.exp(lf - m), dim=-1, keepdim=True))
+    tgt = torch.gather(lf, -1, targets.long()[..., None])
+    return torch.mean(lse[..., 0] - tgt[..., 0])

@@ -1,9 +1,11 @@
-"""Fused-plan serving on the card: :class:`FusionServer` (async continuous
-batching over compiled plans, one request-axis kernel launch per fused
-operator and batch), its metrics, and the shared error taxonomy.  The
-reference's LM ``Engine`` belongs to the LM stack (ROADMAP.md queue A
-item 7) and is not ported yet."""
+"""Serving on the card: :class:`FusionServer` (async continuous batching
+over compiled plans, one request-axis kernel launch per fused operator and
+batch), its metrics, the LM :class:`Engine` (continuous batching of
+prefill and KV-cache decode over the port's LM; its sharded form waits
+with the layout planner, ROADMAP.md queue A item 7), and the shared error
+taxonomy."""
 
+from .engine import Engine, Request
 from .errors import (AdmissionError, DeadlineExceededError,
                      FusionServeError, NonFiniteOutputError,
                      PlanCompileError, PlanQuarantinedError,
@@ -12,6 +14,7 @@ from .fusion import (CircuitBreaker, FusionServer, PadReport, pad_safety)
 from .metrics import Reservoir, ServerMetrics, percentiles
 
 __all__ = [
+    "Engine", "Request",
     "FusionServer", "CircuitBreaker",
     "FusionServeError", "ServerClosedError", "AdmissionError",
     "QueueFullError", "DeadlineExceededError", "PlanQuarantinedError",

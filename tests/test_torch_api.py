@@ -81,7 +81,13 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.ops, repro_torch.kernels.build, "
             "repro_torch.kernels.sweep, repro_torch.core.api, "
             "repro_torch.faults, repro_torch.serve, "
-            "repro_torch.serve.fusion, repro_torch.serve.metrics\n"
+            "repro_torch.serve.fusion, repro_torch.serve.metrics, "
+            "repro_torch.serve.engine, repro_torch.launch.serve, "
+            "repro_torch.models, repro_torch.models.layers, "
+            "repro_torch.models.attention, repro_torch.models.lm, "
+            "repro_torch.configs, repro_torch.configs.registry\n"
+            "from repro_torch.configs import ARCH_IDS, get_config\n"
+            "cfgs = [get_config(a) for a in ARCH_IDS]\n"
             "from repro_torch import faults\n"
             "faults.ensure_registered()\n"
             "from repro_torch.kernels import cuda_src, sweep\n"

@@ -9,7 +9,8 @@ CPU, MLogReg, GLM, KMeans and the autoencoder on the card against
 ``kernels="never"``, KMeans' assignment rows, and the Outer kernel
 launched exactly for a BCSR on the card; the request-axis kernels per
 request and the fusion server on the card; a distributed segment's
-misaligned row panel copied, not refused.  Marked ``gpu``; without a card
+misaligned row panel copied, not refused; the LM's fused rmsnorm at
+3,072 columns as one Row launch.  Marked ``gpu``; without a card
 every test skips.  Imports no JAX (the machine with the card has none):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -430,3 +431,33 @@ def test_fusion_server_on_the_card_matches_direct_calls(card):
         assert server.metrics.snapshot()["runtime_fallbacks"] == []
     finally:
         server.close()
+
+
+@pytest.fixture(scope="module")
+def lm_norm_card():
+    """The card, with the LM rmsnorm's Row kernel (sound and planted, at
+    minitron-4b's width) built."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smoke = chip_smoke()
+    srcs = [cuda_src.source_for(cp) for _l, cp in smoke.lm_norm_cplans()]
+    build.build_all({s.key: s for s in srcs + [smoke.planted(s)
+                                               for s in srcs]}.values())
+    return smoke
+
+
+def test_lm_fused_rmsnorm_at_width_3072_is_one_row_launch(lm_norm_card):
+    """``models.layers.norm(fusion="gen")`` over 2,048 x 3,072 on the card
+    is one Row launch, every element within the kernel limit of its plain
+    version, and the planted fault in its row mean fails that limit."""
+    smoke = lm_norm_card
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn((smoke.LM_SEQ, 3072), generator=gen, device="cuda")
+    s = 0.1 * torch.randn((3072,), generator=gen, device="cuda")
+    chk = smoke.lm_norm_check(x, s)
+    assert chk["launches"] == {"cell": 0, "magg": 0, "row": 1, "outer": 0}
+    assert chk["share"] <= 1.0 < chk["fault_share"]
+    want = torch.nn.functional.rms_norm(x, (3072,), weight=1.0 + s,
+                                        eps=1e-6)
+    torch.testing.assert_close(chk["out"], want, rtol=1e-5, atol=1e-5)

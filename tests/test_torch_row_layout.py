@@ -156,3 +156,33 @@ def test_tile_source_is_independent_of_m(name):
     big = cuda_src.source_for(sweep.fused_cplan(case, 10_000_000, 100)[0])
     assert small.layout == "tile" and small.text == big.text
     assert small.key == big.key
+
+
+def test_lm_rmsnorm_is_one_warp_row_cplan_with_a_planted_row_mean():
+    """The LM path's fused rmsnorm at minitron-4b's width (2,048 x 3,072):
+    one ROW no_agg CPlan of 8 nodes whose row mean feeds every element,
+    in the warp layout (96 register slots a lane); chip_smoke's planted
+    build of it drops the middle lane's partial of the row mean."""
+    smoke = chip_smoke()
+    (label, cp), = smoke.lm_norm_cplans()
+    src = cuda_src.source_for(cp)
+    assert (label, src.template, src.variant, src.layout) == \
+        ("_rms", "row", "no_agg", "warp")
+    assert [op for (_n, op, *_r) in cp.prog] == [
+        "pow2", "mean", "add", "sqrt", "recip", "mul", "add", "mul"]
+    assert [tuple(b.shape) for b in cp.binds] == [(2048, 3072), (1, 1),
+                                                  (1, 3072)]
+    consts = _consts(src.text)
+    assert (consts["C"], consts["L"], consts["TR"]) == (3072, 32, 96)
+    assert "!(rowtile::kPlanted && sub == 16)" in src.text
+    bad = smoke.planted(src)
+    assert bad.text == smoke.PLANT + src.text and bad.key != src.key
+
+
+def test_lm_rmsnorm_sources_parse(tmp_path):
+    from test_torch_cell_layout import _parse
+    smoke = chip_smoke()
+    srcs = [cuda_src.source_for(cp) for _l, cp in smoke.lm_norm_cplans()]
+    srcs += [smoke.planted(s) for s in srcs]
+    for key, rc, err in _parse(srcs, tmp_path):
+        assert rc == 0, f"{key}:\n{err}"
