@@ -12,6 +12,8 @@ toolkit:
                                     # per-CPlan times, no checks: copied
                                     # into another checkout, it measures
                                     # that tree's package the same way
+    python3 chip_smoke.py --lm-times   # only [lm]'s prefill, decode and
+                                       # Engine.step() readings, likewise
 
 Phases, each reported on its own lines with its wall time:
 
@@ -130,30 +132,55 @@ Phases, each reported on its own lines with its wall time:
    the kernel limit per element and timed beside its panel bound (device
    ms from CUDA events queued behind a spin kernel, the profiler's, and
    the call's CUDA-event ms), and the collectives' wall time;
-18. ``[lm]``: the LM serving path at minitron-4b's full width (32
-   layers, d_model 3,072, vocab 256,000; 4,190,306,304 parameters drawn
-   on the card from a seeded ``torch.Generator``, bf16, and an fp32 model
-   of the same draws): ``serve.Engine`` (4 slots of 2,304 positions) serves
-   five requests of 2,048 / 777 / 512 / 33 / 1 prompt tokens and 32 new
-   tokens each through its queue, token for token equal to a direct run
-   of ``LM.apply`` + ``decode_step`` (bf16); fp32 ``decode_step`` logits
-   over the last 8 of 2,048 positions within 1e-4 of max |logit| of the
-   full forward's, and a planted fault (K/V written at pos + 1) must fail;
-   layer 0's attention chunked (1,024) against dense within 1e-5 (fp32);
-   bf16 against fp32 prefill logits (worst error and top-1 agreement,
-   recorded); ``models.layers.norm(fusion="gen")`` over layer 0's input
-   (2,048 x 3,072 fp32) with the counters set to 0 just before it and read
-   just after: exactly one Row launch, no fallback, every element within
-   the kernel limit of its plain version, a planted fault in its row mean
-   that must fail, and its time beside its bound and ``F.rms_norm``;
-   prefill at 2,048 and 512 tokens and one decode step, beside their
-   bounds; the host share of one profiled ``Engine.step()``;
-19. one JSON line with every kernel (launches and times summed over the
+18.-21. ``[lm]``, ``[lm-moe]``, ``[lm-hybrid]``, ``[lm-xlstm]``: the LM
+   serving path, one phase a model of ``LM_ARCHS``: minitron-4b at full
+   width and depth (32 attention layers, d_model 3,072, vocab 256,000;
+   4,190,306,304 parameters), olmoe-1b-7b at full width and depth (16
+   layers, 64 experts top-8, dense MoE: 6,919,096,320 parameters),
+   jamba-v0.1-52b at full width for one period of 8 of its 32 layers (7
+   Mamba + 1 attention, MoE 16 experts top-2 on the odd layers:
+   13,265,932,288 parameters; the whole model is 103 GB in bf16) and
+   xlstm-1.3b at full width and depth (48 mLSTM layers, 4 heads of 1,024:
+   3,831,597,056 parameters), each drawn on the card from a seeded
+   ``torch.Generator`` in bf16 and, after the bf16 model is freed, in
+   fp32 of the same draws.  Each: ``serve.Engine`` (4 slots) serves its
+   requests through its queue (minitron 2,048 / 777 / 512 / 33 / 1
+   prompt tokens, olmoe and jamba 2,048 / 777 / 512 / 33, 32 new each;
+   xlstm 512 / 129 / 33 / 1, 16 new; then the second prompt again, in a
+   reused slot) token for token equal to direct ``LM.apply`` +
+   ``decode_step`` runs from a zero state, the reused slot's equal to the
+   fresh slot's; ``models.layers.norm(fusion="gen")`` over layer 0's
+   input (2,048 x 3,072, x 2,048 or x 4,096 fp32) with the counters set
+   to 0 just before it and read just after: exactly one Row launch, no
+   fallback, every element within the kernel limit of its plain version,
+   a planted fault in its row mean that must fail, its time beside its
+   bound and ``F.rms_norm``, and the build's ptxas register and spill
+   lines; prefill and decode ms beside their bounds (the weights the
+   implementation reads, dense MoE reading every expert, and the active
+   weights) and the host share of one profiled ``Engine.step()``; fp32
+   ``decode_step`` logits over the last 8 positions (of 2,048; xlstm 136)
+   within 1e-4 of max |logit| of the full forward's, with planted faults
+   at the first decode step that must fail (K/V written at pos + 1, the
+   Mamba / mLSTM state left unwritten, the MoE top gate zeroed), the MoE
+   layers pinned to the full forward's experts and a token whose own
+   top-k differs allowed only where the full forward's k-th and (k+1)-th
+   probabilities are within 1e-5; xlstm's check held to 1e-4 in fp64 and
+   in fp32 to twice its fp32 rounding floor (1e-4 where that is larger);
+   minitron: layer 0's attention chunked (1,024) against dense within
+   1e-5 (fp32), bf16 against fp32 prefill logits (recorded); for the MoE
+   models one full-width MoE layer in fp32 through ``dense``, ``ragged``
+   and ``capacity`` (factor E/k: nothing dropped) within 1e-5, and the
+   pairs a factor of 1.0 drops; peak device memory and wall time per
+   phase;
+22. one JSON line with every kernel (launches and times summed over the
    single-device paths; the request-axis forms with their serving
    launches and their times at 8 x 1,048,576 x 100; a ``dist`` record per
    kernel with the [dist] ranks' own launches, its worst panel check and
    its panel times; ``row_rmsnorm``, the Row kernel's fused-rmsnorm call
-   of [lm]), the card line, and the final ``{"ok": true, ...}`` line.
+   of [lm], and ``row_rmsnorm_lm_moe`` / ``_lm_hybrid`` / ``_lm_xlstm``,
+   its calls at 2,048 and 4,096 columns with each phase's prefill and
+   decode times), the card line, and the final ``{"ok": true, ...}``
+   line.
 
 Any failed check raises; the script then prints the traceback and exits 1
 without a result line.  It imports nothing of JAX or of ``repro``.
@@ -2900,57 +2927,46 @@ def dist_check(ranks: list, traces: dict) -> dict:
 
 
 # --------------------------------------------------------------------------
-# [lm]: the LM serving path at minitron-4b's full width (phase 18)
+# [lm], [lm-moe], [lm-hybrid], [lm-xlstm]: the LM serving path on the
+# card, one phase a model (phases 18-21)
 # --------------------------------------------------------------------------
 
-#: the model: minitron-4b (src/repro_torch/configs/minitron_4b.py) at full
-#: width and depth, bf16 weights drawn on the card from a seeded generator,
-#: and an fp32 model of the same draws
+#: [lm]'s model, minitron-4b (src/repro_torch/configs/minitron_4b.py), and
+#: the seed every phase draws its weights from (bf16, then fp32 of the
+#: same draws)
 LM_ARCH = "minitron-4b"
 LM_SEED = 19
-#: the engine: 4 slots of 2,304 positions; five requests through its queue,
-#: so one slot is reused: prompts of 2,048 tokens (chunked attention: over
-#: attn_chunk 1,024 and a multiple of it), 777 and 512 (dense scores), 33
-#: and 1, each decoding 32 tokens
-LM_SLOTS, LM_MAX_LEN, LM_MAX_NEW = 4, 2304, 32
-LM_PROMPTS = (2048, 777, 512, 33, 1)
-#: the fp32 checks' sequence, and the positions decoded at its end
+#: the engine's slots, and the decode steps timed without the profiler
+LM_SLOTS, LM_STEPS = 4, 8
+#: the sequence of the rmsnorm and of [lm]'s checks, and the positions
+#: decoded at the end of a decode check
 LM_SEQ, LM_TAIL = 2048, 8
 #: fp32 decode_step logits against the full forward's at the same
 #: positions, of max |logit|: one query against the cache vs the prefill's
 #: products, summed in other orders (TF32 off)
 LM_DECODE_RTOL = 1e-4
+#: a decode check held in fp64 holds its fp32 reading to this multiple of
+#: the fp32 rounding floor (:func:`forward_floor`), or to LM_DECODE_RTOL
+#: where that is larger, and its planted faults must exceed it there too
+LM_FLOOR_X = 2.0
+#: a routing flip (a decode token whose own top-k differs from the full
+#: forward's, which the check pins) is allowed only at a near-tie: the full
+#: forward's k-th probability at most this far above its (k+1)-th
+LM_TIE = 1e-5
 #: one layer's attention, chunked (attn_chunk 1,024) against dense scores,
 #: fp32, of max |out|: online softmax vs one softmax
 LM_CHUNK_RTOL = 1e-5
-#: prefill lengths timed, and the decode position timed (after the prefill
-#: of the last length)
-LM_PREFILL_TIMES = (2048, 512)
 BF16_PEAK = 989e12           # H100 SXM bf16 dense tensor cores, FLOP/s
 
 
-def lm_norm_cplans():
-    """The fused rmsnorm's CPlans over LM_SEQ rows of the model's width,
-    planned on shapes alone."""
+def lm_norm_cplans(d: int = 0):
+    """The fused rmsnorm's CPlans over LM_SEQ rows of width ``d`` ([lm]'s
+    model's width by default), planned on shapes alone."""
     from repro_torch.configs import get_config
     from repro_torch.models import layers
-    d = get_config(LM_ARCH).d_model
+    d = d or get_config(LM_ARCH).d_model
     return region_cplans([(layers._rms, (meta(LM_SEQ, d), meta(1, d),
                                          meta(1, 1)), False)])
-
-
-def lm_models():
-    """(cfg, the bf16 model, the fp32 model) on the card, both drawn from
-    a generator seeded with LM_SEED (the same draws, cast)."""
-    import torch
-    from repro_torch.configs import get_config
-    from repro_torch.models import LM
-    cfg = get_config(LM_ARCH)
-    models = []
-    for c in (cfg, dataclasses.replace(cfg, dtype="float32")):
-        gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
-        models.append(LM(c, device="cuda").init(gen).requires_grad_(False))
-    return cfg, *models
 
 
 def lm_tokens(gen, n: int, vocab: int):
@@ -2987,23 +3003,6 @@ def planted_cache_write():
         yield
     finally:
         attention._write_decode = orig
-
-
-def lm_decode_share(model, toks, full) -> float:
-    """Worst |decode_step logits - full forward logits| over the last
-    LM_TAIL positions of ``toks`` (prefill of the rest), as a share of the
-    full forward's max |logit| there."""
-    import torch
-    P = LM_SEQ - LM_TAIL
-    cache = model.init_cache(1, LM_SEQ + LM_TAIL)   # room for pos + 1
-    worst = 0.0
-    with torch.no_grad():
-        model.apply(toks[:, :P], caches=cache)
-        for t in range(P, LM_SEQ):
-            logits, cache = model.decode_step(cache, toks[:, t:t + 1], t)
-            worst = max(worst, float((logits[0, 0] - full[0, t]).abs()
-                                     .max()))
-    return worst / float(full[0, P:].abs().max())
 
 
 def lm_norm(x, s):
@@ -3069,168 +3068,685 @@ def lm_norm_check(x, s) -> dict:
             "err": err, "share": share, "fault_share": fault_share}
 
 
-def lm_phase() -> dict:
-    """[lm]: minitron-4b at full width on the card.  The engine's greedy
-    tokens equal a direct run of LM.apply + decode_step (bf16); fp32
-    decode_step logits equal the full forward's at the end of a 2,048-token
-    sequence (and a planted cache-write fault fails); chunked attention
-    equals dense; bf16 against fp32 prefill logits (recorded); the fused
-    rmsnorm of layer 0's input as one Row launch, held to its plain
-    version, with a planted fault, and timed; prefill and decode times
-    beside their bounds and the engine's host share.  Returns the fused
-    norm's kernel record."""
-    import numpy as np
+def ptxas_lines(src) -> list:
+    """The ptxas register and spill lines of a built kernel source (its
+    nvcc log under kernels/_build)."""
+    from repro_torch.kernels import build
+    log_path = build.library_path(src).with_suffix(".log")
+    if not log_path.exists():
+        return [f"no build log at {log_path.name}"]
+    return [ln.strip() for ln in log_path.read_text().splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
+def lm_norm_record(tag: str, m16, toks, gen) -> dict:
+    """``[tag]``: the fused rmsnorm of layer 0's input (the embeddings of
+    ``toks``, cast to fp32 as norm does) on the Row kernel: held to its
+    plain version with its planted fault (:func:`lm_norm_check`), timed
+    beside its bound and ``F.rms_norm`` (CUDA events, the profiler and
+    events queued behind a spin kernel), with the build's ptxas lines.
+    The model's own ln1 scale is 0 at init, which would hide a misread
+    side, so the scale is drawn.  Returns the kernel record."""
     import torch
-    from repro_torch.kernels import ref, rowwise
-    from repro_torch.launch.serve import make_prefill_step, make_serve_step
-    from repro_torch.models import attention, layers
-    from repro_torch.serve import Engine, Request
-    t0 = time.perf_counter()
-    cfg, m16, m32 = lm_models()
-    n_params = sum(p.numel() for p in m16.parameters())
-    w_bytes = sum(p.numel() * p.element_size() for p in m16.parameters())
-    # the config's count leaves out the final norm's scale
-    counted = n_params - sum(p.numel() for p in m16.final_norm.parameters())
-    if counted != cfg.total_params:
-        raise AssertionError(f"{counted} parameters besides the final "
-                             f"norm, the config counts {cfg.total_params}")
-    log(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
-        f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.hd}, d_ff "
-        f"{cfg.d_ff} ({cfg.mlp_type}), vocab {cfg.vocab}; {n_params:,} "
-        f"parameters ({cfg.total_params:,} besides the final norm) drawn "
-        f"on the card (seed {LM_SEED}) as bf16 "
-        f"({w_bytes / 1e9:.2f} GB) and fp32; set-up "
-        f"{time.perf_counter() - t0:.1f} s")
-    gen = torch.Generator(device="cuda").manual_seed(LM_SEED + 1)
-
-    # the engine against direct decode, bf16
-    prompts = [lm_tokens(gen, n, cfg.vocab).cpu().numpy().astype(np.int32)
-               for n in LM_PROMPTS]
-    engine = Engine(m16, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
-    reqs = [Request(prompt=p, max_new=LM_MAX_NEW) for p in prompts]
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for r in reqs:
-        engine.submit(r)
-    engine.run_until_done()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t1
-    for p, r in zip(prompts, reqs):
-        want = lm_direct(m16, p, LM_MAX_NEW, LM_MAX_LEN)
-        if not (r.done and r.error is None and r.out == want):
-            raise AssertionError(f"engine tokens of the {len(p)}-token "
-                                 f"prompt {r.out} != direct decode {want}")
-    log(f"[lm] engine ({LM_SLOTS} slots x {LM_MAX_LEN} positions, bf16): "
-        f"{len(reqs)} requests of {list(LM_PROMPTS)} tokens, "
-        f"{LM_MAX_NEW} new each, equal to direct LM.apply + decode_step "
-        f"token for token; wall {wall:.2f} s for "
-        f"{sum(len(r.out) for r in reqs)} tokens (prefills included)")
-    del engine
-
-    # prefill -> decode, chunked vs dense, bf16 vs fp32: one sequence
-    toks = lm_tokens(gen, LM_SEQ, cfg.vocab)[None]
-    with torch.no_grad():
-        full32 = m32.apply(toks)[0]
-    share = lm_decode_share(m32, toks, full32)
-    with planted_cache_write():
-        fault = lm_decode_share(m32, toks, full32)
-    log(f"[lm] fp32 decode_step vs the full forward over the last {LM_TAIL} "
-        f"of {LM_SEQ} positions: worst {share:.3e} of max |logit| (limit "
-        f"{LM_DECODE_RTOL:g}); planted fault (K/V written at pos + 1): "
-        f"{fault:.3e}")
-    if not share <= LM_DECODE_RTOL:
-        raise AssertionError("prefill -> decode logits disagree")
-    if not fault > LM_DECODE_RTOL:
-        raise AssertionError("the planted cache-write fault passed the "
-                             "prefill -> decode check")
-    layer = m32.layers[0]
-    with torch.no_grad():
-        h = layers.apply_norm(m32._embed(toks), layer["ln1"], m32.cfg)
-        pos = torch.arange(LM_SEQ, device="cuda")[None]
-        chunked, dense = (attention.attention(
-            h, layer["inner"], dataclasses.replace(m32.cfg, attn_chunk=c),
-            positions=pos, window=m32.specs[0].window)[0]
-            for c in (m32.cfg.attn_chunk, 0))
-    rel = float((chunked - dense).abs().max() / dense.abs().max())
-    log(f"[lm] layer 0 attention at S = {LM_SEQ}, fp32: chunked "
-        f"({m32.cfg.attn_chunk}) vs dense, {rel:.3e} of max |out| (limit "
-        f"{LM_CHUNK_RTOL:g})")
-    if not rel <= LM_CHUNK_RTOL:
-        raise AssertionError("chunked and dense attention disagree")
-    del chunked, dense, h
-    with torch.no_grad():
-        full16 = m16.apply(toks)[0]
-    diff = float((full16.float() - full32).abs().max())
-    top1 = float((full16.argmax(-1) == full32.argmax(-1)).float().mean())
-    log(f"[lm] bf16 vs fp32 prefill logits over {LM_SEQ} positions: worst "
-        f"{diff / float(full32.abs().max()):.3e} of max |logit|, top-1 "
-        f"token equal at {top1:.4f} of positions (recorded, no limit)")
-    del full16, full32, m32
-    torch.cuda.empty_cache()
-
-    # the fused rmsnorm of layer 0's input (the embeddings, cast to fp32
-    # as norm does) on the Row kernel; the model's own ln1 scale is 0 at
-    # init, which would hide a misread side, so the scale is drawn
+    from repro_torch.kernels import cuda_src, ref, rowwise
+    d = m16.cfg.d_model
     x = m16._embed(toks).float()
-    s = 0.1 * torch.randn((cfg.d_model,), generator=gen, device="cuda")
+    s = 0.1 * torch.randn((d,), generator=gen, device="cuda")
     chk = lm_norm_check(x, s)
     cp, env = chk["cplan"], chk["env"]
-    log(f"[lm] fused rmsnorm {tuple(x.shape)} -> one ROW "
+    log(f"[{tag}] fused rmsnorm {tuple(x.shape)} -> one ROW "
         f"{cp.variant} CPlan ({layout_name(cp)} layout), launches "
         f"{json.dumps(chk['launches'])}; max|kernel-plain| "
         f"{chk['err']:.3e} = {chk['share']:.3g} x limit; planted fault "
         f"{chk['fault_share']:.3g} x limit")
+    spill = ptxas_lines(cuda_src.source_for(cp))
+    log(f"[{tag}] rmsnorm kernel build (ptxas): {' | '.join(spill)}")
     weight = 1.0 + s
     x2 = env[cp.main.nid]
     calls = {"kernel": lambda: rowwise.row(cp, env),
              "plain": lambda: ref.execute_dense(cp, env),
              "library": lambda: torch.nn.functional.rms_norm(
-                 x2, (cfg.d_model,), weight=weight, eps=1e-6)}
-    part = time_part("lm rmsnorm", "row", cp, env, calls["kernel"],
+                 x2, (d,), weight=weight, eps=1e-6)}
+    part = time_part(f"{tag} rmsnorm", "row", cp, env, calls["kernel"],
                      calls["plain"], chk["out"], calls["library"])
     # device time a second way, without the profiler: CUDA events queued
     # behind a spin kernel, so the host's launch path is outside them
     queued = {k: queued_ms(fn) for k, fn in calls.items()}
     part["queued_ms"] = queued
-    log(f"[lm] rmsnorm device ms by CUDA events queued behind a spin "
+    part["ptxas"] = spill
+    log(f"[{tag}] rmsnorm device ms by CUDA events queued behind a spin "
         f"kernel: {json.dumps(queued)}; bound {part['bound_ms']:.4f} ms")
     rec = new_record()
     add_part(rec, part)
     rec.update(launches=chk["launches"]["row"], max_abs_err=chk["err"])
     del x, s, chk, env, x2
     torch.cuda.empty_cache()
+    return rec
 
-    # times, bf16
-    prefill, decode = make_prefill_step(m16), make_serve_step(m16)
-    cache = m16.init_cache(1, LM_MAX_LEN)
-    for S in LM_PREFILL_TIMES:
+
+class LMArch(NamedTuple):
+    """One model of the LM phases and how it is cut to run: ``n_layers``
+    0 keeps the configuration's depth; the engine's requests through 4
+    slots, the last repeating the second prompt, so it is served in a slot
+    another request used before; the decode check over ``seq`` tokens
+    (its last LM_TAIL decoded); ``faults`` planted at one decode step of
+    that check: "kv" (every attention layer writes the token's K/V at
+    pos + 1), "state" (every Mamba / mLSTM layer leaves its state
+    unwritten) and "gate" (every MoE layer zeroes the token's top gate),
+    held to LM_DECODE_RTOL in ``check_dtype``; prefill lengths timed,
+    ``(reps, rounds)`` of each; ``counted``: the parameters besides the
+    final norm equal the configuration's count; ``attn_checks``: layer
+    0's attention chunked against dense, and bf16 against fp32 logits
+    (:func:`lm_attn_checks`)."""
+    tag: str
+    arch: str
+    n_layers: int
+    prompts: tuple
+    max_new: int
+    max_len: int
+    seq: int
+    faults: tuple
+    check_dtype: str
+    prefill_times: tuple
+    prefill_reps: tuple
+    cut: str
+    counted: bool = False
+    attn_checks: bool = False
+
+
+LM_ARCHS = (
+    # prompts of 2,048 tokens (chunked attention: over attn_chunk 1,024 and
+    # a multiple of it), 777 and 512 (dense scores), 33 and 1
+    LMArch("lm", LM_ARCH, 0, (2048, 777, 512, 33, 1, 777), 32, 2304,
+           LM_SEQ, ("kv",), "float32", (2048, 512), (3, 3),
+           "full width and depth", counted=True, attn_checks=True),
+    LMArch("lm-moe", "olmoe-1b-7b", 0, (2048, 777, 512, 33, 777), 32, 2304,
+           2048, ("gate",), "float32", (2048, 512), (3, 3),
+           "full width and depth", counted=True),
+    LMArch("lm-hybrid", "jamba-v0.1-52b", 8, (2048, 777, 512, 33, 777), 32,
+           2304, 2048, ("state", "gate"), "float32", (2048, 512), (3, 3),
+           "full width, one period of 8 of its 32 layers: all 32 are "
+           "51.5e9 parameters, 103 GB in bf16, more than one card holds "
+           "(the full depth waits for the sharded engine)"),
+    LMArch("lm-xlstm", "xlstm-1.3b", 0, (512, 129, 33, 1, 129), 16, 640,
+           136, ("state",), "float64", (512, 129), (1, 2),
+           "full width and depth; prompts of 512 / 129 / 33 / 1 tokens "
+           "(16 new each) and a 136-token decode check, shorter than "
+           "[lm]'s: the mLSTM recurrence is a loop of ~20 eager ops a "
+           "step per layer; the decode check is held to its limit in "
+           "fp64, and in fp32 to LM_FLOOR_X x its rounding floor, which "
+           "is of the limit's order at 48 layers"),
+)
+#: the MoE forms: one full-width MoE layer in fp32 over LM_SEQ tokens,
+#: ragged and capacity (a factor of E/k: nothing drops) against dense, of
+#: max |out|: the same products summed in other orders (TF32 off)
+LM_MOE_RTOL = 1e-5
+
+
+def lm_norm_widths() -> list:
+    """The widths the fused rmsnorm runs at: each LM_ARCHS model's."""
+    from repro_torch.configs import get_config
+    return sorted({get_config(m.arch).d_model for m in LM_ARCHS})
+
+
+def lm_arch_model(run: LMArch, dtype: str):
+    """The run's model on the card in ``dtype``, drawn from a generator
+    seeded with LM_SEED (the same draws in either dtype, cast)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import LM
+    cfg = dataclasses.replace(get_config(run.arch), dtype=dtype)
+    if run.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=run.n_layers)
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
+    model = LM(cfg, device="cuda").init(gen).requires_grad_(False)
+    torch.cuda.synchronize()
+    return model
+
+
+def lm_weight_counts(model) -> dict:
+    """Parameters and bytes: all of them; those one decode token reads
+    with the model's MoE implementation (the embedding table but one
+    row; dense MoE reads every expert); and those it reads with only the
+    top-k experts of each MoE layer (the active weights)."""
+    cfg = model.cfg
+    n = sum(p.numel() for p in model.parameters())
+    el = model.embed.element_size()
+    emb = model.embed.numel() - cfg.d_model * cfg.n_codebooks
+    idle = 0
+    for spec, layer in zip(model.specs, model.layers):
+        if spec.use_moe:
+            experts = sum(layer["mlp"][w].numel() for w in ("w1", "w2", "w3")
+                          if w in layer["mlp"])
+            idle += experts * (cfg.n_experts - cfg.top_k) // cfg.n_experts
+    read = n - (0 if model.head is None else emb)
+    return {"params": n, "bytes": n * el, "read": read * el,
+            "read_params": read, "active": (read - idle) * el,
+            "active_params": read - idle}
+
+
+def lm_state_bytes(cache) -> tuple[int, int]:
+    """(recurrent-state bytes, K/V bytes) of a cache: every leaf but an
+    attention layer's ``k`` / ``v`` is recurrent state."""
+    st = kv = 0
+    for layer in cache["blocks"] + cache["rest"]:
+        for k, v in layer.items():
+            nbytes = v.numel() * v.element_size()
+            if k in ("k", "v"):
+                kv += nbytes
+            else:
+                st += nbytes
+    return st, kv
+
+
+def recurrence_flops(model, S: int) -> int:
+    """fp32 operations of the Mamba and mLSTM recurrences over S tokens
+    (the projections around them are counted with the weights): Mamba
+    ~7 per (d_inner, N) state element a step (dA, dBx, the update, y);
+    mLSTM ~6 per (hd, hd) element of each head's C a step (v kᵀ, the
+    gated update, C q)."""
+    cfg = model.cfg
+    di = cfg.ssm_expand * cfg.d_model
+    per = {"mamba": 7 * di * cfg.ssm_state,
+           "mlstm": 6 * di * di // max(cfg.n_heads, 1), "attn": 0}
+    return S * sum(per[spec.kind] for spec in model.specs)
+
+
+@contextlib.contextmanager
+def planted_state_skip():
+    """A fault planted in decode: every Mamba / mLSTM layer leaves its
+    recurrent state unwritten."""
+    from repro_torch.models import mamba, xlstm
+    orig = mamba._write_state
+    mamba._write_state = xlstm._write_state = lambda state, new: None
+    try:
+        yield
+    finally:
+        mamba._write_state = xlstm._write_state = orig
+
+
+@contextlib.contextmanager
+def planted_gate_zero():
+    """A fault planted in decode: every MoE layer zeroes each token's top
+    gate."""
+    from repro_torch.models import moe
+    orig = moe._gates
+
+    def gates(x, router, k, with_aux=True):
+        g, topv, topi, aux = orig(x, router, k, with_aux)
+        g = g.scatter(1, topi[:, :1], 0.0)
+        topv = topv.clone()
+        topv[:, 0] = 0.0
+        return g, topv, topi, aux
+    moe._gates = gates
+    try:
+        yield
+    finally:
+        moe._gates = orig
+
+
+PLANTS = {"kv": (planted_cache_write, "K/V written at pos + 1"),
+          "state": (planted_state_skip, "recurrent state left unwritten"),
+          "gate": (planted_gate_zero, "top gate zeroed")}
+
+
+class Routing:
+    """Stands in for ``models.moe._gates`` to record or pin the MoE
+    layers' top-k experts.  Recording (no ``pins``): each call's experts
+    and each token's margin (its k-th probability less its (k+1)-th) are
+    kept, in call order (a forward calls the MoE layers in layer order).
+    Pinned (``pins``: one (experts (S, k), margins (S,)) pair per MoE
+    layer, from a recorded forward over S tokens): each call takes, for
+    its rows ``offset`` ..., the pinned experts instead of its own top-k,
+    their probabilities renormalized as ``_gates`` does, and keeps the
+    recorded margin of each token whose own top-k differs (a flip)."""
+
+    def __init__(self, pins=None):
+        self.pins, self.taken, self.calls = pins, [], 0
+        self.offset, self.margins = 0, []
+
+    def __call__(self, x, router, k, with_aux=True):
+        import torch
+        g, topv, topi, aux = self.orig(x, router, k, with_aux)
+        if self.pins is None:
+            probs = torch.softmax((x @ router).float(), dim=-1)
+            top = torch.topk(probs, k + 1, dim=-1).values
+            self.taken.append((topi, top[:, k - 1] - top[:, k]))
+            return g, topv, topi, aux
+        pin, margin = (t[self.offset:self.offset + x.shape[0]]
+                       for t in self.pins[self.calls % len(self.pins)])
+        self.calls += 1
+        flipped = (topi.sort(-1).values != pin.sort(-1).values).any(-1)
+        self.margins += margin[flipped].tolist()
+        probs = torch.softmax((x @ router).float(), dim=-1)
+        topv = probs.gather(1, pin)
+        topv = topv / torch.sum(topv, dim=-1, keepdim=True)
+        g = torch.zeros_like(probs).scatter(1, pin, topv).to(x.dtype)
+        return g, topv, pin, aux
+
+    @contextlib.contextmanager
+    def installed(self):
+        from repro_torch.models import moe
+        self.orig = moe._gates
+        moe._gates = self
+        try:
+            yield self
+        finally:
+            moe._gates = self.orig
+
+
+def full_forward(model, toks):
+    """(logits of one forward over ``toks``, its MoE layers' top-k
+    experts in layer order)."""
+    import torch
+    rec = Routing()
+    with torch.no_grad(), rec.installed():
+        full = model.apply(toks)[0]
+    return full, rec.taken
+
+
+def decode_share(model, toks, full, pins, plant=None) -> tuple:
+    """Worst |decode_step logits - full forward logits| over the last
+    LM_TAIL positions of ``toks`` (prefill of the rest, from a zero
+    state), as a share of the full forward's max |logit| there, with every
+    MoE layer pinned to the full forward's experts (``pins``; None: each
+    takes its own top-k).  Top-k routing is discontinuous: a near-tie
+    that the rounding of two matmul shapes resolves differently moves a
+    token to another expert.  Returns the share and the full forward's
+    margins of the tokens that flipped; ``plant`` (a context manager
+    factory) is entered around the first decode step only."""
+    import torch
+    S = toks.shape[1]
+    P = S - LM_TAIL
+    cache = model.init_cache(1, S + 1)     # room for a planted pos + 1
+    worst = 0.0
+    pin = Routing(pins)
+    with torch.no_grad(), pin.installed():
+        model.apply(toks[:, :P], caches=cache)
+        for t in range(P, S):
+            pin.offset = t
+            with plant() if plant is not None and t == P else \
+                    contextlib.nullcontext():
+                logits, cache = model.decode_step(cache, toks[:, t:t + 1],
+                                                  t)
+            worst = max(worst, float((logits[0, 0] - full[0, t]).abs()
+                                     .max()))
+    return worst / float(full[0, P:].abs().max()), pin.margins
+
+
+def forward_floor(model, toks, full, pins) -> float:
+    """The rounding floor of the decode check: a forward over all but the
+    last LM_TAIL tokens against the full forward at the LM_TAIL positions
+    before them (the same model and tokens, only the matmul shapes
+    differ; MoE routing pinned), as a share of max |logit| there."""
+    import torch
+    P = toks.shape[1] - LM_TAIL
+    with torch.no_grad(), Routing(pins).installed():
+        pre = model.apply(toks[:, :P])[0]
+    want = full[0, P - LM_TAIL:P]
+    return float((pre[0, P - LM_TAIL:] - want).abs().max()
+                 / want.abs().max())
+
+
+def lm_engine_check(tag: str, run: LMArch, model, prompts) -> None:
+    """The engine (4 slots) serves the run's requests through its queue;
+    each request's tokens equal a direct run of LM.apply + decode_step
+    from a zero state fed the engine's way, and the last, served in a slot
+    another request used before, equals the second (the same prompt on a
+    fresh slot)."""
+    import torch
+    from repro_torch.serve import Engine, Request
+    engine = Engine(model, batch_slots=LM_SLOTS, max_len=run.max_len)
+    reqs = [Request(prompt=p, max_new=run.max_new) for p in prompts]
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    seen = {}                     # request index -> slots it sat in
+    for _ in range(10_000):
+        if engine._queue.empty() and all(x is None for x in engine.slots):
+            break
+        engine.step()
+        for i, x in enumerate(engine.slots):
+            for j, r in enumerate(reqs):
+                if x is r:
+                    seen.setdefault(j, set()).add(i)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    last = len(reqs) - 1
+    (slot,) = seen[last]
+    before = [j for j in range(last) if slot in seen.get(j, ())]
+    if not before:
+        raise AssertionError(f"[{tag}] the last request's slot {slot} was "
+                             f"not used before")
+    direct = {}
+    for p, r in zip(prompts, reqs):
+        if len(p) not in direct:
+            direct[len(p)] = lm_direct(model, p, run.max_new, run.max_len)
+        if not (r.done and r.error is None and r.out == direct[len(p)]):
+            raise AssertionError(
+                f"[{tag}] engine tokens of the {len(p)}-token prompt "
+                f"{r.out} != direct decode {direct[len(p)]}")
+    if reqs[last].out != reqs[1].out:
+        raise AssertionError(f"[{tag}] the reused slot's tokens "
+                             f"{reqs[last].out} != the fresh slot's "
+                             f"{reqs[1].out}")
+    log(f"[{tag}] engine ({LM_SLOTS} slots x {run.max_len} positions, "
+        f"bf16): {len(reqs)} requests of {list(run.prompts)} tokens, "
+        f"{run.max_new} new each, equal to direct LM.apply + decode_step "
+        f"from a zero state token for token; the last served in slot "
+        f"{slot} after request {before} there, equal to the same prompt "
+        f"on a fresh slot; wall {wall:.2f} s for "
+        f"{sum(len(r.out) for r in reqs)} tokens (prefills included)")
+
+
+def lm_times(tag: str, run: LMArch, model, gen, prompt) -> dict:
+    """Prefill and decode ms (CUDA events, bf16) beside their bounds, and
+    Engine.step() with 4 slots decoding: LM_STEPS steps' walls (host
+    clock) and the calling thread's CPU time, the aten ops of one step,
+    and the host share of one profiled step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import make_prefill_step, make_serve_step
+    from repro_torch.serve import Engine, Request
+    cfg = model.cfg
+    w = lm_weight_counts(model)
+    prefill, decode = make_prefill_step(model), make_serve_step(model)
+    cache = model.init_cache(1, run.max_len)
+    st_bytes, kv_bytes = lm_state_bytes(cache)
+    out = {}
+    for S in run.prefill_times:
         t = lm_tokens(gen, S, cfg.vocab)[None]
-        ms = time_ms(lambda: prefill(t, cache), reps=3, rounds=3)
-        b_ms = 2 * cfg.total_params * S / BF16_PEAK * 1e3
-        log(f"[lm] prefill {S} tokens: {ms:.3f} ms (CUDA events); bound "
-            f"{b_ms:.3f} ms (2 x {cfg.total_params:,} x {S} FLOP at the "
-            f"bf16 peak)")
-    kv_bytes = (S + 1) * 2 * cfg.n_layers * cfg.n_kv_heads * cfg.hd * 2
+        reps, rounds = run.prefill_reps
+        ms = time_ms(lambda: prefill(t, cache), reps=reps, rounds=rounds)
+        rec_ms = recurrence_flops(model, S) / FP32_PEAK * 1e3
+        bound = {}
+        for k in ("read", "active"):
+            ops_ms = 2 * w[f"{k}_params"] * S / BF16_PEAK * 1e3 + rec_ms
+            bytes_ms = (w[k] + st_bytes) / HBM_BW * 1e3
+            bound[k] = max(ops_ms, bytes_ms)
+        out[f"prefill_{S}"] = {"ms": ms, "bound_ms": bound}
+        log(f"[{tag}] prefill {S} tokens: {ms:.3f} ms (CUDA events); bound "
+            f"{bound['read']:.3f} ms for the weights the implementation "
+            f"multiplies ({w['read_params']:,}), {bound['active']:.3f} ms "
+            f"for the active weights ({w['active_params']:,}): the larger "
+            f"of 2 x weights x S FLOP at the bf16 peak + {rec_ms:.3f} ms of "
+            f"fp32 recurrence ({recurrence_flops(model, S):,} FLOP at "
+            f"{FP32_PEAK / 1e12:g} TFLOP/s) and the weights and state once "
+            f"at {HBM_BW / 1e12:g} TB/s")
+    S = run.prefill_times[-1]
     tok = t[:, -1:]
     ms = time_ms(lambda: decode(cache, tok, S), reps=10, rounds=3)
-    log(f"[lm] decode one token of one slot at position {S}: {ms:.3f} ms "
-        f"(CUDA events); bound {(w_bytes + kv_bytes) / HBM_BW * 1e3:.3f} "
-        f"ms (weights {w_bytes / 1e9:.2f} GB + K/V of {S + 1} positions "
-        f"{kv_bytes / 1e6:.1f} MB at {HBM_BW / 1e12:g} TB/s)")
+    kv = kv_bytes * (S + 1) // run.max_len
+    moved = {k: w[k] + 2 * st_bytes + kv for k in ("read", "active")}
+    bound = {k: v / HBM_BW * 1e3 for k, v in moved.items()}
+    out["decode"] = {"ms": ms, "bound_ms": bound, "position": S}
+    log(f"[{tag}] decode one token of one slot at position {S}: {ms:.3f} "
+        f"ms (CUDA events); bound {bound['read']:.3f} ms for the weights "
+        f"the implementation reads ({w['read'] / 1e9:.2f} GB) and "
+        f"{bound['active']:.3f} ms for the active weights "
+        f"({w['active'] / 1e9:.2f} GB), each + the state read and written "
+        f"({2 * st_bytes / 1e6:.1f} MB) and K/V of {S + 1} positions "
+        f"({kv / 1e6:.1f} MB), at {HBM_BW / 1e12:g} TB/s")
     del cache
-    engine = Engine(m16, batch_slots=LM_SLOTS, max_len=LM_MAX_LEN)
+    engine = Engine(model, batch_slots=LM_SLOTS, max_len=run.max_len)
     for _ in range(LM_SLOTS):
-        engine.submit(Request(prompt=prompts[3], max_new=LM_MAX_NEW))
+        engine.submit(Request(prompt=prompt, max_new=run.max_new))
     engine.step()                     # admits (prefills) all four slots
+    steps, cpu = [], []
+    for _ in range(LM_STEPS):
+        t0, c0 = time.perf_counter(), time.thread_time()
+        engine.step()
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        cpu.append((time.thread_time() - c0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        engine.step()
+    n_ops = sum(e.name.startswith("aten::") for e in prof.events())
     wall_ms, busy_ms = profile_run(
-        f"Engine.step(), {LM_SLOTS} slots decoding one token each",
+        f"[{tag}] Engine.step(), {LM_SLOTS} slots decoding one token each",
         engine.step)
-    log(f"[lm] engine host share of one step: {1 - busy_ms / wall_ms:.3f} "
-        f"(wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms)")
-    del engine, m16
+    out["engine_step"] = {"wall_ms": wall_ms, "busy_ms": busy_ms,
+                          "host_share": 1 - busy_ms / wall_ms,
+                          "step_ms": steps, "thread_cpu_ms": cpu,
+                          "aten_ops": n_ops}
+    log(f"[{tag}] Engine.step() wall, {LM_STEPS} steps without the "
+        f"profiler: median {statistics.median(steps):.2f} ms (host clock; "
+        f"{', '.join(f'{v:.2f}' for v in steps)}), the calling thread's "
+        f"CPU time median {statistics.median(cpu):.2f} ms; {n_ops} aten "
+        f"ops a step (the host profiler's); host share of one "
+        f"profiled step: {1 - busy_ms / wall_ms:.3f} (wall {wall_ms:.2f} "
+        f"ms, device busy {busy_ms:.2f} ms)")
+    return out
+
+
+def lm_moe_forms(tag: str, model, toks) -> None:
+    """One full-width MoE layer in fp32 (the model's first) over the
+    tokens' embeddings normed by its ln2: ragged and capacity (factor E/k,
+    nothing dropped) against dense within LM_MOE_RTOL of max |out|, each
+    timed; the pairs a capacity factor of 1.0 drops."""
+    import torch
+    from repro_torch.models import layers, moe
+    cfg = model.cfg
+    i = next(j for j, spec in enumerate(model.specs) if spec.use_moe)
+    p = model.layers[i]["mlp"]
+    with torch.no_grad():
+        x = layers.apply_norm(model._embed(toks), model.layers[i]["ln2"],
+                              cfg)[0]
+        cf = cfg.n_experts / cfg.top_k
+        forms = {"dense": lambda: moe.moe_dense(x, p, cfg)[0],
+                 "ragged": lambda: moe.moe_ragged(x, p, cfg)[0],
+                 "capacity": lambda: moe.moe_capacity(x, p, cfg, cf)[0]}
+        outs = {k: fn() for k, fn in forms.items()}
+        scale = float(outs["dense"].abs().max())
+        rel = {k: float((v - outs["dense"]).abs().max()) / scale
+               for k, v in outs.items() if k != "dense"}
+        dropped_all = moe.capacity_dropped(x, p, cfg, cf)
+        dropped = moe.capacity_dropped(x, p, cfg, 1.0)
+        ms = {k: time_ms(fn, reps=3, rounds=3) for k, fn in forms.items()}
+    log(f"[{tag}] MoE layer {i} in fp32 over {x.shape[0]} tokens "
+        f"({cfg.n_experts} experts, top-{cfg.top_k}, d_ff {cfg.d_ff}): "
+        f"ragged {rel['ragged']:.3e}, capacity (factor {cf:g}, "
+        f"{dropped_all} pairs dropped) {rel['capacity']:.3e} of max |out| "
+        f"off dense (limit {LM_MOE_RTOL:g}); capacity at factor 1.0 drops "
+        f"{dropped} of {x.shape[0] * cfg.top_k} (token, slot) pairs; ms "
+        f"(CUDA events) {json.dumps({k: round(v, 4) for k, v in ms.items()})}")
+    if dropped_all or not max(rel.values()) <= LM_MOE_RTOL:
+        raise AssertionError(f"[{tag}] the MoE forms disagree: {rel}")
+
+
+def lm_decode_check(tag: str, run: LMArch, model, toks) -> dict:
+    """decode_step logits against the full forward's over the last
+    LM_TAIL of ``toks``'s positions (MoE routing pinned, a flip allowed
+    only at a near-tie, LM_TIE), the forward's rounding floor, and each
+    planted fault, in the model's dtype.  Returns the readings."""
+    full, pins = full_forward(model, toks)
+    share, margins = decode_share(model, toks, full, pins)
+    floor = forward_floor(model, toks, full, pins)
+    faults = {f: decode_share(model, toks, full, pins, PLANTS[f][0])[0]
+              for f in run.faults}
+    free = ""
+    if pins:      # the same without pinning: recorded, no limit
+        unpinned = decode_share(model, toks, full, None)[0]
+        free = (f"; the full forward's margins (k-th - (k+1)-th "
+                f"probability) of the flipped tokens "
+                f"{[float(f'{m:.3e}') for m in sorted(margins)]} (limit "
+                f"{LM_TIE:g}); unpinned {unpinned:.3e}, recorded")
+    log(f"[{tag}] {str(model.dtype).split('.')[-1]} decode_step vs the full "
+        f"forward over the last {LM_TAIL} of {toks.shape[1]} positions: "
+        f"worst {share:.3e} of max |logit| with {len(margins)} routing "
+        f"flips pinned{free}; rounding floor (a forward {LM_TAIL} tokens "
+        f"shorter vs the full one) {floor:.3e}; planted at the first decode "
+        f"step: "
+        + "; ".join(f"{PLANTS[f][1]} {v:.3e}" for f, v in faults.items()))
+    wide = [m for m in margins if not m <= LM_TIE]
+    if wide:
+        raise AssertionError(f"[{tag}] {len(wide)} routing flips away from "
+                             f"a near-tie: margins {wide}")
+    return {"share": share, "flips": len(margins), "floor": floor,
+            "faults": faults}
+
+
+def lm_held(tag: str, got: dict, limit: float, what: str) -> None:
+    """The decode check's reading within ``limit`` and each planted fault
+    past it."""
+    if not got["share"] <= limit:
+        raise AssertionError(f"[{tag}] prefill -> decode logits disagree: "
+                             f"{got['share']:.3e} > {what} {limit:.3e}")
+    passed = [f for f, v in got["faults"].items() if not v > limit]
+    if passed:
+        raise AssertionError(f"[{tag}] planted faults {passed} passed the "
+                             f"prefill -> decode check ({what})")
+
+
+def lm_fp32_checks(tag: str, run: LMArch, model, gen) -> None:
+    """The decode check (:func:`lm_decode_check`) in fp32, held to
+    LM_DECODE_RTOL; for a run whose check is in fp64, the fp32 reading is
+    held to LM_FLOOR_X x its rounding floor instead (LM_DECODE_RTOL where
+    that is larger: a floor can read 0), and the check is made
+    again on the model converted to fp64 (the Mamba / mLSTM recurrences
+    stay fp32, as the port runs them) and held to LM_DECODE_RTOL.  Its
+    planted faults must exceed each limit.  Then the MoE forms in fp32
+    where the model has MoE layers."""
+    import torch
+    cfg = model.cfg
+    toks = lm_tokens(gen, run.seq, cfg.vocab)[None]
+    got = lm_decode_check(tag, run, model, toks)
+    if cfg.n_experts:
+        lm_moe_forms(tag, model, lm_tokens(gen, LM_SEQ, cfg.vocab)[None])
+    if run.check_dtype == "float64":
+        limit = max(LM_FLOOR_X * got["floor"], LM_DECODE_RTOL)
+        log(f"[{tag}] fp32: {got['share']:.3e} against the larger of "
+            f"{LM_FLOOR_X:g} x its rounding floor and {LM_DECODE_RTOL:g}, "
+            f"{limit:.3e}; the limit {LM_DECODE_RTOL:g} applies in fp64 "
+            f"below")
+        lm_held(tag, got, limit, "the fp32 limit")
+        model.double()
+        model.dtype = torch.float64
+        got = lm_decode_check(tag, run, model, toks)
+    lm_held(tag, got, LM_DECODE_RTOL, "the limit")
+
+
+def lm_attn_checks(tag: str, m32, toks, full16) -> None:
+    """Layer 0's attention over ``toks`` in fp32, chunked against dense
+    within LM_CHUNK_RTOL; bf16 logits (``full16``) against fp32 over the
+    same tokens, recorded."""
+    import torch
+    from repro_torch.models import attention, layers
+    S = toks.shape[1]
+    layer = m32.layers[0]
+    with torch.no_grad():
+        h = layers.apply_norm(m32._embed(toks), layer["ln1"], m32.cfg)
+        pos = torch.arange(S, device=toks.device)[None]
+        chunked, dense = (attention.attention(
+            h, layer["inner"], dataclasses.replace(m32.cfg, attn_chunk=c),
+            positions=pos, window=m32.specs[0].window)[0]
+            for c in (m32.cfg.attn_chunk, 0))
+    rel = float((chunked - dense).abs().max() / dense.abs().max())
+    log(f"[{tag}] layer 0 attention at S = {S}, fp32: chunked "
+        f"({m32.cfg.attn_chunk}) vs dense, {rel:.3e} of max |out| (limit "
+        f"{LM_CHUNK_RTOL:g})")
+    if not rel <= LM_CHUNK_RTOL:
+        raise AssertionError(f"[{tag}] chunked and dense attention "
+                             f"disagree")
+    del chunked, dense, h
+    with torch.no_grad():
+        full32 = m32.apply(toks)[0]
+    diff = float((full16.float() - full32).abs().max())
+    top1 = float((full16.argmax(-1) == full32.argmax(-1)).float().mean())
+    log(f"[{tag}] bf16 vs fp32 prefill logits over {S} positions: worst "
+        f"{diff / float(full32.abs().max()):.3e} of max |logit|, top-1 "
+        f"token equal at {top1:.4f} of positions (recorded, no limit)")
+
+
+def lm_arch_phase(run: LMArch) -> dict:
+    """``[run.tag]``: the run's model at full width on the card.  bf16:
+    the engine's tokens equal direct runs from a zero state, and a reused
+    slot's equal a fresh one's; the fused rmsnorm of layer 0's input on
+    the Row kernel; prefill and decode times beside their bounds and the
+    engine's host share.  Then, the bf16 model freed, fp32 of the same
+    draws: the run's attention checks, decode against the full forward
+    with planted faults, and the MoE forms.  Returns the rmsnorm's kernel
+    record."""
+    import numpy as np
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    m16 = lm_arch_model(run, "bfloat16")
+    cfg = m16.cfg
+    w = lm_weight_counts(m16)
+    log(f"[{run.tag}] {cfg.name} ({run.cut}): {cfg.n_layers} layers "
+        f"{[s.kind + ('+moe' if s.use_moe else '') for s in m16.pattern]} "
+        f"a period, d_model {cfg.d_model}, {cfg.n_heads} / "
+        f"{cfg.n_kv_heads} heads, d_ff {cfg.d_ff} ({cfg.mlp_type}), "
+        f"experts {cfg.n_experts} top-{cfg.top_k}, vocab {cfg.vocab}; "
+        f"{w['params']:,} parameters drawn on the card (seed {LM_SEED}) as "
+        f"bf16 ({w['bytes'] / 1e9:.2f} GB), {w['active_params']:,} read a "
+        f"token with the active weights (MoE: the top-k experts); set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    if run.counted:
+        counted = w["params"] - sum(p.numel()
+                                    for p in m16.final_norm.parameters())
+        if counted != cfg.total_params:
+            raise AssertionError(f"{counted} parameters besides the final "
+                                 f"norm, the config counts "
+                                 f"{cfg.total_params}")
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED + 1)
+    prompts = [lm_tokens(gen, n, cfg.vocab).cpu().numpy().astype(np.int32)
+               for n in run.prompts[:-1]]
+    prompts.append(prompts[1])
+    lm_engine_check(run.tag, run, m16, prompts)
+    toks = lm_tokens(gen, LM_SEQ, cfg.vocab)[None]
+    rec = lm_norm_record(run.tag, m16, toks, gen)
+    rec["times"] = lm_times(run.tag, run, m16, gen, prompts[3])
+    full16 = None
+    if run.attn_checks:
+        with torch.no_grad():
+            full16 = m16.apply(toks)[0]
+    log(f"[{run.tag}] bf16 part: peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB, wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    del m16
     torch.cuda.empty_cache()
-    log(f"[lm] phase wall {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    m32 = lm_arch_model(run, "float32")
+    log(f"[{run.tag}] fp32 model of the same draws "
+        f"({sum(p.numel() for p in m32.parameters()) * 4 / 1e9:.2f} GB) "
+        f"drawn in {time.perf_counter() - t1:.1f} s")
+    if run.attn_checks:
+        lm_attn_checks(run.tag, m32, toks, full16)
+        del full16
+    lm_fp32_checks(run.tag, run, m32, gen)
+    del m32
+    torch.cuda.empty_cache()
+    log(f"[{run.tag}] peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; phase wall "
+        f"{time.perf_counter() - t0:.1f} s")
     return rec
+
+
+def lm_times_only() -> None:
+    """``--lm-times``: [lm]'s times alone (minitron-4b in bf16, no
+    checks, no result line): prefill and decode ms and the host share of
+    one profiled ``Engine.step()``, then one JSON line of them.  Copied
+    into an older checkout of the port, it reads that checkout's package:
+    to compare two trees on one card, run it in each in turn within one
+    call."""
+    import numpy as np
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    run = LM_ARCHS[0]
+    log(f"[env] {ROOT} torch {torch.__version__}; nvidia-smi: "
+        f"{card_line()}")
+    m16 = lm_arch_model(run, "bfloat16")
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED + 1)
+    prompt = lm_tokens(gen, run.prompts[3], m16.cfg.vocab)
+    out = lm_times(run.tag, run, m16, gen,
+                   prompt.cpu().numpy().astype(np.int32))
+    log(json.dumps({"lm_times": out, "root": str(ROOT)}))
 
 
 # --------------------------------------------------------------------------
@@ -3332,11 +3848,13 @@ def run() -> None:
     # [dist]: the ranks launch these, built here before they start
     for src in dist_sources():
         sources[src.key] = src
-    # [lm]: the fused rmsnorm at minitron-4b's width, sound and planted
-    for _r, cp in lm_norm_cplans():
-        src = cuda_src.source_for(cp)
-        sources[src.key] = src
-        sources[planted(src).key] = planted(src)
+    # [lm], [lm-moe], [lm-hybrid], [lm-xlstm]: the fused rmsnorm at each
+    # model's width, sound and planted
+    for d in lm_norm_widths():
+        for _r, cp in lm_norm_cplans(d):
+            src = cuda_src.source_for(cp)
+            sources[src.key] = src
+            sources[planted(src).key] = planted(src)
     t_plan = time.perf_counter() - t0
     build.build_all(sources.values())
     t_build = time.perf_counter() - t0 - t_plan
@@ -3518,10 +4036,10 @@ def run() -> None:
     # 17. [dist]: distributed segments on a mesh of 4 ranks on the card ----
     dist_rec = dist_phase(traces)
 
-    # 18. [lm]: the LM serving path at minitron-4b's full width ------------
-    lm_rec = lm_phase()
+    # 18.-21. [lm], [lm-moe], [lm-hybrid], [lm-xlstm]: the LM serving path -
+    arch_recs = {run.tag: lm_arch_phase(run) for run in LM_ARCHS}
 
-    # 19. result lines -------------------------------------------------------
+    # 22. result lines -------------------------------------------------------
     rows = []
     for k, (src, replaces) in KERNELS.items():
         agg = per_kernel[k]
@@ -3551,17 +4069,23 @@ def run() -> None:
                     f"region it runs; launches over the fault-free serving "
                     f"runs"),
             "parts": agg["parts"]})
-    rows.append({
-        "name": "row_rmsnorm", "route": "cuda", "source": KERNELS["row"][0],
-        "replaces": KERNELS["row"][1], "launches": lm_rec["launches"],
-        "max_abs_err": lm_rec["max_abs_err"], "ms": lm_rec["ms"],
-        "plain_ms": lm_rec["plain_ms"], "bound_ms": lm_rec["bound_ms"],
-        "bound_by": max(lm_rec["bound_by"], key=lm_rec["bound_by"].get),
-        "library_ms": library_ms(lm_rec),
-        "per": (f"one call of models.layers.norm(fusion='gen') over "
-                f"{LM_ARCH}'s layer-0 input of {LM_SEQ} tokens, fp32; "
-                f"launches in the [lm] phase's call"),
-        "parts": lm_rec["parts"]})
+    for run in LM_ARCHS:
+        rec = arch_recs[run.tag]
+        width = rec["parts"][0]["binds"][0][1]
+        rows.append({
+            "name": ("row_rmsnorm" if run.tag == "lm" else
+                     f"row_rmsnorm_{run.tag.replace('-', '_')}"),
+            "route": "cuda", "source": KERNELS["row"][0],
+            "replaces": KERNELS["row"][1], "launches": rec["launches"],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": max(rec["bound_by"], key=rec["bound_by"].get),
+            "library_ms": library_ms(rec),
+            "per": (f"one call of models.layers.norm(fusion='gen') over "
+                    f"{run.arch}'s layer-0 input of {LM_SEQ} tokens x "
+                    f"{width}, fp32; launches in the [{run.tag}] phase's "
+                    f"call"),
+            "parts": rec["parts"], "lm_times": rec["times"]})
     log(json.dumps({"kernels": rows}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
@@ -3751,11 +4275,14 @@ def main() -> int:
         # one rank process of the [dist] phase, started by that phase
         dist_rank(int(args[1]), int(args[2]), args[3], args[4], args[5])
         return 0
-    if args not in ([], ["--times"]):
-        print("usage: python3 chip_smoke.py [--times]", file=sys.stderr)
+    modes = {(): run, ("--times",): times_only,
+             ("--lm-times",): lm_times_only}
+    if tuple(args) not in modes:
+        print("usage: python3 chip_smoke.py [--times | --lm-times]",
+              file=sys.stderr)
         return 2
     try:
-        times_only() if args else run()
+        modes[tuple(args)]()
     except Exception:                 # noqa: BLE001 - report, exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -9,7 +9,8 @@ carries a block-row partition, and :func:`to_layout` a layout over an
 abstract mesh (the reference's ``FusionLayout`` over its ``LogicalMesh``),
 so both packages can be handed the same plan inputs;
 :func:`lm_params_from_jax` turns the reference's LM params tree into the
-port's LM state dict."""
+port's LM state dict, and :func:`lm_cache_from_jax` its caches (K/V and
+recurrent states) into the port's."""
 
 from __future__ import annotations
 
@@ -120,8 +121,9 @@ def lm_params_from_jax(tree) -> dict:
     """The port's :class:`~repro_torch.models.LM` state dict from the
     reference's params tree (leaves as numpy arrays): ``blocks[i]`` leaves
     (G, ...) are unstacked into layer ``g * P + i`` (P pattern layers a
-    group), ``rest[j]`` becomes layer ``G * P + j``; load it with
-    ``LM.load_state_dict``."""
+    group), ``rest[j]`` becomes layer ``G * P + j``; every leaf kind
+    (attention, MLP, MoE experts (E, d, f), Mamba, mLSTM) carries over
+    under its name.  Load it with ``LM.load_state_dict``."""
     state = {"embed": _leaf_tensor(tree["embed"])}
     if "head" in tree:
         state["head"] = _leaf_tensor(tree["head"])
@@ -142,3 +144,15 @@ def lm_params_from_jax(tree) -> dict:
             for k, v in params.items():
                 state[f"layers.{G * P + j}.{name}.{k}"] = _leaf_tensor(v)
     return state
+
+
+def lm_cache_from_jax(tree, device="cuda") -> dict:
+    """The port's LM caches from the reference's (leaves as numpy arrays):
+    the same ``{"blocks": [...], "rest": [...]}`` structure and leaf names
+    (``k`` / ``v``, ``h`` / ``conv``, ``C`` / ``n`` / ``m``), each leaf a
+    writable tensor of its dtype on ``device``."""
+    device = resolve_device(device)
+    conv = lambda layer: {k: _leaf_tensor(v).to(device)
+                          for k, v in layer.items()}
+    return {"blocks": [conv(c) for c in tree["blocks"]],
+            "rest": [conv(c) for c in tree.get("rest", [])]}

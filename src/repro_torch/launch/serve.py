@@ -22,8 +22,8 @@ def make_prefill_step(model: LM):
 
 
 def make_serve_step(model: LM):
-    """One new token against a populated KV cache: greedy next token
-    (int32), the logits and the cache."""
+    """One new token against populated caches (K/V and recurrent
+    states): greedy next token (int32), the logits and the caches."""
     @torch.no_grad()
     def serve_step(cache, token, pos: int):
         logits, cache = model.decode_step(cache, token, pos)

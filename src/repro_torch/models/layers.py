@@ -90,7 +90,17 @@ def normal(gen: Optional[torch.Generator], shape,
     alone)."""
     if gen is None:
         return torch.empty(shape, device="meta")
-    return torch.randn(shape, generator=gen, device=gen.device) * scale
+    return torch.randn(shape, generator=gen, device=gen.device).mul_(scale)
+
+
+def fixed(gen: Optional[torch.Generator], shape, value) -> torch.Tensor:
+    """A fixed initial value (fp32) of ``shape`` on the generator's device:
+    a scalar, or a row broadcast over the leading axes; with no generator,
+    a meta tensor of that shape.  Draws nothing from ``gen``."""
+    if gen is None:
+        return torch.empty(shape, device="meta")
+    return torch.tensor(value, dtype=torch.float32,
+                        device=gen.device).expand(shape).clone()
 
 
 def mlp_params(gen: Optional[torch.Generator], cfg: ModelConfig) -> dict:

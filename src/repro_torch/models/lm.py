@@ -1,19 +1,19 @@
-"""Decoder LM over the attention-only architectures, as an ``nn.Module``.
+"""Unified decoder LM over all ten architectures, as an ``nn.Module``.
 
 The reference groups layers into the architecture's repeating *pattern*
-(gemma: 5 local + 1 global; plain: period 1) and scans stacked parameters
-over the groups; here the layers are held one by one (a ``ModuleList`` in
-execution order: group 0's pattern, group 1's, ..., then the rest layers)
-and run in a Python loop.  ``cfg.remat`` and ``cfg.scan_layers`` are JAX's
-knobs and have no effect here.  The KV cache keeps the reference's
-structure, ``{"blocks": [per pattern layer {"k", "v"}], "rest": [...]}``,
-with a leading group axis on block leaves only (rest leaves are
-(B, max_len, KV, hd)).  Modality frontends are stubs as in the reference:
-llava takes precomputed patch embeddings (``prefix_emb``), musicgen sums
-its codebooks' embeddings and has a head per codebook.
-
-The MoE, Mamba and xLSTM blocks are not ported yet (ROADMAP.md queue A
-item 7): a configuration that needs one raises NotImplementedError.
+(gemma: 5 local + 1 global; jamba: 7 Mamba + 1 attention with MoE every
+2nd layer; plain: period 1) and scans stacked parameters over the groups;
+here the layers are held one by one (a ``ModuleList`` in execution order:
+group 0's pattern, group 1's, ..., then the rest layers) and run in a
+Python loop.  ``cfg.remat`` and ``cfg.scan_layers`` are JAX's knobs and
+have no effect here.  The caches keep the reference's structure,
+``{"blocks": [per pattern layer], "rest": [...]}``, each layer's by its
+kind — attention ``{"k", "v"}``, Mamba ``{"h", "conv"}``, mLSTM ``{"C",
+"n", "m"}`` — with a leading group axis on block leaves only.  Every layer
+writes its cache or recurrent state in place.  Modality frontends are
+stubs as in the reference: llava takes precomputed patch embeddings
+(``prefix_emb``), musicgen sums its codebooks' embeddings and has a head
+per codebook.
 """
 
 from __future__ import annotations
@@ -27,7 +27,10 @@ from torch import nn
 from repro_torch.configs.base import ModelConfig
 from repro_torch.interop import resolve_device
 from . import attention as attn_mod
+from . import mamba as mamba_mod
+from . import xlstm as xlstm_mod
 from .layers import apply_norm, mlp, mlp_params, norm_params
+from .moe import moe, moe_params
 
 N_PATCHES = 256          # llava vision-stub prefix length
 
@@ -87,12 +90,6 @@ class LM(nn.Module):
         self.n_groups = cfg.n_layers // P
         self.rest_specs = self.pattern[:cfg.n_layers % P]
         self.specs = self.pattern * self.n_groups + self.rest_specs
-        for spec in self.pattern:
-            if spec.kind != "attn" or spec.use_moe:
-                raise NotImplementedError(
-                    f"{cfg.name}: a {'MoE ' if spec.use_moe else ''}"
-                    f"{spec.kind} layer is not ported yet (ROADMAP.md "
-                    f"queue A item 7)")
         d, V, nc = cfg.d_model, cfg.vocab, cfg.n_codebooks
         dev, dt = self.device, self.dtype
         self.embed = nn.Parameter(torch.empty(
@@ -103,32 +100,40 @@ class LM(nn.Module):
         else:
             self.head = None
         self.final_norm = _params(norm_params(cfg), dt, dev)
-        shapes = self._layer_params(None)
         self.layers = nn.ModuleList(
-            nn.ModuleDict({name: _params(p, dt, dev)
-                           for name, p in shapes.items()})
-            for _ in self.specs)
+            nn.ModuleDict({name: _params(p, dt, dev) for name, p in
+                           self._layer_params(spec, None).items()})
+            for spec in self.specs)
 
     # ------------------------------------------------------------------ init
-    def _layer_params(self, gen: Optional[torch.Generator]) -> dict:
+    def _layer_params(self, spec: LayerSpec,
+                      gen: Optional[torch.Generator]) -> dict:
         """One layer's parameters drawn from ``gen`` (meta tensors of their
         shapes without one)."""
         cfg = self.cfg
         dev = gen.device if gen is not None else "meta"
-        p = {"ln1": norm_params(cfg, device=dev),
-             "inner": attn_mod.attn_params(gen, cfg)}
+        p = {"ln1": norm_params(cfg, device=dev)}
+        if spec.kind == "attn":
+            p["inner"] = attn_mod.attn_params(gen, cfg)
+        elif spec.kind == "mamba":
+            p["inner"] = mamba_mod.mamba_params(gen, cfg)
+        else:
+            p["inner"] = xlstm_mod.xlstm_params(gen, cfg)
         if cfg.d_ff:
             p["ln2"] = norm_params(cfg, device=dev)
-            p["mlp"] = mlp_params(gen, cfg)
+            p["mlp"] = (moe_params(gen, cfg) if spec.use_moe
+                        else mlp_params(gen, cfg))
         return p
 
     @torch.no_grad()
     def init(self, gen: torch.Generator) -> "LM":
         """Draw every weight from ``gen`` (in fp32 on the generator's
-        device, then cast): embeddings and head N(0, 1/d), each projection
-        N(0, 1/fan_in); rmsnorm scales 0, layernorm scales 1 and biases 0.
-        The same generator state gives the same weights in any dtype up to
-        its rounding.  Returns the module."""
+        device, then cast), one layer at a time: embeddings and head
+        N(0, 1/d), each projection N(0, 1/fan_in) (Mamba's depthwise conv
+        at the reference's 0.1); rmsnorm scales 0, layernorm scales 1 and
+        biases 0; Mamba's ``A_log``, ``D`` and biases the reference's fixed
+        values.  The same generator state gives the same weights in any
+        dtype up to its rounding.  Returns the module."""
         cfg = self.cfg
         d = cfg.d_model
         self.embed.copy_(torch.randn(self.embed.shape, generator=gen,
@@ -138,8 +143,8 @@ class LM(nn.Module):
                                         device=gen.device) * d ** -0.5)
         for k, v in norm_params(cfg).items():
             self.final_norm[k].copy_(v)
-        for layer in self.layers:
-            for name, values in self._layer_params(gen).items():
+        for spec, layer in zip(self.specs, self.layers):
+            for name, values in self._layer_params(spec, gen).items():
                 for k, v in values.items():
                     layer[name][k].copy_(v)
         return self
@@ -147,19 +152,37 @@ class LM(nn.Module):
     # --------------------------------------------------------------- forward
     def _apply_layer(self, spec: LayerSpec, p, x, positions, cache=None,
                      decode=False, pos=None):
+        """One layer; its cache or state (if any) is written in place.
+        Returns (x, the MoE aux loss: None in decode or without MoE)."""
         cfg = self.cfg
         h = apply_norm(x, p["ln1"], cfg)
-        if decode:
-            y, cache = attn_mod.decode_attention(
-                h, p["inner"], cfg, cache=cache, pos=pos, window=spec.window)
+        if spec.kind == "attn":
+            if decode:
+                y, _ = attn_mod.decode_attention(
+                    h, p["inner"], cfg, cache=cache, pos=pos,
+                    window=spec.window)
+            else:
+                y, _ = attn_mod.attention(
+                    h, p["inner"], cfg, positions=positions,
+                    window=spec.window, cache=cache)
+        elif spec.kind == "mamba":
+            y, _ = (mamba_mod.mamba_decode(h, p["inner"], cfg, cache)
+                    if decode else
+                    mamba_mod.mamba(h, p["inner"], cfg, state=cache))
         else:
-            y, cache = attn_mod.attention(
-                h, p["inner"], cfg, positions=positions, window=spec.window,
-                cache=cache)
+            y, _ = (xlstm_mod.mlstm_decode(h, p["inner"], cfg, cache)
+                    if decode else
+                    xlstm_mod.mlstm(h, p["inner"], cfg, state=cache))
         x = x + y
+        aux = None
         if cfg.d_ff:
-            x = x + mlp(apply_norm(x, p["ln2"], cfg), p["mlp"], cfg.mlp_type)
-        return x, cache
+            h2 = apply_norm(x, p["ln2"], cfg)
+            if spec.use_moe:
+                y2, aux = moe(h2, p["mlp"], cfg, with_aux=not decode)
+            else:
+                y2 = mlp(h2, p["mlp"], cfg.mlp_type)
+            x = x + y2
+        return x, aux
 
     def _layer_caches(self, caches):
         """The cache of each layer in execution order (views of the block
@@ -167,7 +190,7 @@ class LM(nn.Module):
         if caches is None:
             return [None] * len(self.specs)
         P = len(self.pattern)
-        out = [{k: caches["blocks"][i][k][g] for k in ("k", "v")}
+        out = [{k: v[g] for k, v in caches["blocks"][i].items()}
                for g in range(self.n_groups) for i in range(P)]
         return out + list(caches["rest"])
 
@@ -194,23 +217,29 @@ class LM(nn.Module):
 
     def apply(self, tokens, *, prefix_emb=None, caches=None):
         """Full-sequence forward (train / prefill).  Returns (logits,
-        caches, moe_aux): with ``caches``, each layer's K/V are written
-        into its first S positions (in place) and the same caches are
-        returned; moe_aux is 0 (no MoE layer is ported)."""
+        caches, moe_aux): with ``caches``, each attention layer's K/V are
+        written into its first S positions and each recurrent layer's
+        final state into its state, in place (the recurrent layers start
+        from the state they are given, as the reference's do), and the
+        same caches are returned; moe_aux is the MoE layers' load-balance
+        loss summed over layers (fp32; 0 without MoE)."""
         x = self._embed(tokens, prefix_emb)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=self.device).expand(B, S)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for spec, p, c in zip(self.specs, self.layers,
                               self._layer_caches(caches)):
-            x, _ = self._apply_layer(spec, p, x, positions, cache=c)
+            x, a = self._apply_layer(spec, p, x, positions, cache=c)
+            if a is not None:
+                aux = aux + a
         x = apply_norm(x, self.final_norm, self.cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         return self._logits(x), caches, aux
 
     def decode_step(self, caches, token, pos: int):
         """One decode step.  token: (B, 1) (or (B, 1, nc)); pos: the
         position it takes.  Returns (logits (B, 1, V...), caches) with
-        every layer's K/V written at ``pos``."""
+        every attention layer's K/V written at ``pos`` and every recurrent
+        layer's state advanced by the token."""
         pos = int(pos)
         x = self._embed(token)
         for spec, p, c in zip(self.specs, self.layers,
@@ -221,12 +250,24 @@ class LM(nn.Module):
         return self._logits(x), caches
 
     # ---------------------------------------------------------------- caches
+    def _layer_cache(self, spec: LayerSpec, batch: int, max_len: int):
+        cfg, dt, dev = self.cfg, self.dtype, self.device
+        if spec.kind == "attn":
+            return attn_mod.init_cache(cfg, batch, max_len, dt, dev)
+        if spec.kind == "mamba":
+            return mamba_mod.init_mamba_state(cfg, batch, dt, dev)
+        return xlstm_mod.init_xlstm_state(cfg, batch, dev)
+
     def init_cache(self, batch: int, max_len: int) -> dict:
-        one = lambda: attn_mod.init_cache(self.cfg, batch, max_len,
-                                          self.dtype, self.device)
-        blocks = [{k: v.expand((self.n_groups,) + v.shape).clone()
-                   for k, v in one().items()} for _ in self.pattern]
-        return {"blocks": blocks, "rest": [one() for _ in self.rest_specs]}
+        """Zeroed caches of ``batch`` rows: block leaves (G, batch, ...),
+        rest leaves (batch, ...)."""
+        G = self.n_groups
+        blocks = [{k: v.expand((G,) + v.shape).clone() for k, v in
+                   self._layer_cache(spec, batch, max_len).items()}
+                  for spec in self.pattern]
+        rest = [self._layer_cache(s, batch, max_len)
+                for s in self.rest_specs]
+        return {"blocks": blocks, "rest": rest}
 
 
 # --------------------------------------------------------------------------

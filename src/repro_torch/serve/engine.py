@@ -1,14 +1,21 @@
-"""Batched serving engine: prefill + decode with a shared KV cache pool.
+"""Batched serving engine: prefill + decode with a shared cache pool.
 
 Single-host serving loop over the port's :class:`~repro_torch.models.LM`:
 fixed batch slots, greedy / temperature sampling, per-slot stop handling,
 and a continuous-batching admission queue (new requests fill freed slots at
 step boundaries).  Each slot's cache is a view of the pool, so prefill and
-decode write its K/V in place.  A slot's view is taken on the cache's known
-axes (block leaves (G, B, ...): axis 1; rest leaves (B, ...): axis 0); the
-reference guesses the axis from a leaf's shape, which picks the wrong one
-for rest layers when ``batch_slots`` equals the number of groups (ROADMAP.md
-queue C).
+decode write its K/V and recurrent states in place.  A slot's view is
+taken on the cache's known axes (block leaves (G, B, ...): axis 1; rest
+leaves (B, ...): axis 0); the reference guesses the axis from a leaf's
+shape, which picks the wrong one for rest layers when ``batch_slots``
+equals the number of groups (ROADMAP.md queue C).
+
+Admission zeroes the slot's recurrent states (Mamba ``h`` / ``conv``,
+mLSTM ``C`` / ``n`` / ``m``) before the prefill.  The reference hands the
+prefill the slot's old state, which its recurrent layers start from, so a
+request served in a reused slot continues the previous request's state
+(ROADMAP.md queue C); attention K/V need no reset, as positions past the
+prompt are masked until written.
 """
 
 from __future__ import annotations
@@ -27,6 +34,9 @@ from .errors import AdmissionError, DeadlineExceededError, QueueFullError
 
 __all__ = ["AdmissionError", "DeadlineExceededError", "QueueFullError",
            "Engine", "Request"]
+
+#: the cache leaves that hold recurrent state (Mamba, mLSTM)
+RECURRENT_LEAVES = ("h", "conv", "C", "n", "m")
 
 
 @dataclass
@@ -126,10 +136,16 @@ class Engine:
                     self._fail_deadline(req)
                     continue
                 self.slots[i] = req
-                # batch-1 prefill into slot i's cache rows
+                # batch-1 prefill into slot i's cache rows, its recurrent
+                # states from zero
+                cache = self._slot_cache(i)
+                for layer in cache["blocks"] + cache["rest"]:
+                    for k in RECURRENT_LEAVES:
+                        if k in layer:
+                            layer[k].zero_()
                 toks = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                        device=self.model.device)[None]
-                self._prefill(toks, self._slot_cache(i))
+                self._prefill(toks, cache)
                 self.pos[i] = len(req.prompt)
                 break
 
@@ -146,7 +162,7 @@ class Engine:
         """One decode step for every occupied slot (continuous batching:
         admission happens between steps).  A slot's first decode feeds
         the prompt's last token again at position P, as the reference
-        does."""
+        does (a recurrent layer's state so takes that token twice)."""
         self._admit()
         # decode advances every slot at its own position: step per slot
         for i, req in enumerate(self.slots):

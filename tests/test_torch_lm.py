@@ -6,10 +6,12 @@ own ``init``) and carries the parameters across with
 and other inputs come from a numpy seed.  Configurations are the
 reference's ``.reduced()`` ones (fp32, d_model 64).  Logits are held to
 the reference's within 1e-5 of max |logit|; the port's decode against its
-own full forward at the reference's 2e-2; the fused rmsnorm at the
-reference test's 1e-5 (values) and 1e-4 (gradient).
+own full forward at the reference's 2e-2; the MoE aux loss within 1e-5;
+the fused rmsnorm at the reference test's 1e-5 (values) and 1e-4
+(gradient).
 """
 
+import functools
 from dataclasses import fields, replace
 
 import jax
@@ -24,14 +26,11 @@ from repro.models import LM as RefLM
 from repro.models import attention as ref_attention
 from repro.models import layers as ref_layers
 from repro_torch.configs import ARCH_IDS, get_config
-from repro_torch.interop import lm_params_from_jax
+from repro_torch.interop import lm_cache_from_jax, lm_params_from_jax
 from repro_torch.models import LM, attention, layers
 
-#: the architectures whose blocks are all attention (the rest wait for
-#: the MoE, Mamba and xLSTM blocks)
-ATTN_ARCHS = ["gemma3-27b", "yi-34b", "minitron-4b", "starcoder2-7b",
-              "llava-next-34b", "musicgen-large"]
-UNPORTED = ["grok-1-314b", "olmoe-1b-7b", "jamba-v0.1-52b", "xlstm-1.3b"]
+#: the architectures with MoE layers
+MOE_ARCHS = ["grok-1-314b", "olmoe-1b-7b", "jamba-v0.1-52b"]
 RTOL = 1e-5
 DECODE_VS_FULL = 2e-2
 
@@ -40,14 +39,22 @@ def _np(tree):
     return jax.tree_util.tree_map(np.asarray, tree)
 
 
+@functools.lru_cache(maxsize=None)
+def _ref_params(cfg, seed: int):
+    """The reference's params for ``cfg`` (its ``moe_impl`` set to the
+    default: the draws do not depend on it), drawn once per test
+    process, and the port's state dict of them."""
+    params = RefLM(cfg).init(jax.random.PRNGKey(seed))
+    return params, lm_params_from_jax(_np(params))
+
+
 def pair(cfg, seed: int = 0):
     """(reference model, its params, the port's model with the same
     weights on the CPU)."""
-    ref = RefLM(cfg)
-    params = ref.init(jax.random.PRNGKey(seed))
+    params, state = _ref_params(replace(cfg, moe_impl="dense"), seed)
     port = LM(cfg, device="cpu")
-    port.load_state_dict(lm_params_from_jax(_np(params)))
-    return ref, params, port
+    port.load_state_dict(state)
+    return RefLM(cfg), params, port
 
 
 def tokens(cfg, B: int, S: int, seed: int = 1) -> np.ndarray:
@@ -66,7 +73,12 @@ def close(got, want, rtol: float = RTOL) -> float:
     return err
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def close_aux(got, want) -> None:
+    assert abs(float(got) - float(want)) <= RTOL * max(1.0,
+                                                       abs(float(want)))
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_forward_matches_reference(arch):
     cfg = get_config(arch).reduced()
     ref, params, port = pair(cfg)
@@ -75,20 +87,24 @@ def test_forward_matches_reference(arch):
     if cfg.frontend == "vision":
         prefix = np.random.default_rng(3).standard_normal(
             (2, 4, cfg.d_model)).astype(np.float32)
-    want, _, _ = ref.apply(params, jnp.asarray(toks), prefix_emb=prefix)
+    want, _, want_aux = ref.apply(params, jnp.asarray(toks),
+                                  prefix_emb=prefix)
     with torch.no_grad():
         got, _, aux = port.apply(toks, prefix_emb=prefix)
     close(got, want)
-    assert float(aux) == 0.0
+    close_aux(aux, want_aux)
+    assert (float(aux) > 0) == (arch in MOE_ARCHS)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
-def test_prefill_decode_matches_reference(arch):
-    cfg = get_config(arch).reduced()
-    ref, params, port = pair(cfg)
+def prefill_decode(cfg, ref, params, port, self_check: bool = True):
+    """Prefill 9 of 12 tokens into both packages' caches, then decode the
+    last 3: logits and every cache leaf (K/V, Mamba and mLSTM states)
+    against the reference's, and (``self_check``) the port's decode
+    logits against its own full forward."""
     B, S = 2, 12
     toks = tokens(cfg, B, S)
     P = S - 3
+    ref_decode = jax.jit(ref.decode_step)
     rc = ref.init_cache(B, S)
     _, rc, _ = ref.apply(params, jnp.asarray(toks[:, :P]), caches=rc)
     with torch.no_grad():
@@ -96,15 +112,62 @@ def test_prefill_decode_matches_reference(arch):
         pc = port.init_cache(B, S)
         _, pc, _ = port.apply(toks[:, :P], caches=pc)
         for t in range(P, S):
-            want, rc = ref.decode_step(params, rc, jnp.asarray(
+            want, rc = ref_decode(params, rc, jnp.asarray(
                 toks[:, t:t + 1]), t)
             got, pc = port.decode_step(pc, toks[:, t:t + 1], t)
             close(got, want)
             err = float((got - full[:, t:t + 1]).abs().max())
-            assert err < DECODE_VS_FULL, (t, err)
+            assert not self_check or err < DECODE_VS_FULL, (t, err)
     for i, block in enumerate(rc["blocks"]):
-        for k in ("k", "v"):
+        assert set(pc["blocks"][i]) == set(block)
+        for k in block:
             close(pc["blocks"][i][k], block[k])
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_prefill_decode_matches_reference(arch):
+    cfg = get_config(arch).reduced()
+    prefill_decode(cfg, *pair(cfg))
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b", "jamba-v0.1-52b",
+                                  "xlstm-1.3b"])
+def test_decode_from_the_reference_cache(arch):
+    """The reference's caches after its prefill (K/V, Mamba and mLSTM
+    states), carried over with ``interop.lm_cache_from_jax``, are the
+    port's start: one decode step from them gives the reference's logits
+    and writes the reference's caches."""
+    cfg = get_config(arch).reduced()
+    ref, params, port = pair(cfg)
+    toks = tokens(cfg, 2, 10)
+    rc = ref.init_cache(2, 12)
+    _, rc, _ = ref.apply(params, jnp.asarray(toks[:, :9]), caches=rc)
+    pc = lm_cache_from_jax(_np(rc), device="cpu")
+    want, rc = ref.decode_step(params, rc, jnp.asarray(toks[:, 9:]), 9)
+    with torch.no_grad():
+        got, pc = port.decode_step(pc, toks[:, 9:], 9)
+    close(got, want)
+    for i, block in enumerate(rc["blocks"]):
+        for k in block:
+            close(pc["blocks"][i][k], block[k])
+
+
+@pytest.mark.parametrize("impl", ["ragged", "capacity", "a2a"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_impl_matches_reference(arch, impl):
+    """Every ``moe_impl`` besides the configs' own (dense): forward logits
+    and aux loss, and prefill -> decode, against the reference's.  A
+    capacity dispatch drops by the tokens it is given, so its decode is
+    not held to the full forward."""
+    cfg = replace(get_config(arch).reduced(), moe_impl=impl)
+    ref, params, port = pair(cfg)
+    toks = tokens(cfg, 2, 16)
+    want, _, want_aux = ref.apply(params, jnp.asarray(toks))
+    with torch.no_grad():
+        got, _, aux = port.apply(toks)
+    close(got, want)
+    close_aux(aux, want_aux)
+    prefill_decode(cfg, ref, params, port, self_check=impl == "ragged")
 
 
 @pytest.mark.parametrize("arch,window", [("yi-34b", 0), ("gemma3-27b", 6)])
@@ -240,12 +303,6 @@ def test_config_equals_reference(arch):
     for c, r in ((cfg, ref), (cfg.reduced(), ref.reduced())):
         assert (c.active_params, c.total_params, c.hd) == \
             (r.active_params, r.total_params, r.hd)
-
-
-@pytest.mark.parametrize("arch", UNPORTED)
-def test_unported_family_raises(arch):
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
-        LM(get_config(arch).reduced(), device="cpu")
 
 
 def test_bf16_params_carry_across_exactly():

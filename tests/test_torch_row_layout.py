@@ -179,10 +179,28 @@ def test_lm_rmsnorm_is_one_warp_row_cplan_with_a_planted_row_mean():
     assert bad.text == smoke.PLANT + src.text and bad.key != src.key
 
 
+@pytest.mark.parametrize("d", [2048, 4096])
+def test_lm_rmsnorm_at_the_moe_and_hybrid_widths_is_a_warp_row_cplan(d):
+    """The fused rmsnorm of [lm-moe] / [lm-xlstm] (2,048 columns) and
+    [lm-hybrid] (4,096): the same 8-node ROW no_agg CPlan in the warp
+    layout, d / 32 register slots a lane, with the planted row mean."""
+    smoke = chip_smoke()
+    assert d in smoke.lm_norm_widths()
+    (label, cp), = smoke.lm_norm_cplans(d)
+    src = cuda_src.source_for(cp)
+    assert (label, src.template, src.variant, src.layout) == \
+        ("_rms", "row", "no_agg", "warp")
+    assert [tuple(b.shape) for b in cp.binds] == [(2048, d), (1, 1), (1, d)]
+    consts = _consts(src.text)
+    assert (consts["C"], consts["L"], consts["TR"]) == (d, 32, d // 32)
+    assert "!(rowtile::kPlanted && sub == 16)" in src.text
+
+
 def test_lm_rmsnorm_sources_parse(tmp_path):
     from test_torch_cell_layout import _parse
     smoke = chip_smoke()
-    srcs = [cuda_src.source_for(cp) for _l, cp in smoke.lm_norm_cplans()]
+    srcs = [cuda_src.source_for(cp) for d in smoke.lm_norm_widths()
+            for _l, cp in smoke.lm_norm_cplans(d)]
     srcs += [smoke.planted(s) for s in srcs]
     for key, rc, err in _parse(srcs, tmp_path):
         assert rc == 0, f"{key}:\n{err}"

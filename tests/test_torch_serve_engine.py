@@ -5,10 +5,12 @@ Counterparts of ``tests/test_serve_engine.py``: the reference's model and
 ``LM`` on the CPU carrying the same weights through
 ``interop.lm_params_from_jax``) serve the same numpy prompts; greedy
 tokens must be equal.  Admission, the bounded queue and deadlines raise
-the reference's error types with its messages.  The reference's slot-axis
+the reference's error types with its messages.  Two faults of the
+reference are pinned, and the port serves both cases: its slot-axis
 fault (a rest layer's cache sliced on the group axis when
-``batch_slots`` equals the number of groups) is pinned, and the port
-serves that configuration.
+``batch_slots`` equals the number of groups), and its recurrent-state
+leak (a request in a reused slot starts from the previous request's
+Mamba / mLSTM state).
 """
 
 import time
@@ -29,6 +31,7 @@ from repro_torch.interop import lm_params_from_jax
 from repro_torch.models import LM
 from repro_torch.serve import (AdmissionError, DeadlineExceededError,
                                Engine, QueueFullError, Request)
+from repro_torch.serve.engine import RECURRENT_LEAVES
 
 
 def pair(cfg, seed: int = 0):
@@ -61,15 +64,70 @@ def serve(engine, request_cls, ps, max_new: int, **kw) -> list:
     return [r.out for r in reqs]
 
 
-@pytest.mark.parametrize("arch", ["starcoder2-7b", "minitron-4b"])
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "minitron-4b",
+                                  "olmoe-1b-7b", "jamba-v0.1-52b",
+                                  "xlstm-1.3b"])
 def test_tokens_equal_the_reference_engine(arch):
+    """Three requests through the port's two slots (the third takes a
+    slot whose recurrent state the port zeroes) against the reference's
+    engine, each request on a fresh slot there (three slots where the
+    model has recurrent layers, whose state the reference's engine
+    carries over to the next request in a slot: see the next test)."""
     cfg = get_config(arch).reduced()
     params, port = pair(cfg)
     ps = prompts(cfg, (7, 12, 3), seed=0)
+    recurrent = any(s.kind != "attn" for s in port.specs)
     want = serve(RefEngine(ref_get_config(arch).reduced(), params,
-                           batch_slots=2, max_len=32), RefRequest, ps, 6)
+                           batch_slots=3 if recurrent else 2, max_len=32),
+                 RefRequest, ps, 6)
     got = serve(Engine(port, batch_slots=2, max_len=32), Request, ps, 6)
     assert got == want
+
+
+def recurrent_leaves(cache) -> dict:
+    """The recurrent-state leaves of an engine's cache, as numpy."""
+    return {f"{part}{i}.{k}": np.asarray(v)
+            for part in ("blocks", "rest")
+            for i, layer in enumerate(cache[part])
+            for k, v in layer.items() if k in RECURRENT_LEAVES}
+
+
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "jamba-v0.1-52b"])
+def test_reused_slot_serves_fresh_tokens_where_the_reference_leaks(arch):
+    """One slot serves prompt A, then prompt B.  The reference's admission
+    hands B's prefill the slot's old cache and its Mamba / mLSTM layers
+    start from that state: its final recurrent state differs from B served
+    on a fresh engine (jamba's by about 6e-4 after ten steps, xlstm's by
+    more), and so do its xlstm tokens (jamba's logits move by about 1e-3,
+    short of changing a token).  The port zeroes the slot's
+    recurrent state at admission: its B tokens equal its fresh run and the
+    reference's fresh run, and its final state equals its fresh run's bit
+    for bit."""
+    cfg = get_config(arch).reduced()
+    ref_cfg = ref_get_config(arch).reduced()
+    params, port = pair(cfg)
+    a = np.arange(9, 14, dtype=np.int32)
+    b = np.arange(5, 9, dtype=np.int32)
+    runs = {}
+    for name, prompts_ in (("fresh", [b]), ("reused", [a, b])):
+        ref = RefEngine(ref_cfg, params, batch_slots=1, max_len=32)
+        eng = Engine(port, batch_slots=1, max_len=32)
+        runs[name] = (serve(ref, RefRequest, prompts_, 6)[-1],
+                      recurrent_leaves(ref.cache),
+                      serve(eng, Request, prompts_, 6)[-1],
+                      recurrent_leaves(eng.cache))
+    ref_fresh, ref_fresh_st, fresh, fresh_st = runs["fresh"]
+    ref_reused, ref_reused_st, reused, reused_st = runs["reused"]
+    leak = max(float(np.max(np.abs(ref_reused_st[k] - ref_fresh_st[k])))
+               for k in ref_fresh_st)
+    assert leak > 1e-4
+    if arch == "xlstm-1.3b":
+        assert ref_reused != ref_fresh
+    assert reused == fresh == ref_fresh
+    for k, v in fresh_st.items():
+        np.testing.assert_array_equal(reused_st[k], v)
+        err = float(np.max(np.abs(v - ref_fresh_st[k])))
+        assert err <= 1e-5 * max(1.0, float(np.max(np.abs(v)))), (k, err)
 
 
 def test_engine_matches_direct_decode(starcoder):
