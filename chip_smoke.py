@@ -14,6 +14,7 @@ toolkit:
                                     # that tree's package the same way
     python3 chip_smoke.py --lm-times   # only [lm]'s prefill, decode and
                                        # Engine.step() readings, likewise
+    python3 chip_smoke.py --lm-train   # only [lm-train] (no result line)
 
 Phases, each reported on its own lines with its wall time:
 
@@ -172,15 +173,48 @@ Phases, each reported on its own lines with its wall time:
    and ``capacity`` (factor E/k: nothing dropped) within 1e-5, and the
    pairs a factor of 1.0 drops; peak device memory and wall time per
    phase;
-22. one JSON line with every kernel (launches and times summed over the
+22. ``[lm-train]``: LM training, after the serving phases, the card's
+   cache emptied first.  The fused softmax-CE loss alone (the
+   ``launch.train._lse`` Row CPlans, forward and planned backward) over
+   2,048 rows of logits N(0, 2²) at every configuration's vocabulary width
+   (2,048, 32,000 (the CLI's 100m preset), 49,152, 50,304, 64,000, 65,536,
+   131,072, 256,000 and 262,144), each held to its plain version on the
+   same CUDA tensors within the kernel limit with its layout named (the
+   Row kernel's streaming layout from 32,000 up; tile / warp at 2,048), a
+   planted fault at 256,000 that must fail (the middle column slice of
+   the last fold pass dropped), the kernel's, plain version's and library
+   calls' device times (``torch.logsumexp``; for the backward
+   ``torch.softmax`` then ``mul_``) beside the bound; the same checks and
+   times at the main paths' own shapes, 256 x 256,000 (the steps below)
+   and 4,096 x 32,000 (the CLI's); minitron-4b at full
+   width in fp32 with its depth cut to 2 layers: 3 steps of
+   ``make_train_step`` (fusion "gen", batch 2 x 128) with
+   ``kernels="cuda"`` against ``kernels="never"`` (loss and grad-norm
+   traces within 1e-5 relative, 2 Row launches a step) and a
+   planted-fault run that must fail; minitron-4b at full width and depth
+   in bf16 (4.19e9 parameters, fp32 AdamW moments) for 3 steps through
+   ``run_loop`` and ``ShardedLoader``: finite losses, 2 Row launches a
+   step, the median step beside its bound (6 N T bf16 FLOP at the tensor
+   cores' peak + AdamW's 22 bytes a parameter at HBM bandwidth), tokens a
+   second, peak memory and the host share of one more, profiled step;
+   then ``python -m repro_torch.launch.train`` at
+   ``examples/train_lm.py``'s configuration (minitron-4b ``--preset
+   100m --batch 8 --seq 512 --fusion gen``) for 10 steps with a checkpoint
+   every 5, the step-10 checkpoint removed and a second process
+   ``--resume``-d from step 5, its losses for steps 6-10 against the
+   uninterrupted run's (bit for bit, or within 1e-6 relative: the line
+   says which);
+23. one JSON line with every kernel (launches and times summed over the
    single-device paths; the request-axis forms with their serving
    launches and their times at 8 x 1,048,576 x 100; a ``dist`` record per
    kernel with the [dist] ranks' own launches, its worst panel check and
    its panel times; ``row_rmsnorm``, the Row kernel's fused-rmsnorm call
    of [lm], and ``row_rmsnorm_lm_moe`` / ``_lm_hybrid`` / ``_lm_xlstm``,
    its calls at 2,048 and 4,096 columns with each phase's prefill and
-   decode times), the card line, and the final ``{"ok": true, ...}``
-   line.
+   decode times; ``row_loss`` / ``row_loss_vjp``, the fused loss's forward
+   and backward at 256,000 columns in the streaming layout, launches from
+   [lm-train]'s full-size run, a part at every width), the card line, and
+   the final ``{"ok": true, ...}`` line.
 
 Any failed check raises; the script then prints the traceback and exits 1
 without a result line.  It imports nothing of JAX or of ``repro``.
@@ -300,6 +334,11 @@ KERNELS = {   # name -> (skeleton source, the TPU kernel it replaces)
     "outer": ("src/repro_torch/kernels/csrc/outer.cuh",
               "src/repro/kernels/outerprod.py:31"),
 }
+
+
+#: the Row kernel's streaming layout (vocabulary-wide rows), in row.cuh's
+#: row_launch
+STREAM_SKELETON = "src/repro_torch/kernels/csrc/row_stream.cuh"
 
 
 def log(msg: str) -> None:
@@ -651,7 +690,8 @@ def planted(src, fold: bool = False, group: bool = False):
     row (tile layout) or the middle lane's partial (warp layout), as does
     a warp-layout Row program's own row aggregate (the rmsnorm's row mean),
     the Row tile layout's ``col_t_agg`` close the middle row slice of each
-    CTA, the
+    CTA, the Row streaming layout the middle column slice of its last fold
+    pass, the
     Outer ``right_mm`` skips the middle block of every block row; with ``fold``, the Outer ``right_mm`` fold drops the middle
     piece of every row of two or more pieces instead; with ``group``, the
     Cell kernel's vector walk drops the second cell of every group instead.
@@ -665,7 +705,7 @@ def planted(src, fold: bool = False, group: bool = False):
     return dataclasses.replace(src, text=PLANT + src.text) \
         if src.elems or src.template == "outer" or \
         (src.template, src.variant) == ("row", "row_agg") or \
-        (getattr(src, "layout", "") == "warp"
+        (getattr(src, "layout", "") in ("warp", "stream")
          and "rowtile::kPlanted" in src.text) else src
 
 
@@ -1161,6 +1201,13 @@ def _row_norms_call(cp, env):
     import torch
     X = env[cp.main.nid]
     return lambda: torch.einsum("ij,ij->i", X, X)
+
+
+def sum_of_squares(cp) -> bool:
+    """Whether a CPlan is one sum of squares (Σw², ΣB²: a ``full_agg``
+    of ``pow2``, one root)."""
+    return (cp.variant, cp.agg_op) == ("full_agg", "sum") and \
+        not cp.extra and [op for (_n, op, *_r) in cp.prog] == ["pow2"]
 
 
 def _sum_sq_call(cp, env):
@@ -2503,6 +2550,14 @@ def panel_checks(mesh, calls: PanelCalls, label: str) -> list:
                     "max_abs_err": err, "share": share, "ms": ms,
                     "device_ms": dev, "profiler_ms": prof,
                     "bound_ms": b_ms, "bound_by": b_by}
+            lib = ""
+            if kname == "cell" and sum_of_squares(pcp):
+                # Σw² on the panel: torch.dot of the panel with itself
+                call = _sum_sq_call(pcp, penv)
+                part["library_ms"] = time_ms(call)
+                part["library_device_ms"] = queued_ms(call)
+                lib = (f", library torch.dot {part['library_ms']:.4f} ms "
+                       f"(device {part['library_device_ms']})")
             parts.append(part)
             dev_s, prof_s = ("not measured" if v is None else f"{v:.4f} ms"
                              for v in (dev, prof))
@@ -2510,7 +2565,7 @@ def panel_checks(mesh, calls: PanelCalls, label: str) -> list:
                 f"{pcp.variant:9s} binds {part['binds']}: against plain "
                 f"{err:.3e} = {share:.3g} x limit; device {dev_s} (queued "
                 f"events), profiler {prof_s}, call {ms:.4f} ms (CUDA "
-                f"events), bound {b_ms:.4f} ms ({b_by})")
+                f"events), bound {b_ms:.4f} ms ({b_by}){lib}")
             del out
         return parts
 
@@ -3725,6 +3780,421 @@ def lm_arch_phase(run: LMArch) -> dict:
     return rec
 
 
+# --------------------------------------------------------------------------
+# [lm-train]: LM training on the card (phase 22)
+# --------------------------------------------------------------------------
+
+#: the fused loss's vocabulary widths: every configuration's (musicgen's
+#: 2,048, x 4 codebooks) and the CLI's 100m preset's 32,000
+LOSS_WIDTHS = (2048, 32000, 49152, 50304, 64000, 65536, 131072, 256000,
+               262144)
+#: token rows of each fused-loss check, and the width whose CPlans are also
+#: built and run with the planted fault (the middle column slice of the
+#: last fold pass dropped)
+LOSS_ROWS = 2048
+LOSS_PLANTED = 256000
+#: the trace check: minitron-4b at full width in fp32 with its depth cut to
+#: TRAIN_TRACE_LAYERS, and the full-size run (bf16, full depth): steps of
+#: TRAIN_BATCH x TRAIN_SEQ tokens, the fused loss (fusion "gen")
+TRAIN_TRACE_LAYERS = 2
+TRAIN_STEPS = 3
+TRAIN_BATCH, TRAIN_SEQ = 2, 128
+#: the CLI run at examples/train_lm.py's configuration, its checkpoint
+#: step, and the resumed run's losses against the uninterrupted run's
+CLI_ARGS = ("--arch", "minitron-4b", "--preset", "100m", "--batch", "8",
+            "--seq", "512", "--fusion", "gen", "--steps", "10",
+            "--ckpt-every", "5")
+CLI_RESUME_STEP = 5
+CLI_RTOL = 1e-6
+#: the fused loss's (rows, V) on the main paths, also held to plain and
+#: timed: the trace check's and full-size run's steps over minitron-4b's
+#: vocabulary, and the CLI's steps over the 100m preset's
+LOSS_MAIN_SHAPES = (
+    (TRAIN_BATCH * TRAIN_SEQ, 256000),
+    (int(CLI_ARGS[CLI_ARGS.index("--batch") + 1])
+     * int(CLI_ARGS[CLI_ARGS.index("--seq") + 1]), 32000))
+#: the full-size step's bound: 6 N T bf16 FLOP at the tensor cores' peak
+#: and AdamW's bytes a parameter (bf16 p and g read, p written; fp32 m and
+#: v read and written) once at HBM bandwidth
+ADAMW_BYTES = 22
+
+
+def loss_cplans(V: int, rows: int = LOSS_ROWS):
+    """The fused loss's CPlans over (rows, V): the log-sum-exp forward
+    and its planned backward (``launch.train._lse``), planned on shapes
+    alone."""
+    from repro_torch.launch import train
+    return region_cplans([(train._lse, (meta(rows, V),), True)])
+
+
+def loss_sources() -> list:
+    """Every fused-loss kernel source [lm-train] launches: each width's
+    forward and backward, the main paths' shapes, and the planted builds
+    at LOSS_PLANTED, each text once (the row count is a launch argument,
+    so a main path's shape shares its width's source)."""
+    from repro_torch.kernels import cuda_src
+    out = []
+    for rows, V in ([(LOSS_ROWS, V) for V in LOSS_WIDTHS]
+                    + list(LOSS_MAIN_SHAPES)):
+        for _l, cp in loss_cplans(V, rows):
+            src = cuda_src.source_for(cp)
+            out.append(src)
+            if (rows, V) == (LOSS_ROWS, LOSS_PLANTED):
+                out.append(planted(src))
+    return list({s.key: s for s in out}.values())
+
+
+def loss_library(label: str, env, cp):
+    """One PyTorch call computing the fused loss's CPlan (the forward's
+    ``torch.logsumexp``), or two (the backward: ``torch.softmax`` then a
+    multiply by the cotangent)."""
+    import torch
+    L = env[cp.main.nid]
+    if not label.endswith(":vjp"):
+        return lambda: torch.logsumexp(L, 1, keepdim=True)
+    (g,) = [env[b.nid] for b in cp.binds if b.nid != cp.main.nid]
+    return lambda: torch.softmax(L, 1).mul_(g)
+
+
+def loss_checks(gen) -> dict:
+    """The fused loss alone at every LOSS_WIDTHS width over LOSS_ROWS rows
+    of logits N(0, 2²) (and a cotangent N(0, 1) a row for the backward),
+    then at the main paths' LOSS_MAIN_SHAPES: each CPlan on the Row
+    kernel held to its plain version on the same CUDA tensors within the
+    kernel limit, its layout named; the planted fault at LOSS_PLANTED must
+    fail; the kernel's, plain version's and library call's device times
+    (CUDA events queued behind a spin kernel) beside the bound (bytes once
+    over HBM bandwidth, or the program's fp32 operations, the larger).
+    Returns {label: [part per shape]}."""
+    import torch
+    from repro_torch.kernels import cuda_src
+    parts = {}
+    for rows, V in ([(LOSS_ROWS, V) for V in LOSS_WIDTHS]
+                    + list(LOSS_MAIN_SHAPES)):
+        for label, part in loss_shape_checks(gen, rows, V).items():
+            parts.setdefault(label, []).append(part)
+        torch.cuda.empty_cache()
+    for label, cp in loss_cplans(LOSS_PLANTED):
+        log(f"[lm-train] {label} build at {LOSS_PLANTED} (ptxas): "
+            f"{' | '.join(ptxas_lines(cuda_src.source_for(cp)))}")
+    return parts
+
+
+def loss_shape_checks(gen, rows: int, V: int) -> dict:
+    """:func:`loss_checks` at one (rows, V); the planted fault where that
+    is (LOSS_ROWS, LOSS_PLANTED).  Returns {label: part}."""
+    import torch
+    from repro_torch.kernels import ops, ref, rowwise
+    L = 2.0 * torch.randn((rows, V), generator=gen, device="cuda")
+    g = torch.randn((rows, 1), generator=gen, device="cuda")
+    main = (rows, V) in LOSS_MAIN_SHAPES
+    out_parts = {}
+    for label, cp in loss_cplans(V, rows):
+        env = {b.nid: (L if b.nid == cp.main.nid else g) for b in cp.binds}
+        err, share = compare(cp, env, f"[lm-train] {label} {rows} x {V}")
+        out = rowwise.row(cp, env)
+        planted_share = None
+        if (rows, V) == (LOSS_ROWS, LOSS_PLANTED):
+            with planted_fault():
+                bad = ops.execute(cp, env, kernels="cuda")
+            _e, planted_share = measure(cp, env, bad, "planted loss")
+            del bad
+            if not planted_share > 1.0:
+                raise AssertionError(f"planted fault in the loss's {label} "
+                                     f"at {V} passed the kernel check")
+        calls = {"kernel": lambda: rowwise.row(cp, env),
+                 "plain": lambda: ref.execute_dense(cp, env),
+                 "library": loss_library(label, env, cp)}
+        dev = {k: queued_ms(fn) for k, fn in calls.items()}
+        b_ms, b_by = bound_ms(cp, env, out)
+        part = {"region": label, "width": V, "rows": rows,
+                "main_path": main,
+                "variant": cp.variant, "layout": layout_name(cp),
+                "binds": [list(b.shape) for b in cp.binds],
+                "max_abs_err": err, "share": share,
+                "planted_share": planted_share, "ms": dev["kernel"],
+                "plain_ms": dev["plain"], "library_ms": dev["library"],
+                "bound_ms": b_ms, "bound_by": b_by}
+        out_parts[label] = part
+        fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
+        log(f"[lm-train] loss {label:8s} {rows:>4d} x {V:<6d} "
+            f"{part['layout']:6s}{' (main path)' if main else ''} "
+            f"max|kernel-plain| {err:.3e} = {share:.3g} x limit"
+            + ("" if planted_share is None else
+               f"; planted {planted_share:.3g} x limit")
+            + f"; device: kernel {fmt(dev['kernel'])}, plain "
+            f"{fmt(dev['plain'])}, library {fmt(dev['library'])} "
+            f"({'logsumexp' if label == '_lse' else 'softmax, mul_'}); "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        del out
+    return out_parts
+
+
+def train_model(n_layers: int, dtype: str):
+    """minitron-4b at full width in ``dtype`` (``n_layers`` 0: its full
+    depth), drawn on the card from a generator seeded with LM_SEED."""
+    return lm_arch_model(LM_ARCHS[0]._replace(n_layers=n_layers), dtype)
+
+
+def train_batches(cfg, steps: int = TRAIN_STEPS, start: int = 0) -> list:
+    """The batches of ``steps`` steps from the port's loader (seed 0),
+    TRAIN_BATCH x TRAIN_SEQ tokens."""
+    from repro_torch.data import DataConfig, ShardedLoader
+    loader = ShardedLoader(DataConfig(seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH,
+                                      vocab=cfg.vocab), start_step=start)
+    out = [next(loader) for _ in range(steps)]
+    loader.close()
+    return [{k: v for k, v in b.items() if k != "step"} for b in out]
+
+
+def train_trace(model, batches, kernels: str) -> tuple[list, list, int]:
+    """``make_train_step`` (fusion "gen", AdamW, updated in place) over
+    ``batches`` from the model's parameters (copied), under ``kernels``,
+    the Row launch counter set to 0 just before and read just after:
+    (losses, grad norms, Row launches)."""
+    import torch
+    from repro_torch.core import fusion_mode
+    from repro_torch.kernels import cellwise, multiagg, outerprod, rowwise
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    params = {k: v.detach().clone() for k, v in model.named_parameters()}
+    tc = train.TrainConfig(fusion="gen")
+    opt = adamw.init(params, tc.opt)
+    step = train.make_train_step(model, model.cfg, tc)
+    losses, norms = [], []
+    torch.cuda.synchronize()
+    for mod in (cellwise, multiagg, outerprod, rowwise):
+        mod.launches = 0
+    with fusion_mode(kernels=kernels):
+        for b in batches:
+            params, opt, m = step(params, opt, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    torch.cuda.synchronize()
+    others = cellwise.launches + multiagg.launches + outerprod.launches
+    if others:
+        raise AssertionError(f"the train step launched {others} kernels "
+                             f"besides the Row kernel")
+    launches = rowwise.launches
+    del params, opt
+    torch.cuda.empty_cache()
+    return losses, norms, launches
+
+
+def train_trace_check() -> dict:
+    """minitron-4b at full width in fp32, its depth cut to
+    TRAIN_TRACE_LAYERS: TRAIN_STEPS steps with ``kernels="cuda"`` against
+    ``kernels="never"``: loss and grad-norm traces within TRACE_RTOL
+    relative, 2 Row launches a step; the planted fault must fail the same
+    check."""
+    import torch
+    t0 = time.perf_counter()
+    model = train_model(TRAIN_TRACE_LAYERS, "float32")
+    cfg = model.cfg
+    batches = train_batches(cfg)
+    log(f"[lm-train] trace check: {cfg.name} at full width (d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}) in fp32, depth cut to "
+        f"{cfg.n_layers} of 32 layers (fp32 parameters, AdamW moments and "
+        f"gradients of all 32 would be 67 GB besides the activations); "
+        f"{TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens, "
+        f"fusion gen")
+    got = train_trace(model, batches, "cuda")
+    want = train_trace(model, batches, "never")
+    with planted_fault():
+        bad = train_trace(model, batches, "cuda")
+    rel = trace_rel(got[0] + got[1], want[0] + want[1])
+    rel_bad = trace_rel(bad[0] + bad[1], want[0] + want[1])
+    log(f"[lm-train] losses kernels=cuda {got[0]}, never {want[0]}; grad "
+        f"norms cuda {got[1]}, never {want[1]}; max relative difference "
+        f"{rel:.3e} (tolerance {TRACE_RTOL:g}); Row launches {got[2]} "
+        f"({got[2] / TRAIN_STEPS:g} a step); planted fault: losses "
+        f"{bad[0]}, max relative difference {rel_bad:.3e}")
+    if not rel <= TRACE_RTOL:
+        raise AssertionError("[lm-train]: kernels=cuda and never traces "
+                             "disagree")
+    if got[2] != 2 * TRAIN_STEPS or want[2] != 0:
+        raise AssertionError(f"[lm-train]: {got[2]} Row launches in "
+                             f"{TRAIN_STEPS} steps, not 2 a step (never: "
+                             f"{want[2]})")
+    if not rel_bad > TRACE_RTOL:
+        raise AssertionError("[lm-train]: the planted fault passed the "
+                             "trace check")
+    del model
+    torch.cuda.empty_cache()
+    log(f"[lm-train] trace check wall {time.perf_counter() - t0:.1f} s")
+    return {"losses": got[0], "grad_norms": got[1], "rel": rel,
+            "planted_rel": rel_bad, "launches": got[2]}
+
+
+def train_full() -> dict:
+    """minitron-4b at full width and depth in bf16 with fp32 AdamW
+    moments: TRAIN_STEPS steps through ``run_loop`` and ``ShardedLoader``
+    (fusion "gen", updated in place), the counters set to 0 just before
+    and read just after; finite losses, 2 Row launches a step; the median
+    step of steps 2.. beside its bound, tokens a second, peak memory; one
+    more step profiled for the host share."""
+    import torch
+    from repro_torch.core import fusion_mode
+    from repro_torch.data import DataConfig, ShardedLoader
+    from repro_torch.kernels import cellwise, multiagg, outerprod, rowwise
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    from repro_torch.train import LoopConfig, run_loop
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = train_model(0, "bfloat16")
+    cfg = model.cfg
+    params = dict(model.named_parameters())
+    n = sum(p.numel() for p in params.values())
+    tc = train.TrainConfig(fusion="gen")
+    opt = adamw.init(params, tc.opt)
+    step = train.make_train_step(model, cfg, tc)
+    loader = ShardedLoader(DataConfig(seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH,
+                                      vocab=cfg.vocab))
+    set_up = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    for mod in (cellwise, multiagg, outerprod, rowwise):
+        mod.launches = 0
+    with fusion_mode(kernels="cuda"):
+        params, opt, st = run_loop(step, params, opt, loader,
+                                   LoopConfig(total_steps=TRAIN_STEPS,
+                                              checkpoint_every=10 ** 9))
+    torch.cuda.synchronize()
+    launches = {"row": rowwise.launches, "cell": cellwise.launches,
+                "magg": multiagg.launches, "outer": outerprod.launches}
+    batch = {k: v for k, v in next(loader).items() if k != "step"}
+    loader.close()
+    if len(st.losses) != TRAIN_STEPS or not all(
+            math.isfinite(v) for v in st.losses):
+        raise AssertionError(f"[lm-train] full size: losses {st.losses}")
+    if launches != {"row": 2 * TRAIN_STEPS, "cell": 0, "magg": 0,
+                    "outer": 0}:
+        raise AssertionError(f"[lm-train] full size launched {launches}, "
+                             f"not 2 Row launches a step")
+    step_ms = statistics.median(st.step_times[1:]) * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops_ms = 6 * n * tokens / BF16_PEAK * 1e3
+    bytes_ms = ADAMW_BYTES * n / HBM_BW * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    with fusion_mode(kernels="cuda"):
+        wall_ms, busy_ms = profile_run(
+            f"[lm-train] one more step of {cfg.name} at full size",
+            lambda: step(params, opt, batch))
+    out = {"params": n, "layers": cfg.n_layers, "losses": st.losses,
+           "step_ms": [v * 1e3 for v in st.step_times],
+           "median_step_ms": step_ms, "bound_ms": flops_ms + bytes_ms,
+           "bound_flops_ms": flops_ms, "bound_adamw_ms": bytes_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3), "peak_gb": peak / 1e9,
+           "launches": launches, "host_share": 1 - busy_ms / wall_ms,
+           "profiled_wall_ms": wall_ms, "profiled_busy_ms": busy_ms}
+    log(f"[lm-train] full size: {cfg.name}, {cfg.n_layers} layers, "
+        f"{n:,} parameters in bf16, AdamW moments fp32; set-up "
+        f"{set_up:.1f} s; {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens through run_loop: losses {st.losses}; "
+        f"launches {json.dumps(launches)}; step ms "
+        f"{[round(v * 1e3, 2) for v in st.step_times]} (host clock), "
+        f"median of steps 2-{TRAIN_STEPS} {step_ms:.2f} ms, bound "
+        f"{flops_ms + bytes_ms:.2f} ms (6 N T = {6 * n * tokens:.3e} bf16 "
+        f"FLOP at {BF16_PEAK / 1e12:g} TFLOP/s: {flops_ms:.2f} ms; "
+        f"AdamW's {ADAMW_BYTES} bytes a parameter at {HBM_BW / 1e12:g} "
+        f"TB/s: {bytes_ms:.2f} ms); {out['tokens_per_s']:.0f} tokens/s; "
+        f"peak device memory {peak / 1e9:.2f} GB; host share of one "
+        f"profiled step {out['host_share']:.3f}")
+    del model, params, opt, batch
+    torch.cuda.empty_cache()
+    log(f"[lm-train] full-size wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def train_cli(tmp: Path) -> dict:
+    """``python -m repro_torch.launch.train`` (CLI_ARGS) on the card for
+    its steps with a checkpoint every CLI_RESUME_STEP; the later
+    checkpoint removed (as if the run had stopped after the first); a
+    second process with ``--resume``: its losses for the steps after
+    CLI_RESUME_STEP against the uninterrupted run's, bit for bit or within
+    CLI_RTOL (which one is logged)."""
+    import os
+    import shutil
+    ckpt = tmp / "ckpt"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+
+    def cli(*extra):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train",
+                            *CLI_ARGS, "--ckpt-dir", str(ckpt), *extra],
+                           capture_output=True, text=True, timeout=300,
+                           env=env, cwd=str(ROOT))
+        if r.returncode != 0:
+            raise AssertionError(f"train CLI {extra} failed:\n"
+                                 f"{r.stderr[-3000:]}")
+        line = [ln for ln in r.stdout.splitlines()
+                if ln.startswith("losses ")][-1]
+        rec = json.loads(line[len("losses "):])
+        for ln in r.stdout.splitlines():
+            if ln.startswith(("step", "done", "resumed")):
+                log(f"[lm-train] cli{' ' + ' '.join(extra) if extra else ''}"
+                    f": {ln}")
+        return ({rec["first_step"] + i: v
+                 for i, v in enumerate(rec["losses"])},
+                time.perf_counter() - t0)
+
+    full, t_full = cli()
+    steps = sorted(p.name for p in ckpt.iterdir())
+    last = int(CLI_ARGS[CLI_ARGS.index("--steps") + 1])
+    shutil.rmtree(ckpt / f"step_{last}")
+    again, t_again = cli("--resume")
+    if sorted(again) != list(range(CLI_RESUME_STEP + 1, last + 1)):
+        raise AssertionError(f"resumed run's steps {sorted(again)}")
+    rel = max(abs(again[s] - full[s]) / abs(full[s]) for s in again)
+    exact = all(again[s] == full[s] for s in again)
+    log(f"[lm-train] cli {' '.join(CLI_ARGS)}: checkpoints {steps}; "
+        f"losses {[full[s] for s in sorted(full)]}; resumed from step "
+        f"{CLI_RESUME_STEP}: {[again[s] for s in sorted(again)]}: "
+        f"{'bit for bit' if exact else f'max relative {rel:.3e}'} against "
+        f"the uninterrupted run (tolerance {CLI_RTOL:g}); process walls "
+        f"{t_full:.1f} s and {t_again:.1f} s")
+    if not rel <= CLI_RTOL:
+        raise AssertionError("[lm-train]: the resumed CLI run's losses "
+                             "differ from the uninterrupted run's")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return {"losses": full, "resumed": again, "bit_for_bit": exact,
+            "max_rel": rel}
+
+
+def lm_train_phase() -> dict:
+    """[lm-train] (see the module docstring); returns the loss kernels'
+    records for the result line."""
+    import tempfile
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED + 2)
+    parts = loss_checks(gen)
+    log(f"[lm-train] loss checks wall {time.perf_counter() - t0:.1f} s")
+    trace = train_trace_check()
+    full = train_full()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli = train_cli(Path(tmp))
+    log(f"[lm-train] phase wall {time.perf_counter() - t0:.1f} s")
+    recs = {}
+    for label, name in (("_lse", "row_loss"), ("_lse:vjp", "row_loss_vjp")):
+        main = next(p for p in parts[label]
+                    if (p["rows"], p["width"]) == (LOSS_ROWS, 256000))
+        recs[name] = {"ms": main["ms"], "plain_ms": main["plain_ms"],
+                      "bound_ms": main["bound_ms"],
+                      "bound_by": main["bound_by"],
+                      "library_ms": main["library_ms"],
+                      "max_abs_err": max(p["max_abs_err"]
+                                         for p in parts[label]),
+                      "launches": full["launches"]["row"] // 2,
+                      "parts": parts[label]}
+    recs["train"] = {"trace": trace, "full": full, "cli": cli}
+    return recs
+
+
 def lm_times_only() -> None:
     """``--lm-times``: [lm]'s times alone (minitron-4b in bf16, no
     checks, no result line): prefill and decode ms and the host share of
@@ -3855,6 +4325,10 @@ def run() -> None:
             src = cuda_src.source_for(cp)
             sources[src.key] = src
             sources[planted(src).key] = planted(src)
+    # [lm-train]: the fused loss at every vocabulary width, forward and
+    # backward, and its planted builds
+    for src in loss_sources():
+        sources[src.key] = src
     t_plan = time.perf_counter() - t0
     build.build_all(sources.values())
     t_build = time.perf_counter() - t0 - t_plan
@@ -4039,7 +4513,10 @@ def run() -> None:
     # 18.-21. [lm], [lm-moe], [lm-hybrid], [lm-xlstm]: the LM serving path -
     arch_recs = {run.tag: lm_arch_phase(run) for run in LM_ARCHS}
 
-    # 22. result lines -------------------------------------------------------
+    # 22. [lm-train]: the fused loss, the train step and the CLI ----------
+    train_recs = lm_train_phase()
+
+    # 23. result lines -------------------------------------------------------
     rows = []
     for k, (src, replaces) in KERNELS.items():
         agg = per_kernel[k]
@@ -4086,6 +4563,22 @@ def run() -> None:
                     f"{width}, fp32; launches in the [{run.tag}] phase's "
                     f"call"),
             "parts": rec["parts"], "lm_times": rec["times"]})
+    for name, what in (("row_loss", "forward: log-sum-exp rows"),
+                       ("row_loss_vjp", "planned backward")):
+        rec = train_recs[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": KERNELS["row"][0],
+            "replaces": KERNELS["row"][1], "launches": rec["launches"],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+            "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
+            "layout": "stream", "skeleton": STREAM_SKELETON,
+            "per": (f"one call of the fused softmax-CE loss's {what} over "
+                    f"{LOSS_ROWS} x 256,000 fp32 logits (minitron-4b's "
+                    f"vocabulary); parts at every LOSS_WIDTHS width and "
+                    f"at the main paths' LOSS_MAIN_SHAPES; launches in "
+                    f"[lm-train]'s full-size run"),
+            "parts": rec["parts"]})
     log(json.dumps({"kernels": rows}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
@@ -4269,6 +4762,25 @@ def times_only() -> None:
     log(card_line())
 
 
+def lm_train_only() -> None:
+    """``--lm-train``: [lm-train] alone (its kernels built, its checks and
+    readings, no result line)."""
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build
+    log(f"[env] {ROOT} torch {torch.__version__}; nvidia-smi: "
+        f"{card_line()}")
+    t0 = time.perf_counter()
+    build.build_all({s.key: s for s in loss_sources()}.values())
+    log(f"[build] loss kernels {time.perf_counter() - t0:.1f} s")
+    recs = lm_train_phase()
+    log(json.dumps({k: {kk: vv for kk, vv in v.items() if kk != "parts"}
+                    for k, v in recs.items()}, default=str))
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--dist-rank"] and len(args) == 6:
@@ -4276,10 +4788,10 @@ def main() -> int:
         dist_rank(int(args[1]), int(args[2]), args[3], args[4], args[5])
         return 0
     modes = {(): run, ("--times",): times_only,
-             ("--lm-times",): lm_times_only}
+             ("--lm-times",): lm_times_only, ("--lm-train",): lm_train_only}
     if tuple(args) not in modes:
-        print("usage: python3 chip_smoke.py [--times | --lm-times]",
-              file=sys.stderr)
+        print("usage: python3 chip_smoke.py [--times | --lm-times | "
+              "--lm-train]", file=sys.stderr)
         return 2
     try:
         modes[tuple(args)]()

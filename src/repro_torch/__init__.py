@@ -9,7 +9,9 @@ Cell, MAgg and Row fused operators run as CUDA C++ kernels generated per
 CPlan and compiled with ``nvcc`` at first use.  The LM serving path
 (``configs``, ``models``, ``serve.Engine``) runs all ten architectures
 (attention, MoE, Mamba and mLSTM layers), its rmsnorm through the
-planner.  Importing this package
+planner; the training path (``launch.train``, ``optim``, ``train``,
+``checkpoint``, ``data``) fuses its softmax-CE loss through the planner
+into the Row kernel.  Importing this package
 imports neither ``jax`` nor ``repro``.
 """
 

@@ -1,5 +1,5 @@
 """Operands carried across packages: data, the iterate and, for the LM,
-its weights.  :func:`to_torch` turns numpy arrays (or
+its weights and optimizer state.  :func:`to_torch` turns numpy arrays (or
 arrays produced by another framework and converted to numpy) into
 contiguous fp32 tensors on a device; :func:`to_bcsr` carries a block-sparse
 matrix across (the reference's ``BCSR`` or anything with its attributes),
@@ -9,8 +9,9 @@ carries a block-row partition, and :func:`to_layout` a layout over an
 abstract mesh (the reference's ``FusionLayout`` over its ``LogicalMesh``),
 so both packages can be handed the same plan inputs;
 :func:`lm_params_from_jax` turns the reference's LM params tree into the
-port's LM state dict, and :func:`lm_cache_from_jax` its caches (K/V and
-recurrent states) into the port's."""
+port's LM state dict, :func:`lm_cache_from_jax` its caches (K/V and
+recurrent states) into the port's, and :func:`adamw_state_from_jax` its
+AdamW state into the port's."""
 
 from __future__ import annotations
 
@@ -156,3 +157,15 @@ def lm_cache_from_jax(tree, device="cuda") -> dict:
                           for k, v in layer.items()}
     return {"blocks": [conv(c) for c in tree["blocks"]],
             "rest": [conv(c) for c in tree.get("rest", [])]}
+
+
+def adamw_state_from_jax(tree) -> dict:
+    """The port's AdamW state (:func:`repro_torch.optim.adamw.init`'s
+    structure) from the reference's for an LM (leaves as numpy arrays):
+    its moments ``m`` and ``v`` carried over as
+    :func:`lm_params_from_jax` carries the parameters, and its step
+    ``count``, on the CPU."""
+    return {"m": lm_params_from_jax(tree["m"]),
+            "v": lm_params_from_jax(tree["v"]),
+            "count": torch.tensor(int(np.asarray(tree["count"])),
+                                  dtype=torch.int32)}

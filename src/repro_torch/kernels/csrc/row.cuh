@@ -12,7 +12,7 @@
 // close, far below the ~20 flop/byte fp32 ridge.  So the kernel has to
 // stream X at HBM rate with few instructions per byte.
 //
-// Two layouts, chosen per CPlan by cuda_src.row_layout and written into
+// Three layouts, chosen per CPlan by cuda_src.row_source and written into
 // Prog::LAYOUT:
 //
 // * Tile layout (LAYOUT 1, row_tile_kernel), every program whose computed
@@ -60,7 +60,12 @@
 //   buffer.  Sides are read through the read-only cache.  One partial per
 //   warp.
 //
-// Both: IEEE fp32 FMAs (no TF32, no fast-math); partials are folded in
+// * Streaming layout (LAYOUT 2, row_stream_kernel in row_stream.cuh),
+//   rows too wide for the warp layout's registers (the fused softmax-CE
+//   loss over a vocabulary): a CTA a row, the row read in column slices
+//   once a pass; see that header.
+//
+// All: IEEE fp32 FMAs (no TF32, no fast-math); partials are folded in
 // order by rk::combine, no float atomics, so a rerun gives the same bits.
 //
 // Request axis (common.cuh): gridDim.z requests in one launch, each with
@@ -264,6 +269,8 @@ __device__ __forceinline__ void load_tile(const rk::Binds<P::NB>& b,
 }
 }  // namespace rowtile
 
+#include "row_stream.cuh"
+
 template <class P>
 __global__ void __launch_bounds__(P::T, P::CTAS)
 row_tile_kernel(rk::BBinds<P::NB> bb, float* __restrict__ out,
@@ -458,6 +465,10 @@ int row_launch(void* const* binds, const long long* strides, int nreq,
     if (err != cudaSuccess) return (int)err;
     row_tile_kernel<P><<<grid, P::T, P::SMEM, s>>>(b, out, ostride, part, m,
                                                    (float)aux);
+    nparts = nblocks;
+  } else if constexpr (P::LAYOUT == 2) {
+    row_stream_kernel<P><<<grid, P::T, 0, s>>>(b, out, ostride, part, m,
+                                               (float)aux);
     nparts = nblocks;
   } else {
     row_kernel<P><<<grid, P::WPB * 32, 0, s>>>(b, out, ostride, part, m,

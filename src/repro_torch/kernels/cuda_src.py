@@ -17,10 +17,12 @@ plus an ``extern "C"`` launcher that instantiates the skeleton
 for a plain call — with per-request bind strides; ``repro_launch_outer``
 for Outer, whose kernel also takes the BCSR's block indices and is
 generated per block size).  The Row
-template has two layouts, chosen per CPlan here (:func:`row_source`): the
-tile layout (a thread per row over tiles of rows in shared memory, every
-computed value in registers) and the warp layout (a warp per row) for
-programs with wide computed values; the layout and its geometry go into
+template has three layouts, chosen per CPlan here (:func:`row_source`):
+the tile layout (a thread per row over tiles of rows in shared memory,
+every computed value in registers), the warp layout (a warp per row) for
+programs with wide computed values, and the streaming layout (a CTA per
+row, the row read in column slices once a pass) for rows too wide for
+the warp layout's registers; the layout and its geometry go into
 ``Prog`` and :class:`KernelSource`.  The Cell template has two walks,
 chosen per CPlan here (:func:`cell_source`): the vector walk (four-cell
 groups read as float4, several groups in flight per thread) where every
@@ -101,7 +103,7 @@ class KernelSource:
     domain: tuple          # (rows, cols) the kernel walks (rows: run time)
     elems: int = 0         # reduced elements per partial (0: no partials)
     variant: str = ""      # row, cell: the template variant
-    layout: str = ""       # row: "tile" or "warp" (row_layout)
+    layout: str = ""       # row: "tile", "warp" or "stream" (row_source)
     walk: str = ""         # cell: "vector" or "scalar" (cell_vector_binds)
     group: int = 0         # cell: cells a thread takes per load (4 or 1)
     unroll: int = 0        # cell: groups a thread keeps in flight
@@ -111,6 +113,8 @@ class KernelSource:
     smem: int = 0          # row tile: dynamic shared memory (bytes)
     ctas: int = 0          # row, cell: CTAs per SM the grid is sized for
     parts_per_cta: int = 0  # row, cell: partials each CTA writes
+    floats: int = 0        # row warp: register floats a lane (its arrays)
+    passes: int = 0        # row stream: reads of the row (folds + write)
 
     @functools.cached_property
     def key(self) -> str:
@@ -421,10 +425,17 @@ class _RowEmitter:
         self.vals: dict[tuple, tuple[str, int]] = {}    # key -> (name, w)
         self.lines: list[str] = []
         self.smw = 1
+        self.floats = 0
 
     # -- helpers -------------------------------------------------------------
     def slots(self, w: int) -> int:
         return -(-w // self.L)
+
+    def array(self, name: str, w: int, init: str = "") -> str:
+        """Declares the row array ``name`` of width ``w`` and adds its slots
+        to :attr:`floats`, what a lane holds in registers (or spills)."""
+        self.floats += self.slots(w)
+        return f"float {name}[{self.slots(w)}]{init};"
 
     def emit(self, *lines: str) -> None:
         self.lines.extend(lines)
@@ -457,7 +468,7 @@ class _RowEmitter:
         if w == 1:
             self.emit(f"const float {name} = __ldg({base}{off});")
             return
-        self.emit(f"float {name}[{self.slots(w)}];",
+        self.emit(self.array(name, w),
                   "#pragma unroll",
                   f"for (int t = 0; t < {self.slots(w)}; ++t) {{",
                   f"  const int j = t * {self.L} + sub;",
@@ -497,7 +508,7 @@ class _RowEmitter:
         if width == 1:
             self.emit(f"const float {name} = {expr};")
         else:
-            self.emit(f"float {name}[{self.slots(width)}];",
+            self.emit(self.array(name, width),
                       "#pragma unroll",
                       f"for (int t = 0; t < {self.slots(width)}; ++t) "
                       f"{name}[t] = {expr};")
@@ -546,7 +557,7 @@ class _RowEmitter:
         if c <= _SHUFFLE_MM_MAX:
             # one butterfly per output column: every lane gets the sum
             decl = f"float {name} = 0.f;" if c == 1 else \
-                f"float {name}[{self.slots(c)}] = {{}};"
+                self.array(name, c, " = {}")
             store = f"{name} = s;" if c == 1 else \
                 f"if (jj % 32 == sub) {name}[jj / 32] = s;"
             self.emit(decl,
@@ -565,7 +576,7 @@ class _RowEmitter:
             return
         # wide output: the row sits in shared memory, lanes take columns
         self.stage(a, k)
-        self.emit(f"float {name}[{self.slots(c)}];",
+        self.emit(self.array(name, c),
                   "#pragma unroll",
                   f"for (int t = 0; t < {self.slots(c)}; ++t) {{",
                   "  const int jc = t * 32 + sub;",
@@ -590,7 +601,7 @@ class _RowEmitter:
         if w == 1:
             self.emit(f"const float {name} = sm[{lo}];")
         else:
-            self.emit(f"float {name}[{self.slots(w)}];",
+            self.emit(self.array(name, w),
                       "#pragma unroll",
                       f"for (int t = 0; t < {self.slots(w)}; ++t) {{",
                       f"  const int j = t * {self.L} + sub;",
@@ -1255,7 +1266,10 @@ def _row_lanes(cplan: CPlan) -> int:
 def row_source(cplan: CPlan) -> KernelSource:
     """The Row template, all five variants: the tile layout where the
     program's computed row values are narrow (:class:`_TileEmitter`), the
-    warp layout otherwise (``KernelSource.layout`` says which)."""
+    warp layout otherwise, and the streaming layout where the warp layout
+    would hold more than :data:`WARP_FLOATS_MAX` register floats a lane
+    (``KernelSource.layout`` says which).  A program that wide which the
+    streaming layout cannot express raises ``NotImplementedError``."""
     variant = cplan.variant
     if variant not in _ROW_VARIANT:
         raise _unsupported(cplan, "not a Row variant")
@@ -1266,7 +1280,21 @@ def row_source(cplan: CPlan) -> KernelSource:
     try:
         return _tile_source(cplan)
     except _WarpOnly:
-        return _warp_source(cplan)
+        pass
+    src = _warp_source(cplan)
+    if src.floats <= WARP_FLOATS_MAX:
+        return src
+    return _stream_source(cplan)
+
+
+#: the most register floats a lane (the slots of its row arrays, summed)
+#: the warp layout takes; a wider program streams its rows instead.  The
+#: widest warp-layout CPlan of the main paths is the LM's fused rmsnorm at
+#: 4,096 columns: six arrays of 128 slots, 768 floats (it spills already);
+#: the fused loss's backward holds 11 arrays of V / 32 (1,408 at V =
+#: 4,096, 11,000 at 32,000: hundreds of KB of local memory a thread, more
+#: than the card can reserve for its resident threads at 256,000).
+WARP_FLOATS_MAX = 1024
 
 
 def _warp_source(cplan: CPlan) -> KernelSource:
@@ -1317,7 +1345,289 @@ def _warp_source(cplan: CPlan) -> KernelSource:
     return KernelSource("row", "\n".join(lines),
                         (cplan.main.shape[0], C), elems=elems,
                         variant=variant, layout="warp", threads=wpb * 32,
-                        rows=wpb * (32 // lanes), ctas=8, parts_per_cta=wpb)
+                        rows=wpb * (32 // lanes), ctas=8, parts_per_cta=wpb,
+                        floats=em.floats)
+
+
+# --------------------------------------------------------------------------
+# Row, streaming layout: a CTA per row, the row read in column slices once a
+# pass
+# --------------------------------------------------------------------------
+
+#: threads of a streaming CTA and CTAs an SM is sized for (64 registers a
+#: thread at most)
+STREAM_THREADS = 256
+STREAM_CTAS = 4
+_STREAM_VARIANT = (NO_AGG, ROW_AGG, FULL_AGG)
+
+
+class _StreamEmitter:
+    """Splits a Row program over wide rows into passes and writes its row
+    body.  Values are row-wide (``"w"``: evaluated per element inside a
+    pass's column walk, never stored) or row scalars (``"s"``).  A row
+    aggregate of a wide value is folded in the pass after the last row
+    scalar it needs: its ``level`` is that pass + 1, when its value is
+    known.  Row scalars live in registers (every thread computes the same
+    bits), an aggregate's result reaches them through shared memory."""
+
+    def __init__(self, cplan: CPlan):
+        self.cp = cplan
+        self.M, self.N = cplan.main.shape
+        self.pos = {b.nid: k for k, b in enumerate(cplan.binds)}
+        self.kind: dict[tuple, str] = {}
+        self.level: dict[tuple, int] = {}
+        self.prog: dict[int, tuple] = {}       # nid -> (pos, op, ins, attrs)
+        self.aggs: list[tuple] = []            # (pass, slot, code, ref, nid)
+        for b in cplan.binds:
+            r, c = b.shape
+            if r not in (1, self.M):
+                raise _unsupported(cplan, f"side of shape {(r, c)}")
+            if c == self.N:
+                self.kind[("b", b.nid)] = "w"
+            elif c == 1:
+                self.kind[("b", b.nid)] = "s"
+            else:
+                raise _unsupported(cplan, f"bind of width {c} in a program "
+                                          f"over {self.N}-wide rows")
+            self.level[("b", b.nid)] = 0
+        for pos, (nid, op, ins, shape, attrs) in enumerate(cplan.prog):
+            attrs = dict(attrs)
+            w = int(shape[1])
+            if shape[0] not in (1, self.M) or w not in (1, self.N):
+                raise _unsupported(cplan, f"program value of shape {shape}")
+            key = ("n", nid)
+            self.prog[nid] = (pos, op, tuple(ins), attrs)
+            if op in AGG_OPS and "axis" in attrs:
+                if attrs["axis"] != "row":
+                    raise _unsupported(cplan, f"{attrs['axis']} aggregate "
+                                              f"inside a program")
+                x = ins[0]
+                self.kind[key] = "s"
+                if self.kind_of(x) == "w":
+                    ps = self.level_of(x)
+                    self.aggs.append((ps, len(self.aggs), AGG_CODE[op], x,
+                                      nid))
+                    self.level[key] = ps + 1
+                else:
+                    self.level[key] = self.level_of(x)
+            elif op in _CELL_C:
+                wide = any(self.kind_of(r) == "w" for r in ins)
+                if wide != (w == self.N and self.N > 1):
+                    raise _unsupported(cplan, f"'{op}' of width {w}")
+                self.kind[key] = "w" if wide else "s"
+                self.level[key] = max([self.level_of(r) for r in ins] + [0])
+            else:
+                raise _unsupported(cplan, f"op '{op}' in a streamed row "
+                                          f"program")
+
+    def kind_of(self, ref) -> str:
+        return "s" if ref[0] == "l" else self.kind[tuple(ref)]
+
+    def level_of(self, ref) -> int:
+        return 0 if ref[0] == "l" else self.level[tuple(ref)]
+
+    def ref(self, ref) -> str:
+        """C expression of a value inside the body (a wide value: its
+        element at the current column)."""
+        kind, r = ref
+        if kind == "l":
+            return _lit(r)
+        if kind == "b":
+            k = self.pos[r]
+            return f"w{k}" if self.kind[("b", r)] == "w" else f"sb{k}"
+        pos = self.prog[r][0]
+        return f"e{pos}" if self.kind[("n", r)] == "w" else f"s{pos}"
+
+    def wide_closure(self, refs) -> tuple[list[int], list[int]]:
+        """(wide program nids in program order, wide bind positions) that
+        the element-wise values ``refs`` are computed from."""
+        nids, binds, todo = set(), set(), list(refs)
+        while todo:
+            kind, r = todo.pop()
+            if kind == "l" or self.kind[(kind, r)] != "w":
+                continue
+            if kind == "b":
+                binds.add(self.pos[r])
+            elif r not in nids:
+                nids.add(r)
+                todo.extend(self.prog[r][2])
+        return sorted(nids, key=lambda n: self.prog[n][0]), sorted(binds)
+
+    def element(self, nids, binds, reader) -> list[str]:
+        """One column's element-wise values: bind k read by
+        ``reader(k)``."""
+        lines = [f"const float w{k} = {reader(k)};" for k in binds]
+        for nid in nids:
+            pos, op, ins, _a = self.prog[nid]
+            lines.append(f"const float e{pos} = "
+                         f"{_CELL_C[op].format(*(self.ref(r) for r in ins))};")
+        return lines
+
+    def walk(self, refs, fold: Callable, planted: bool,
+             group_head: tuple = (), group_tail: tuple = ()) -> list[str]:
+        """The column walk of one pass, in 4-column groups (float4 loads)
+        where every row is 16-byte aligned (``vec``), else column by
+        column: ``fold(u)`` gives the statements that consume column u's
+        values (u = 0..3 of a group, None in the one-column walk);
+        ``group_head`` starts and ``group_tail`` ends each group.  Thread ``tid`` takes groups tid,
+        tid + T, ... (columns tid, tid + T, ...), in that order.  The
+        planted build drops the middle column slice of a ``planted``
+        walk."""
+        nids, binds = self.wide_closure(refs)
+        T, N = STREAM_THREADS, self.N
+        mid = -(-N // (4 * T)) // 2
+        skip = (f"if (rowtile::kPlanted && j / {4 * T} == {mid}) continue;"
+                if planted else "")
+        vec = [f"for (long long j = 4 * tid; j < {N}; j += {4 * T}) {{"]
+        if skip:
+            vec.append("  " + skip)
+        vec += [f"  const float4 q{k} = rowstream::ld4(r{k} + j);"
+                for k in binds]
+        vec += ["  " + ln for ln in group_head]
+        for u in range(4):
+            c = _xyzw(u)
+            vec += ["  {", *("    " + ln for ln in self.element(
+                nids, binds, lambda k: f"q{k}.{c}") + fold(u)), "  }"]
+        vec += ["  " + ln for ln in group_tail]
+        vec.append("}")
+        one = [f"for (long long j = tid; j < {N}; j += {T}) {{"]
+        if skip:
+            one.append("  " + skip)
+        one += ["  " + ln for ln in self.element(
+            nids, binds, lambda k: f"__ldg(r{k} + j)") + fold(None)]
+        one.append("}")
+        return ["if (vec) {", *("  " + ln for ln in vec), "} else {",
+                *("  " + ln for ln in one), "}"]
+
+    def scalars(self, level: int) -> list[str]:
+        """The row scalars that become known at ``level`` (element-wise
+        over scalars, in program order; a row aggregate's own value is
+        read from shared memory after its fold)."""
+        out = []
+        for nid, (pos, op, ins, attrs) in self.prog.items():
+            key = ("n", nid)
+            if self.kind[key] != "s" or self.level[key] != level:
+                continue
+            if op in AGG_OPS and "axis" in attrs:
+                if self.kind_of(ins[0]) == "w":
+                    continue
+                x = self.ref(ins[0])
+                out.append(f"const float s{pos} = "
+                           f"{f'({x} * {x})' if op == 'sum_sq' else x};")
+            else:
+                out.append(f"const float s{pos} = "
+                           f"{_CELL_C[op].format(*(self.ref(r) for r in ins))};")
+        return out
+
+
+def _stream_source(cplan: CPlan) -> KernelSource:
+    """The Row template in the streaming layout (``no_agg``, ``row_agg``
+    and ``full_agg``; raises ``NotImplementedError`` for the rest)."""
+    variant = cplan.variant
+    if variant not in _STREAM_VARIANT:
+        raise _unsupported(cplan, "a column aggregate over streamed rows")
+    em = _StreamEmitter(cplan)
+    M, N = em.M, em.N
+    root = ("n", cplan.prog_root) if cplan.prog_root in em.prog else \
+        ("b", cplan.prog_root)
+    wide_root = em.kind_of(root) == "w"
+    agg = cplan.agg_op or "sum"
+    aggs = list(em.aggs)
+    if variant != NO_AGG and wide_root:       # the row's own aggregate
+        aggs.append((em.level_of(root), len(aggs), AGG_CODE[agg], root,
+                     None))
+    if variant == NO_AGG and tuple(cplan.out_shape) != (
+            M, N if wide_root else 1):
+        raise _unsupported(cplan, f"output {cplan.out_shape}")
+    npass = max([a[0] + 1 for a in aggs] + [0])
+    write = variant == NO_AGG and wide_root
+    wide_binds = sorted(em.pos[b.nid] for b in cplan.binds
+                        if em.kind[("b", b.nid)] == "w")
+    body = [f"const float* r{k} = b.p[{k}]"
+            f"{f' + i * {N}' if cplan.binds[k].shape[0] == M > 1 else ''};"
+            for k in wide_binds]
+    body += [f"const float sb{k} = __ldg(b.p[{k}]"
+             f"{' + i' if cplan.binds[k].shape[0] == M > 1 else ''});"
+             for k, bb in enumerate(cplan.binds)
+             if em.kind[("b", bb.nid)] == "s"]
+    aligned = " && ".join([f"rowstream::aligned(r{k})" for k in wide_binds]
+                          + (["rowstream::aligned(o)"] if write else []))
+    body.append(f"const bool vec = {'true' if N % 4 == 0 else 'false'}"
+                f"{' && ' + aligned if aligned and N % 4 == 0 else ''};")
+    body += em.scalars(0)
+    row_value = "0.f"
+    for ps in range(npass):
+        here = [a for a in aggs if a[0] == ps]
+        body.append(f"// pass {ps}: fold {len(here)} row aggregate(s)")
+        body.append("{")
+        inner = [f"float a{slot} = rk::agg_init({code});"
+                 for _p, slot, code, _r, _n in here]
+
+        def fold(u, here=here):
+            return [f"a{slot} = rk::agg_add({code}, a{slot}, "
+                    f"{em.ref(r)});" for _p, slot, code, r, _n in here]
+
+        inner += em.walk([a[3] for a in here], fold,
+                         planted=ps == npass - 1)
+        inner += [f"rowstream::fold<{STREAM_THREADS}>({code}, a{slot}, red, "
+                  f"rs + {slot});"
+                  for _p, slot, code, _r, _n in here]
+        body += ["  " + ln for ln in inner]
+        body.append("}")
+        for _p, slot, code, _r, nid in here:
+            if nid is None:
+                row_value = f"rs[{slot}]"
+                continue
+            pos, op = em.prog[nid][:2]
+            val = f"rs[{slot}]" + (f" / {float(N)!r}f" if op == "mean"
+                                   else "")
+            body.append(f"const float s{pos} = {val};")
+        body += em.scalars(ps + 1)
+    if write:
+        x = em.ref(root)
+        body.append(f"// pass {npass}: write the row")
+        body += em.walk([root], lambda u: [f"o[j] = {x};"] if u is None
+                        else [f"o4.{_xyzw(u)} = {x};"], planted=False,
+                        group_head=("float4 o4;",),
+                        group_tail=("rowstream::st4(o + j, o4);",))
+    elif not wide_root:
+        x = em.ref(root)
+        row_value = (x if variant == NO_AGG else
+                     f"rk::agg_add({AGG_CODE[agg]}, "
+                     f"rk::agg_init({AGG_CODE[agg]}), {x})")
+    body.append(f"return {row_value};")
+    mean = agg == "mean" and variant in (ROW_AGG, FULL_AGG)
+    passes = npass + int(write)
+    lines = [
+        "// Row template (streaming layout): " + _describe(cplan),
+        *_header("row"),
+        "struct Prog {",
+        f"  static constexpr int NB = {len(cplan.binds)}, LAYOUT = 2, "
+        f"T = {STREAM_THREADS}, CTAS = {STREAM_CTAS};",
+        f"  static constexpr int NPASS = {npass}, WRITE = {int(write)}, "
+        f"PASSES = {passes}, NS = {max(len(aggs), 1)};",
+        f"  static constexpr long long N = {N};",
+        "  static constexpr int C = 1, KC = 0;   // a partial is one value",
+        f"  static constexpr int VARIANT = {_ROW_VARIANT[variant]}, "
+        f"AGG = {AGG_CODE[agg]}, MEAN = {int(mean)};",
+        "  __device__ static __forceinline__ int agg_of(int) "
+        "{ return AGG; }",
+        "  __device__ static __forceinline__ float fin(int, float a, "
+        "double aux) { return MEAN ? a / (float)aux : a; }",
+        "  // row i; o: its output row (written by the last pass of a wide "
+        "no_agg root); returns the row's value",
+        "  __device__ static __forceinline__ float row("
+        "const rk::Binds<NB>& b, long long i, int tid, float* rs, "
+        "float* red, float* o) {",
+        *("    " + ln for ln in body),
+        "  }",
+        "};", "",
+        *_launcher("row_launch")]
+    return KernelSource("row", "\n".join(lines), (M, N if wide_root else 1),
+                        elems=1 if variant == FULL_AGG else 0,
+                        variant=variant, layout="stream",
+                        threads=STREAM_THREADS, rows=1, ctas=STREAM_CTAS,
+                        parts_per_cta=1, passes=passes)
 
 
 # --------------------------------------------------------------------------

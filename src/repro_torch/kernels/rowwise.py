@@ -5,8 +5,9 @@ Replaces ``repro/kernels/rowwise.py::row_pallas`` — all five variants
 (``no_agg``, ``row_agg``, ``col_agg``, ``full_agg``, ``col_t_agg``), narrow
 in-program matmuls and in-program row aggregates.  The kernel source is
 generated per CPlan (:func:`repro_torch.kernels.cuda_src.row_source`) over
-``csrc/row.cuh``, in its tile or warp layout; see its header for the design
-and its bound.  The launch geometry (threads, rows a CTA takes per step,
+``csrc/row.cuh``, in its tile, warp or streaming layout
+(``csrc/row_stream.cuh``); see those headers for the design and its
+bound.  The launch geometry (threads, rows a CTA takes per step,
 CTAs per SM, shared memory) comes from the generated source.
 :func:`row` launches it for one request and :func:`row_batched` for a
 batch of requests stacked on a leading axis — one launch either way, the

@@ -235,6 +235,13 @@ class LM(nn.Module):
         x = apply_norm(x, self.final_norm, self.cfg)
         return self._logits(x), caches, aux
 
+    def forward(self, tokens, prefix_emb=None):
+        """The training forward, :meth:`apply` without caches: (logits,
+        moe_aux).  ``torch.func.functional_call`` runs it over a dict of
+        parameters (the train step's)."""
+        logits, _, aux = self.apply(tokens, prefix_emb=prefix_emb)
+        return logits, aux
+
     def decode_step(self, caches, token, pos: int):
         """One decode step.  token: (B, 1) (or (B, 1, nc)); pos: the
         position it takes.  Returns (logits (B, 1, V...), caches) with

@@ -1,8 +1,9 @@
 """Mamba selective-SSM layer (Jamba's recurrent block), in PyTorch.
 
 Prefill runs the selective scan as a Python loop over time on the
-device (the reference's ``lax.scan``; the loop is one in-place
-``addcmul_`` a step); decode is a single O(1) state update.  Given a
+device (the reference's ``lax.scan``; the loop is one ``addcmul`` a step,
+in place where autograd records nothing, out of place where it does, so
+that training differentiates through it); decode is a single O(1) state update.  Given a
 state, both write the final state into its tensors in place (a serving
 slot's state is a view of the engine's pool) and return it.
 
@@ -61,16 +62,31 @@ def _ssm_inputs(u: torch.Tensor, p, N: int):
     return B_, C_, dt
 
 
+def _recorded(*ts) -> bool:
+    """Whether autograd records an op on these tensors (then a state must
+    not be updated in place)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def _selective_scan(u, dt, B_, C_, A, h0):
     """u, dt: (B, L, di); B_, C_: (B, L, N); A: (di, N); h0: (B, di, N),
-    all fp32.  Returns (y (B, L, di), hL).  Each step overwrites its dBx
-    with its state, h_t = h_{t-1} · dA_t + dBx_t, so the states need no
-    buffer of their own."""
+    all fp32.  Returns (y (B, L, di), hL).  h_t = h_{t-1} · dA_t + dBx_t.
+    Where autograd records nothing (serving, under ``no_grad``) each step
+    overwrites its dBx with its state, so the states need no buffer of
+    their own; where it records (training) the states are new tensors,
+    stacked, with the same bits."""
     dA = torch.exp(dt[..., None] * A)                     # (B, L, di, N)
     hs = dt[..., None] * B_[:, :, None, :] * u[..., None]
     h = h0
-    for t in range(u.shape[1]):
-        h = hs[:, t].addcmul_(h, dA[:, t])
+    if _recorded(hs, dA, h0):
+        states = []
+        for t in range(u.shape[1]):
+            h = torch.addcmul(hs[:, t], h, dA[:, t])
+            states.append(h)
+        hs = torch.stack(states, dim=1)
+    else:
+        for t in range(u.shape[1]):
+            h = hs[:, t].addcmul_(h, dA[:, t])
     del dA
     y = torch.einsum("bldn,bln->bld", hs, C_)
     return y, h

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from .layers import normal
-from .mamba import _write_state
+from .mamba import _recorded, _write_state
 
 
 def xlstm_params(gen: Optional[torch.Generator], cfg: ModelConfig) -> dict:
@@ -42,16 +42,21 @@ def xlstm_params(gen: Optional[torch.Generator], cfg: ModelConfig) -> dict:
 
 def _cell_step(state, inputs):
     """One step.  state: (C (B,H,hd,hd), n (B,H,hd), m (B,H)), fp32, C
-    updated in place; inputs: q, k, v (B,H,hd), the input gate's
-    pre-activation and log σ(forget pre-activation) (B,H), both computed
-    for every step before the loop.  Returns ((C, n, m), h (B,H,hd))."""
+    updated in place where autograd records nothing (serving) and out of
+    place where it does (training), with the same bits; inputs: q, k, v (B,H,hd), the input
+    gate's pre-activation and log σ(forget pre-activation) (B,H), both
+    computed for every step before the loop.  Returns ((C, n, m), h
+    (B,H,hd))."""
     C, n, m = state
     q, k, v, ipre, logf = inputs
     m_new = torch.maximum(logf + m, ipre)
     i_g = torch.exp(ipre - m_new)[..., None]
     f_g = torch.exp(logf + m - m_new)[..., None]
-    C.mul_(f_g[..., None]).add_(i_g[..., None] * (v[..., :, None]
-                                                  * k[..., None, :]))
+    upd = i_g[..., None] * (v[..., :, None] * k[..., None, :])
+    if _recorded(C, f_g, upd):
+        C = C * f_g[..., None] + upd
+    else:
+        C.mul_(f_g[..., None]).add_(upd)
     n = f_g * n + i_g * k
     h_num = (C @ q[..., None])[..., 0]
     h_den = torch.maximum(torch.abs(torch.sum(n * q, dim=-1)),

@@ -10,7 +10,8 @@ CPU, MLogReg, GLM, KMeans and the autoencoder on the card against
 launched exactly for a BCSR on the card; the request-axis kernels per
 request and the fusion server on the card; a distributed segment's
 misaligned row panel copied, not refused; the LM's fused rmsnorm at
-3,072 columns as one Row launch.  Marked ``gpu``; without a card
+3,072 columns as one Row launch; the fused softmax-CE loss at 32,000
+columns in the Row kernel's streaming layout.  Marked ``gpu``; without a card
 every test skips.  Imports no JAX (the machine with the card has none):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -461,3 +462,38 @@ def test_lm_fused_rmsnorm_at_width_3072_is_one_row_launch(lm_norm_card):
     want = torch.nn.functional.rms_norm(x, (3072,), weight=1.0 + s,
                                         eps=1e-6)
     torch.testing.assert_close(chk["out"], want, rtol=1e-5, atol=1e-5)
+
+
+def test_fused_loss_streams_on_the_card_and_matches_plain(card):
+    """The fused softmax-CE loss at 32,000 columns (the CLI's 100m
+    preset) over 512 rows: forward and planned backward each one Row
+    launch in the streaming layout, within the kernel limit of the plain
+    version, the same bits twice (no float atomics), and the gradient
+    equal to softmax · g within 1e-6."""
+    from repro_torch.core import fusion_mode
+    from repro_torch.launch import train
+    smoke = chip_smoke()
+    srcs = [cuda_src.source_for(cp) for _l, cp in smoke.loss_cplans(32_000)]
+    assert [s.layout for s in srcs] == ["stream", "stream"]
+    build.build_all(srcs)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x = 2.0 * torch.randn((512, 32_000), generator=gen, device="cuda")
+    g = torch.randn((512, 1), generator=gen, device="cuda")
+    rowwise.launches = 0
+    with fusion_mode(kernels="cuda"):
+        xr = x.clone().requires_grad_(True)
+        lse = train._fused_lse(xr, "gen")
+        (gx,) = torch.autograd.grad(lse, xr, g)
+        again = train._fused_lse(x, "gen")
+    torch.cuda.synchronize()
+    assert rowwise.launches == 3
+    assert torch.equal(lse.detach(), again)
+    torch.testing.assert_close(lse.detach(),
+                               torch.logsumexp(x, 1, keepdim=True),
+                               rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(gx, torch.softmax(x, 1) * g, rtol=1e-5,
+                               atol=1e-6)
+    for _l, cp in smoke.loss_cplans(32_000, rows=512):
+        env = {b.nid: (x if b.nid == cp.main.nid else g) for b in cp.binds}
+        _err, share = smoke.compare(cp, env, _l)
+        assert share <= 1.0

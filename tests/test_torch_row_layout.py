@@ -204,3 +204,162 @@ def test_lm_rmsnorm_sources_parse(tmp_path):
     srcs += [smoke.planted(s) for s in srcs]
     for key, rc, err in _parse(srcs, tmp_path):
         assert rc == 0, f"{key}:\n{err}"
+
+
+# --------------------------------------------------------------------------
+# the streaming layout: vocabulary-wide rows (the fused softmax-CE loss)
+# --------------------------------------------------------------------------
+
+def _loss_cplans(V: int):
+    return dict(chip_smoke().loss_cplans(V))
+
+
+@pytest.mark.parametrize("V", [32_000, 262_144])
+def test_loss_cplans_take_the_streaming_layout(V):
+    for label, cp in _loss_cplans(V).items():
+        src = cuda_src.source_for(cp)
+        assert (src.template, src.variant, src.layout) == \
+            ("row", "no_agg", "stream"), label
+        consts = _consts(src.text)
+        assert consts["LAYOUT"] == 2 and consts["T"] == src.threads
+        assert src.ctas == consts["CTAS"] and src.rows == 1
+        # the warp layout would hold 3 (forward) or 11 (backward) arrays
+        # of V / 32 floats a lane
+        warp = cuda_src._warp_source(cp)
+        assert warp.floats == (3 if label == "_lse" else 11) * (V // 32)
+        assert warp.floats > cuda_src.WARP_FLOATS_MAX
+
+
+def test_loss_at_2048_and_the_rmsnorm_keep_their_layouts():
+    """The selection threshold keeps every CPlan that took the tile or
+    warp layout before the streaming one existed: the loss at musicgen's
+    2,048 columns (forward tile; backward warp, 704 floats a lane) and the
+    rmsnorm at 2,048-4,096 columns (warp, up to 768)."""
+    small = _loss_cplans(2048)
+    assert cuda_src.source_for(small["_lse"]).layout == "tile"
+    bwd = cuda_src.source_for(small["_lse:vjp"])
+    assert bwd.layout == "warp" and bwd.floats == 704
+    smoke = chip_smoke()
+    for d in (2048, 3072, 4096):
+        (_l, cp), = smoke.lm_norm_cplans(d)
+        src = cuda_src.source_for(cp)
+        assert src.layout == "warp"
+        assert src.floats == 6 * d // 32 <= cuda_src.WARP_FLOATS_MAX
+
+
+@pytest.mark.parametrize("path", PATHS)
+def test_main_path_row_cplans_never_stream(path):
+    for label, cp in _row_cplans(path):
+        assert cuda_src.source_for(cp).layout in ("tile", "warp"), label
+
+
+def test_sweep_row_cases_never_stream():
+    for case in sweep.cases():
+        if case.template != "row":
+            continue
+        for shape in ((33, 7), (2_000_003, 100)):
+            if shape[1] >= case.min_n:
+                src = cuda_src.source_for(sweep.fused_cplan(case, *shape)[0])
+                assert src.layout in ("tile", "warp"), case.name
+
+
+def test_streamed_sources_hold_no_row_wide_array():
+    """No generated ``float x[n]`` array grows with the row width: the
+    streamed sources at two widths differ only in the width itself."""
+    arrays = lambda t: re.findall(r"float \w+\[(\w+)\]", t)
+    a, b = _loss_cplans(32_000), _loss_cplans(262_144)
+    for label in a:
+        sa = cuda_src.source_for(a[label]).text
+        sb = cuda_src.source_for(b[label]).text
+        assert arrays(sa) == arrays(sb) == []
+        norm = lambda t, V: re.sub(r"== \d+\) continue", "== MID) continue",
+                                   t.replace(str(V), "V"))
+        assert norm(sa, 32_000) == norm(sb, 262_144)
+
+
+def _passes(cp) -> tuple[int, int, int]:
+    """An independent count of a streamed no_agg program's passes: each
+    row aggregate over a row-wide value is folded one pass after the
+    latest aggregate its operand depends on; returns (fold passes,
+    aggregates folded, write pass)."""
+    M, N = cp.main.shape
+    width = {("b", b.nid): b.shape[1] for b in cp.binds}
+    after = {("b", b.nid): 0 for b in cp.binds}    # passes needed first
+    folds = []
+    for nid, op, ins, shape, attrs in cp.prog:
+        deps = [after[tuple(r)] for r in ins if r[0] != "l"]
+        if dict(attrs).get("axis") == "row" and width[tuple(ins[0])] == N:
+            after[("n", nid)] = deps[0] + 1
+            folds.append(deps[0] + 1)
+        else:
+            after[("n", nid)] = max(deps + [0])
+        width[("n", nid)] = shape[1]
+    return max(folds), len(folds), int(width[("n", cp.prog_root)] == N)
+
+
+@pytest.mark.parametrize("V", [32_000, 256_000])
+def test_stream_pass_split_matches_an_independent_count(V):
+    """The forward folds its max, then Σ exp(L - max) (2 reads of the
+    row, the log-sum-exp in the tail); the backward folds the max, then
+    Σ exp and the tie count (``eq`` → ``sum``), then Σ of the scaled
+    softmax, and writes the row (4 reads)."""
+    want = {"_lse": (2, 2, 0), "_lse:vjp": (3, 4, 1)}
+    for label, cp in _loss_cplans(V).items():
+        src = cuda_src.source_for(cp)
+        consts = _consts(src.text)
+        npass, nfold, write = _passes(cp)
+        assert (npass, nfold, write) == want[label]
+        assert (consts["NPASS"], consts["NS"], consts["WRITE"]) == \
+            (npass, nfold, write)
+        assert consts["PASSES"] == src.passes == npass + write
+        assert src.text.count("rowstream::fold<") == nfold
+        assert src.text.count("// pass ") == npass + write
+        # the planted fault sits in the last fold pass, in both walks
+        assert src.text.count("rowtile::kPlanted") == 2
+        mid = -(-V // (4 * cuda_src.STREAM_THREADS)) // 2
+        assert f"== {mid}) continue;" in src.text
+
+
+def _wide_cplan(expr, V: int = 65_536, m: int = 512):
+    X = ir.matrix("X", (m, V))
+    g = ir.Graph.build([expr(X)])
+    p = select.plan(g, "gen")
+    spec = [s for s in p.specs if getattr(s, "fused", False)][-1]
+    return cplan.build_cplan(g, spec)
+
+
+@pytest.mark.parametrize("name,expr,variant", [
+    ("row_agg", lambda X: ir.exp(X * 0.5).rowsums(), "row_agg"),
+    ("full_agg", lambda X: ir.exp(X - X.rowmaxs()).sum(), "full_agg"),
+])
+def test_row_and_full_aggregates_stream_at_wide_rows(name, expr, variant,
+                                                     tmp_path):
+    cp = _wide_cplan(expr)
+    assert cp.variant == variant
+    src = cuda_src.source_for(cp)
+    assert src.layout == "stream"
+    assert src.elems == (1 if variant == "full_agg" else 0)
+    from test_torch_cell_layout import _parse
+    for key, rc, err in _parse([src], tmp_path):
+        assert rc == 0, f"{name} {key}:\n{err}"
+
+
+def test_column_aggregates_do_not_stream():
+    """A column aggregate over rows too wide for the warp layout has no
+    layout: the generator raises with its reason instead of handing back a
+    warp source that would spill past what the card can reserve."""
+    cp = _wide_cplan(lambda X: ir.exp(X).colsums(), V=65_536)
+    with pytest.raises(NotImplementedError, match="column aggregate"):
+        cuda_src._stream_source(cp)
+    with pytest.raises(NotImplementedError, match="column aggregate"):
+        cuda_src.source_for(cp)
+
+
+def test_stream_sources_parse(tmp_path):
+    from test_torch_cell_layout import _parse
+    smoke = chip_smoke()
+    srcs = smoke.loss_sources()
+    assert sum(s.layout == "stream" for s in srcs) == 18
+    assert len({s.key for s in srcs}) == len(srcs)
+    for key, rc, err in _parse(srcs, tmp_path):
+        assert rc == 0, f"{key}:\n{err}"

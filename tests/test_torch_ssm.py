@@ -189,3 +189,83 @@ def test_mlstm_prefill_then_decode_equals_forward():
     for t in range(P, P + k):
         y, st = xlstm.mlstm_decode(x[:, t:t + 1], pp, cfg, st)
         close(y, full[:, t:t + 1].numpy())
+
+
+# --------------------------------------------------------------------------
+# serving keeps its in-place updates, training differentiates
+# --------------------------------------------------------------------------
+
+def _pinned_scan(u, dt, B_, C_, A, h0):
+    """The selective scan as serving ran it before training could
+    differentiate it: every step overwrites its dBx in place."""
+    dA = torch.exp(dt[..., None] * A)
+    hs = dt[..., None] * B_[:, :, None, :] * u[..., None]
+    h = h0
+    for t in range(u.shape[1]):
+        h = hs[:, t].addcmul_(h, dA[:, t])
+    return torch.einsum("bldn,bln->bld", hs, C_), h
+
+
+def _pinned_cell_step(state, inputs):
+    """The mLSTM step as serving ran it before: C updated in place."""
+    C, n, m = state
+    q, k, v, ipre, logf = inputs
+    m_new = torch.maximum(logf + m, ipre)
+    i_g = torch.exp(ipre - m_new)[..., None]
+    f_g = torch.exp(logf + m - m_new)[..., None]
+    C.mul_(f_g[..., None]).add_(i_g[..., None] * (v[..., :, None]
+                                                  * k[..., None, :]))
+    n = f_g * n + i_g * k
+    h_num = (C @ q[..., None])[..., 0]
+    h_den = torch.maximum(torch.abs(torch.sum(n * q, dim=-1)),
+                          torch.exp(-m_new))[..., None]
+    return (C, n, m_new), h_num / h_den
+
+
+def test_serving_scan_and_cell_step_keep_their_bits_and_update_in_place():
+    """Under ``no_grad`` the scan and the cell step run in place and give
+    the bits of the serving path as it was; with autograd recording they
+    run out of place with the same bits, and differentiate."""
+    cfg, _ = cfgs("jamba-v0.1-52b")
+    di, N = cfg.ssm_expand * cfg.d_model, cfg.ssm_state
+    u, dt = (torch.from_numpy(rand((2, 9, di), s, 0.5)) for s in (30, 31))
+    dt = dt.abs()
+    B_, C_ = (torch.from_numpy(rand((2, 9, N), s)) for s in (32, 33))
+    A = -torch.from_numpy(rand((di, N), 34)).abs()
+    h0 = torch.from_numpy(rand((2, di, N), 35, 0.5))
+    want_y, want_h = _pinned_scan(u, dt, B_, C_, A, h0.clone())
+    with torch.no_grad():
+        y, h = mamba._selective_scan(u, dt, B_, C_, A, h0.clone())
+    assert torch.equal(y, want_y) and torch.equal(h, want_h)
+    ur = u.clone().requires_grad_(True)
+    y2, h2 = mamba._selective_scan(ur, dt, B_, C_, A, h0.clone())
+    assert torch.equal(y2.detach(), want_y) and torch.equal(h2.detach(),
+                                                            want_h)
+    (gu,) = torch.autograd.grad(y2.sum() + h2.sum(), ur)
+    assert gu.shape == u.shape and bool(torch.isfinite(gu).all())
+
+    cfg, _ = cfgs("xlstm-1.3b")
+    st = xlstm_state(cfg, 2, 36)
+    H, hd = cfg.n_heads, cfg.ssm_expand * cfg.d_model // cfg.n_heads
+    q, k, v = (torch.from_numpy(rand((2, H, hd), s)) for s in (37, 38, 39))
+    ipre, logf = (torch.from_numpy(rand((2, H), s)) for s in (40, 41))
+    logf = -logf.abs()
+    inputs = (q, k, v, ipre, logf)
+    t = to_torch(st)
+    (wC, wn, wm), wh = _pinned_cell_step((t["C"].clone(), t["n"], t["m"]),
+                                         inputs)
+    C0 = t["C"].clone()
+    with torch.no_grad():
+        (gC, gn, gm), gh = xlstm._cell_step((C0, t["n"], t["m"]), inputs)
+    assert gC is C0
+    for g, w in ((gC, wC), (gn, wn), (gm, wm), (gh, wh)):
+        assert torch.equal(g, w)
+    qr = q.clone().requires_grad_(True)
+    vr = v.clone().requires_grad_(True)
+    C1 = t["C"].clone()
+    (rC, _rn, _rm), rh = xlstm._cell_step((C1, t["n"], t["m"]),
+                                          (qr, k, vr, ipre, logf))
+    assert rC is not C1 and torch.equal(C1, t["C"])
+    assert torch.equal(rC.detach(), wC) and torch.equal(rh.detach(), wh)
+    (gv,) = torch.autograd.grad(rh.sum() + rC.sum(), vr)
+    assert bool(torch.isfinite(gv).all()) and bool(gv.abs().sum() > 0)
