@@ -153,10 +153,12 @@ Phases, each reported on its own lines with its wall time:
    fresh slot's; ``models.layers.norm(fusion="gen")`` over layer 0's
    input (2,048 x 3,072, x 2,048 or x 4,096 fp32) with the counters set
    to 0 just before it and read just after: exactly one Row launch, no
-   fallback, every element within the kernel limit of its plain version,
-   a planted fault in its row mean that must fail, its time beside its
-   bound and ``F.rms_norm``, and the build's ptxas register and spill
-   lines; prefill and decode ms beside their bounds (the weights the
+   fallback, in the Row kernel's staged layout, every element within the
+   kernel limit of its plain version, the same bits twice, a planted
+   fault (the middle chunk of each row never copied into shared memory)
+   that must fail, its time beside its bound and ``F.rms_norm``, and the
+   build's ptxas register and spill lines; prefill and decode ms beside
+   their bounds (the weights the
    implementation reads, dense MoE reading every expert, and the active
    weights) and the host share of one profiled ``Engine.step()``; fp32
    ``decode_step`` logits over the last 8 positions (of 2,048; xlstm 136)
@@ -179,14 +181,21 @@ Phases, each reported on its own lines with its wall time:
    2,048 rows of logits N(0, 2²) at every configuration's vocabulary width
    (2,048, 32,000 (the CLI's 100m preset), 49,152, 50,304, 64,000, 65,536,
    131,072, 256,000 and 262,144), each held to its plain version on the
-   same CUDA tensors within the kernel limit with its layout named (the
-   Row kernel's streaming layout from 32,000 up; tile / warp at 2,048), a
-   planted fault at 256,000 that must fail (the middle column slice of
-   the last fold pass dropped), the kernel's, plain version's and library
-   calls' device times (``torch.logsumexp``; for the backward
-   ``torch.softmax`` then ``mul_``) beside the bound; the same checks and
-   times at the main paths' own shapes, 256 x 256,000 (the steps below)
-   and 4,096 x 32,000 (the CLI's); minitron-4b at full
+   same CUDA tensors within the kernel limit and run twice for the same
+   bits, with its layout and cluster named (the Row kernel's staged
+   layout: one CTA a row up to 50,304, a cluster of 4 / 8 / 16 CTAs
+   beyond; at 2,048 the forward's tile layout and the backward staged),
+   its build's ptxas register and spill line, two planted faults at
+   256,000 that must fail (the middle chunk of each CTA's slice never
+   copied; rank 8's partial left out of the cluster fold), the kernel's,
+   plain version's and library calls' device times (``torch.logsumexp``;
+   for the backward ``torch.softmax`` then ``mul_``) beside the bound; the
+   same checks and times at the main paths' own shapes, 256 x 256,000
+   (the steps below) and 4,096 x 32,000 (the CLI's), and at 256 x
+   1,048,576, rows wider than a cluster holds, in the streaming layout
+   with its planted fault (the middle column slice of the last fold pass
+   dropped); the ptxas lines of the rmsnorm's warp-layout build at 256
+   to 4,096 columns (``cuda_src.WARP_FLOATS_MAX``); minitron-4b at full
    width in fp32 with its depth cut to 2 layers: 3 steps of
    ``make_train_step`` (fusion "gen", batch 2 x 128) with
    ``kernels="cuda"`` against ``kernels="never"`` (loss and grad-norm
@@ -212,7 +221,7 @@ Phases, each reported on its own lines with its wall time:
    of [lm], and ``row_rmsnorm_lm_moe`` / ``_lm_hybrid`` / ``_lm_xlstm``,
    its calls at 2,048 and 4,096 columns with each phase's prefill and
    decode times; ``row_loss`` / ``row_loss_vjp``, the fused loss's forward
-   and backward at 256,000 columns in the streaming layout, launches from
+   and backward at 256,000 columns in the staged layout, launches from
    [lm-train]'s full-size run, a part at every width), the card line, and
    the final ``{"ok": true, ...}`` line.
 
@@ -280,6 +289,9 @@ PLANT_FOLD = "#define RK_PLANTED_FOLD 1\n"
 #: Cell CPlans must fail it too
 PLANTED_GROUP = ("cell/no_agg_row_side", "cell/full_agg_row_side")
 PLANT_GROUP = "#define RK_PLANTED_GROUP 1\n"
+#: the Row staged layout's second planted fault: the cluster fold leaves
+#: out rank K / 2's partial (sources of a cluster of 2 or more)
+PLANT_RANK = "#define RK_PLANTED_RANK 1\n"
 #: row counts the Cell kernel is held to plain at over an (m,1) domain,
 #: so that its vector walk's last round and its cells past the last group
 #: are reached (m·N of 1, 3, 5, 7, 33, 1,023 and M_SWEEP), and the (1,4)
@@ -336,8 +348,10 @@ KERNELS = {   # name -> (skeleton source, the TPU kernel it replaces)
 }
 
 
-#: the Row kernel's streaming layout (vocabulary-wide rows), in row.cuh's
+#: the Row kernel's staged layout (the fused loss, the rmsnorm) and its
+#: streaming layout (rows wider than a cluster holds), in row.cuh's
 #: row_launch
+STAGED_SKELETON = "src/repro_torch/kernels/csrc/row_staged.cuh"
 STREAM_SKELETON = "src/repro_torch/kernels/csrc/row_stream.cuh"
 
 
@@ -397,9 +411,9 @@ def kernel_name(cplan) -> str:
 
 
 def layout_name(cplan) -> str:
-    """The Row kernel's layout ("tile" or "warp"), the Cell kernel's walk
-    ("vec" or "scal"), "-" for the others (and for a tree that predates
-    them)."""
+    """The Row kernel's layout ("tile", "warp", "staged" or "stream"), the
+    Cell kernel's walk ("vec" or "scal"), "-" for the others (and for a
+    tree that predates them)."""
     from repro_torch.kernels import cuda_src
     src = cuda_src.source_for(cplan)
     walk = getattr(src, "walk", "")
@@ -684,18 +698,25 @@ def compare(cplan, env, label: str) -> tuple[float, float]:
     return err, share
 
 
-def planted(src, fold: bool = False, group: bool = False):
+def planted(src, fold: bool = False, group: bool = False,
+            rank: bool = False):
     """``src`` built with a planted fault: the Cell kernel's fold and
     ``rk::combine`` drop the middle partial, the Row ``row_agg`` variant the middle element of every
     row (tile layout) or the middle lane's partial (warp layout), as does
-    a warp-layout Row program's own row aggregate (the rmsnorm's row mean),
+    a warp-layout Row program's own row aggregate,
     the Row tile layout's ``col_t_agg`` close the middle row slice of each
     CTA, the Row streaming layout the middle column slice of its last fold
-    pass, the
+    pass, the Row staged layout never copies the middle chunk of a slice
+    (the fused loss, the rmsnorm), the
     Outer ``right_mm`` skips the middle block of every block row; with ``fold``, the Outer ``right_mm`` fold drops the middle
     piece of every row of two or more pieces instead; with ``group``, the
-    Cell kernel's vector walk drops the second cell of every group instead.
+    Cell kernel's vector walk drops the second cell of every group instead;
+    with ``rank``, the Row staged layout's cluster fold leaves out rank
+    K / 2's partial instead.
     A source with no such step is returned as is."""
+    if rank:
+        return dataclasses.replace(src, text=PLANT_RANK + src.text) \
+            if getattr(src, "cluster", 0) > 1 else src
     if group:
         return dataclasses.replace(src, text=PLANT_GROUP + src.text) \
             if getattr(src, "walk", "") == "vector" else src
@@ -706,22 +727,37 @@ def planted(src, fold: bool = False, group: bool = False):
         if src.elems or src.template == "outer" or \
         (src.template, src.variant) == ("row", "row_agg") or \
         (getattr(src, "layout", "") in ("warp", "stream")
-         and "rowtile::kPlanted" in src.text) else src
+         and "rowtile::kPlanted" in src.text) or \
+        getattr(src, "layout", "") == "staged" else src
 
 
 @contextlib.contextmanager
-def planted_fault(fold: bool = False, group: bool = False):
+def planted_fault(fold: bool = False, group: bool = False,
+                  rank: bool = False):
     """Every reducing kernel launched inside runs its planted build (with
     ``fold``: the fold fault; with ``group``: every vector-walk Cell
-    kernel its group fault)."""
+    kernel its group fault; with ``rank``: every staged Row kernel of a
+    cluster its rank fault)."""
     from repro_torch.kernels import cuda_src
     orig = cuda_src.source_for
     cuda_src.source_for = lambda cp, bs=None: planted(orig(cp, bs), fold,
-                                                      group)
+                                                      group, rank)
     try:
         yield
     finally:
         cuda_src.source_for = orig
+
+
+def fault_share(cplan, env, bad, label: str) -> float:
+    """A planted build's output held to the plain version: its largest
+    share of the per-element limit, infinite where its non-finite values
+    or its shape differ (a staged chunk never copied leaves whatever the
+    shared memory held)."""
+    try:
+        return measure(cplan, env, bad, label)[1]
+    except AssertionError as e:
+        log(f"{label}: {e}")
+        return math.inf
 
 
 def trace_rel(objs, ref_objs) -> float:
@@ -3089,9 +3125,10 @@ def lm_norm(x, s):
 def lm_norm_check(x, s) -> dict:
     """The fused rmsnorm on the Row kernel: one Row launch and nothing
     else, no fallback recorded, every element within the kernel limit of
-    the plain version on the same operands, and the planted fault (the
-    row mean drops the middle lane's partial) over it.  Returns the
-    CPlan, its operands, the output and the errors."""
+    the plain version on the same operands, the same bits from a second
+    call, and the planted fault (the staged layout never copies the
+    middle chunk of a row) over it.  Returns the CPlan, its operands, the
+    output and the errors."""
     import torch
     from repro_torch.kernels import ops
     out, launches, compiled = lm_norm(x, s)
@@ -3113,14 +3150,16 @@ def lm_norm_check(x, s) -> dict:
     if not share <= 1.0:
         raise AssertionError(f"rmsnorm: max |kernel - plain| = {err:.3e}, "
                              f"{share:.3g} x its limit")
+    if not bool(torch.equal(ops.execute(cp, env, kernels="cuda"), got)):
+        raise AssertionError("rmsnorm: a second call gave other bits")
     with planted_fault():
         bad = ops.execute(cp, env, kernels="cuda")
-    _e, fault_share = measure(cp, env, bad, "planted rmsnorm")
-    if not fault_share > 1.0:
-        raise AssertionError("planted fault in the rmsnorm's row mean "
-                             "passed the kernel check")
+    planted_share = fault_share(cp, env, bad, "planted rmsnorm")
+    if not planted_share > 1.0:
+        raise AssertionError("planted fault in the rmsnorm passed the "
+                             "kernel check")
     return {"cplan": cp, "env": env, "out": got, "launches": launches,
-            "err": err, "share": share, "fault_share": fault_share}
+            "err": err, "share": share, "fault_share": planted_share}
 
 
 def ptxas_lines(src) -> list:
@@ -3149,12 +3188,14 @@ def lm_norm_record(tag: str, m16, toks, gen) -> dict:
     s = 0.1 * torch.randn((d,), generator=gen, device="cuda")
     chk = lm_norm_check(x, s)
     cp, env = chk["cplan"], chk["env"]
+    src = cuda_src.source_for(cp)
     log(f"[{tag}] fused rmsnorm {tuple(x.shape)} -> one ROW "
-        f"{cp.variant} CPlan ({layout_name(cp)} layout), launches "
-        f"{json.dumps(chk['launches'])}; max|kernel-plain| "
-        f"{chk['err']:.3e} = {chk['share']:.3g} x limit; planted fault "
-        f"{chk['fault_share']:.3g} x limit")
-    spill = ptxas_lines(cuda_src.source_for(cp))
+        f"{cp.variant} CPlan ({layout_name(cp)} layout, {src.threads} "
+        f"threads, {src.stages} row stages, {src.smem} B of shared memory "
+        f"a CTA), launches {json.dumps(chk['launches'])}; max|kernel-plain| "
+        f"{chk['err']:.3e} = {chk['share']:.3g} x limit, the same bits "
+        f"twice; planted fault {chk['fault_share']:.3g} x limit")
+    spill = ptxas_lines(src)
     log(f"[{tag}] rmsnorm kernel build (ptxas): {' | '.join(spill)}")
     weight = 1.0 + s
     x2 = env[cp.main.nid]
@@ -3169,6 +3210,7 @@ def lm_norm_record(tag: str, m16, toks, gen) -> dict:
     queued = {k: queued_ms(fn) for k, fn in calls.items()}
     part["queued_ms"] = queued
     part["ptxas"] = spill
+    part["layout"] = layout_name(cp)
     log(f"[{tag}] rmsnorm device ms by CUDA events queued behind a spin "
         f"kernel: {json.dumps(queued)}; bound {part['bound_ms']:.4f} ms")
     rec = new_record()
@@ -3793,6 +3835,12 @@ LOSS_WIDTHS = (2048, 32000, 49152, 50304, 64000, 65536, 131072, 256000,
 #: last fold pass dropped)
 LOSS_ROWS = 2048
 LOSS_PLANTED = 256000
+#: the fused loss over rows wider than a cluster's shared memory holds
+#: (4 MB): the streaming layout, held to plain with its planted fault
+LOSS_STREAM_SHAPE = (256, 1_048_576)
+#: widths of the rmsnorm whose warp-layout builds' ptxas lines [lm-train]
+#: prints: the readings cuda_src.WARP_FLOATS_MAX is set from
+WARP_PROBE_WIDTHS = (256, 512, 768, 1024, 1536, 2048, 3072, 4096)
 #: the trace check: minitron-4b at full width in fp32 with its depth cut to
 #: TRAIN_TRACE_LAYERS, and the full-size run (bf16, full depth): steps of
 #: TRAIN_BATCH x TRAIN_SEQ tokens, the fused loss (fusion "gen")
@@ -3827,21 +3875,52 @@ def loss_cplans(V: int, rows: int = LOSS_ROWS):
     return region_cplans([(train._lse, (meta(rows, V),), True)])
 
 
+def loss_shapes() -> list:
+    """Every (rows, V) [lm-train] holds the fused loss at: each width over
+    LOSS_ROWS rows, the main paths' shapes, and rows wider than a
+    cluster."""
+    return ([(LOSS_ROWS, V) for V in LOSS_WIDTHS] + list(LOSS_MAIN_SHAPES)
+            + [LOSS_STREAM_SHAPE])
+
+
 def loss_sources() -> list:
-    """Every fused-loss kernel source [lm-train] launches: each width's
-    forward and backward, the main paths' shapes, and the planted builds
-    at LOSS_PLANTED, each text once (the row count is a launch argument,
-    so a main path's shape shares its width's source)."""
+    """Every fused-loss kernel source [lm-train] launches: each shape's
+    forward and backward (:func:`loss_shapes`), the planted builds at
+    LOSS_PLANTED (the chunk never copied, the rank left out of the cluster
+    fold) and at LOSS_STREAM_SHAPE (the streaming layout's), each text
+    once (the row count is a launch argument, so a main path's shape
+    shares its width's source)."""
     from repro_torch.kernels import cuda_src
     out = []
-    for rows, V in ([(LOSS_ROWS, V) for V in LOSS_WIDTHS]
-                    + list(LOSS_MAIN_SHAPES)):
+    for rows, V in loss_shapes():
         for _l, cp in loss_cplans(V, rows):
             src = cuda_src.source_for(cp)
             out.append(src)
-            if (rows, V) == (LOSS_ROWS, LOSS_PLANTED):
+            if (rows, V) in ((LOSS_ROWS, LOSS_PLANTED), LOSS_STREAM_SHAPE):
                 out.append(planted(src))
+            if (rows, V) == (LOSS_ROWS, LOSS_PLANTED):
+                out.append(planted(src, rank=True))
     return list({s.key: s for s in out}.values())
+
+
+def warp_probe_sources() -> list:
+    """The rmsnorm's CPlan at WARP_PROBE_WIDTHS built in the warp layout
+    (built only, for their ptxas lines)."""
+    from repro_torch.kernels import cuda_src
+    return [cuda_src._warp_source(cp) for d in WARP_PROBE_WIDTHS
+            for _l, cp in lm_norm_cplans(d)]
+
+
+def warp_readings() -> list:
+    """[lm-train]'s log of :func:`warp_probe_sources`: each width's
+    register floats a lane and its ptxas register and spill line."""
+    out = []
+    for d, src in zip(WARP_PROBE_WIDTHS, warp_probe_sources()):
+        lines = ptxas_lines(src)
+        log(f"[lm-train] warp-layout rmsnorm at {d} columns, {src.floats} "
+            f"register floats a lane (ptxas): {' | '.join(lines)}")
+        out.append({"width": d, "floats": src.floats, "ptxas": lines})
+    return out
 
 
 def loss_library(label: str, env, cp):
@@ -3859,73 +3938,90 @@ def loss_library(label: str, env, cp):
 def loss_checks(gen) -> dict:
     """The fused loss alone at every LOSS_WIDTHS width over LOSS_ROWS rows
     of logits N(0, 2²) (and a cotangent N(0, 1) a row for the backward),
-    then at the main paths' LOSS_MAIN_SHAPES: each CPlan on the Row
-    kernel held to its plain version on the same CUDA tensors within the
-    kernel limit, its layout named; the planted fault at LOSS_PLANTED must
-    fail; the kernel's, plain version's and library call's device times
-    (CUDA events queued behind a spin kernel) beside the bound (bytes once
-    over HBM bandwidth, or the program's fp32 operations, the larger).
-    Returns {label: [part per shape]}."""
+    then at the main paths' LOSS_MAIN_SHAPES and at LOSS_STREAM_SHAPE:
+    each CPlan on the Row kernel held to its plain version on the same
+    CUDA tensors within the kernel limit, run twice for the same bits, its
+    layout named and its build's ptxas line printed; the planted faults at
+    LOSS_PLANTED and LOSS_STREAM_SHAPE must fail; the kernel's, plain
+    version's and library call's device times (CUDA events queued behind a
+    spin kernel) beside the bound (bytes once over HBM bandwidth, or the
+    program's fp32 operations, the larger).  Then the warp layout's ptxas
+    readings (:func:`warp_readings`).  Returns {label: [part per shape]}
+    and, under "warp", those readings."""
     import torch
-    from repro_torch.kernels import cuda_src
     parts = {}
-    for rows, V in ([(LOSS_ROWS, V) for V in LOSS_WIDTHS]
-                    + list(LOSS_MAIN_SHAPES)):
+    for rows, V in loss_shapes():
         for label, part in loss_shape_checks(gen, rows, V).items():
             parts.setdefault(label, []).append(part)
         torch.cuda.empty_cache()
-    for label, cp in loss_cplans(LOSS_PLANTED):
-        log(f"[lm-train] {label} build at {LOSS_PLANTED} (ptxas): "
-            f"{' | '.join(ptxas_lines(cuda_src.source_for(cp)))}")
+    parts["warp"] = warp_readings()
     return parts
 
 
 def loss_shape_checks(gen, rows: int, V: int) -> dict:
-    """:func:`loss_checks` at one (rows, V); the planted fault where that
-    is (LOSS_ROWS, LOSS_PLANTED).  Returns {label: part}."""
+    """:func:`loss_checks` at one (rows, V); the planted faults where that
+    is (LOSS_ROWS, LOSS_PLANTED) (a staged chunk never copied, and a
+    cluster rank's partial left out) or LOSS_STREAM_SHAPE (the streaming
+    layout's).  Returns {label: part}."""
     import torch
-    from repro_torch.kernels import ops, ref, rowwise
+    from repro_torch.kernels import cuda_src, ops, ref, rowwise
     L = 2.0 * torch.randn((rows, V), generator=gen, device="cuda")
     g = torch.randn((rows, 1), generator=gen, device="cuda")
     main = (rows, V) in LOSS_MAIN_SHAPES
+    faults = {(LOSS_ROWS, LOSS_PLANTED): ({}, {"rank": True}),
+              LOSS_STREAM_SHAPE: ({},)}.get((rows, V), ())
     out_parts = {}
     for label, cp in loss_cplans(V, rows):
+        src = cuda_src.source_for(cp)
         env = {b.nid: (L if b.nid == cp.main.nid else g) for b in cp.binds}
         err, share = compare(cp, env, f"[lm-train] {label} {rows} x {V}")
         out = rowwise.row(cp, env)
-        planted_share = None
-        if (rows, V) == (LOSS_ROWS, LOSS_PLANTED):
-            with planted_fault():
+        if not bool(torch.equal(rowwise.row(cp, env), out)):
+            raise AssertionError(f"loss {label} at {rows} x {V}: a second "
+                                 f"call gave other bits")
+        planted_shares = {}
+        for kw in faults:
+            with planted_fault(**kw):
                 bad = ops.execute(cp, env, kernels="cuda")
-            _e, planted_share = measure(cp, env, bad, "planted loss")
+            what = "rank" if kw else "chunk" if src.layout == "staged" \
+                else "slice"
+            planted_shares[what] = fault_share(cp, env, bad,
+                                               f"planted {what} loss")
             del bad
-            if not planted_share > 1.0:
-                raise AssertionError(f"planted fault in the loss's {label} "
-                                     f"at {V} passed the kernel check")
+            if not planted_shares[what] > 1.0:
+                raise AssertionError(f"planted {what} fault in the loss's "
+                                     f"{label} at {V} passed the kernel "
+                                     f"check")
         calls = {"kernel": lambda: rowwise.row(cp, env),
                  "plain": lambda: ref.execute_dense(cp, env),
                  "library": loss_library(label, env, cp)}
         dev = {k: queued_ms(fn) for k, fn in calls.items()}
         b_ms, b_by = bound_ms(cp, env, out)
+        spill = ptxas_lines(src)
         part = {"region": label, "width": V, "rows": rows,
                 "main_path": main,
                 "variant": cp.variant, "layout": layout_name(cp),
+                "cluster": src.cluster, "threads": src.threads,
+                "smem": src.smem,
                 "binds": [list(b.shape) for b in cp.binds],
                 "max_abs_err": err, "share": share,
-                "planted_share": planted_share, "ms": dev["kernel"],
+                "planted_share": planted_shares or None, "ms": dev["kernel"],
                 "plain_ms": dev["plain"], "library_ms": dev["library"],
-                "bound_ms": b_ms, "bound_by": b_by}
+                "bound_ms": b_ms, "bound_by": b_by, "ptxas": spill}
         out_parts[label] = part
         fmt = lambda v: "not measured" if v is None else f"{v:.4f} ms"
-        log(f"[lm-train] loss {label:8s} {rows:>4d} x {V:<6d} "
-            f"{part['layout']:6s}{' (main path)' if main else ''} "
-            f"max|kernel-plain| {err:.3e} = {share:.3g} x limit"
-            + ("" if planted_share is None else
-               f"; planted {planted_share:.3g} x limit")
+        geo = (f"K {src.cluster} x {src.threads} thr"
+               if src.layout == "staged" else "")
+        log(f"[lm-train] loss {label:8s} {rows:>4d} x {V:<7d} "
+            f"{part['layout']:6s} {geo}{' (main path)' if main else ''} "
+            f"max|kernel-plain| {err:.3e} = {share:.3g} x limit, same bits "
+            f"twice"
+            + "".join(f"; planted {k} {v:.3g} x limit"
+                      for k, v in planted_shares.items())
             + f"; device: kernel {fmt(dev['kernel'])}, plain "
             f"{fmt(dev['plain'])}, library {fmt(dev['library'])} "
             f"({'logsumexp' if label == '_lse' else 'softmax, mul_'}); "
-            f"bound {b_ms:.4f} ms ({b_by})")
+            f"bound {b_ms:.4f} ms ({b_by}); ptxas: {' | '.join(spill)}")
         del out
     return out_parts
 
@@ -4179,7 +4275,7 @@ def lm_train_phase() -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         cli = train_cli(Path(tmp))
     log(f"[lm-train] phase wall {time.perf_counter() - t0:.1f} s")
-    recs = {}
+    recs = {"warp": parts.pop("warp")}
     for label, name in (("_lse", "row_loss"), ("_lse:vjp", "row_loss_vjp")):
         main = next(p for p in parts[label]
                     if (p["rows"], p["width"]) == (LOSS_ROWS, 256000))
@@ -4326,8 +4422,8 @@ def run() -> None:
             sources[src.key] = src
             sources[planted(src).key] = planted(src)
     # [lm-train]: the fused loss at every vocabulary width, forward and
-    # backward, and its planted builds
-    for src in loss_sources():
+    # backward, and its planted builds; the warp layout's ptxas readings
+    for src in loss_sources() + warp_probe_sources():
         sources[src.key] = src
     t_plan = time.perf_counter() - t0
     build.build_all(sources.values())
@@ -4558,6 +4654,8 @@ def run() -> None:
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": max(rec["bound_by"], key=rec["bound_by"].get),
             "library_ms": library_ms(rec),
+            "layout": rec["parts"][0]["layout"],
+            "skeleton": STAGED_SKELETON,
             "per": (f"one call of models.layers.norm(fusion='gen') over "
                     f"{run.arch}'s layer-0 input of {LM_SEQ} tokens x "
                     f"{width}, fp32; launches in the [{run.tag}] phase's "
@@ -4572,12 +4670,14 @@ def run() -> None:
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
             "bound_by": rec["bound_by"], "library_ms": rec["library_ms"],
-            "layout": "stream", "skeleton": STREAM_SKELETON,
+            "layout": "staged", "skeleton": STAGED_SKELETON,
             "per": (f"one call of the fused softmax-CE loss's {what} over "
                     f"{LOSS_ROWS} x 256,000 fp32 logits (minitron-4b's "
-                    f"vocabulary); parts at every LOSS_WIDTHS width and "
-                    f"at the main paths' LOSS_MAIN_SHAPES; launches in "
-                    f"[lm-train]'s full-size run"),
+                    f"vocabulary); parts at every LOSS_WIDTHS width, at "
+                    f"the main paths' LOSS_MAIN_SHAPES and at "
+                    f"LOSS_STREAM_SHAPE (the streaming layout, "
+                    f"{STREAM_SKELETON}); launches in [lm-train]'s "
+                    f"full-size run"),
             "parts": rec["parts"]})
     log(json.dumps({"kernels": rows}))
     log(card_line())
@@ -4774,10 +4874,12 @@ def lm_train_only() -> None:
     log(f"[env] {ROOT} torch {torch.__version__}; nvidia-smi: "
         f"{card_line()}")
     t0 = time.perf_counter()
-    build.build_all({s.key: s for s in loss_sources()}.values())
+    build.build_all({s.key: s for s in loss_sources()
+                     + warp_probe_sources()}.values())
     log(f"[build] loss kernels {time.perf_counter() - t0:.1f} s")
     recs = lm_train_phase()
-    log(json.dumps({k: {kk: vv for kk, vv in v.items() if kk != "parts"}
+    log(json.dumps({k: ({kk: vv for kk, vv in v.items() if kk != "parts"}
+                        if isinstance(v, dict) else v)
                     for k, v in recs.items()}, default=str))
 
 

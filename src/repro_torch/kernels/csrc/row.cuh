@@ -12,7 +12,7 @@
 // close, far below the ~20 flop/byte fp32 ridge.  So the kernel has to
 // stream X at HBM rate with few instructions per byte.
 //
-// Three layouts, chosen per CPlan by cuda_src.row_source and written into
+// Four layouts, chosen per CPlan by cuda_src.row_source and written into
 // Prog::LAYOUT:
 //
 // * Tile layout (LAYOUT 1, row_tile_kernel), every program whose computed
@@ -51,7 +51,11 @@
 //   against this header's own sum.
 //
 // * Warp layout (LAYOUT 0, row_kernel), programs with wide computed values
-//   (e.g. tanh(X @ B) with 256 columns): L lanes per row (L = 32, a warp
+//   (e.g. tanh(X @ B) with 256 columns) whose row arrays fit
+//   cuda_src.WARP_FLOATS_MAX register floats a lane, the most ptxas
+//   compiled without spill (192), and the column aggregates and in-program
+//   matmuls the wide-row layouts cannot express (up to
+//   WARP_FLOATS_LIMIT): L lanes per row (L = 32, a warp
 //   per row, for rows with vector values; L = 1 for programs of per-row
 //   scalars), rows strided over the grid.  A value of width w lives
 //   lane-distributed (element j on lane j % L, slot j / L).  Row
@@ -60,10 +64,18 @@
 //   buffer.  Sides are read through the read-only cache.  One partial per
 //   warp.
 //
+// * Staged layout (LAYOUT 3, row_staged_kernel in row_staged.cuh), rows
+//   too wide for the warp layout's registers that a thread-block cluster
+//   holds (the fused softmax-CE loss over a vocabulary, the LM rmsnorm):
+//   each row copied once into shared memory by TMA bulk copies, split
+//   across a cluster of up to 16 CTAs, every pass over it reading shared
+//   memory, the row aggregates folded across the cluster through DSMEM;
+//   see that header.
+//
 // * Streaming layout (LAYOUT 2, row_stream_kernel in row_stream.cuh),
-//   rows too wide for the warp layout's registers (the fused softmax-CE
-//   loss over a vocabulary): a CTA a row, the row read in column slices
-//   once a pass; see that header.
+//   rows wider than a cluster's shared memory holds (4 MB and more): a
+//   CTA a row, the row read from HBM in column slices once a pass; see
+//   that header.
 //
 // All: IEEE fp32 FMAs (no TF32, no fast-math); partials are folded in
 // order by rk::combine, no float atomics, so a rerun gives the same bits.
@@ -270,6 +282,7 @@ __device__ __forceinline__ void load_tile(const rk::Binds<P::NB>& b,
 }  // namespace rowtile
 
 #include "row_stream.cuh"
+#include "row_staged.cuh"
 
 template <class P>
 __global__ void __launch_bounds__(P::T, P::CTAS)
@@ -443,8 +456,9 @@ row_tile_kernel(rk::BBinds<P::NB> bb, float* __restrict__ out,
 
 // binds / strides: bind pointers and per-request strides (floats); nreq:
 // requests (gridDim.z); out + q * ostride: request q's output; nblocks:
-// grid size per request; partials: one per CTA (tile layout) or per warp
-// (warp layout) x E elements (E = 1 full_agg, C col_agg, KC·C col_t_agg)
+// grid size per request (staged layout: the most it may use); partials:
+// one per CTA (tile, streaming layout), per cluster (staged layout) or per
+// warp (warp layout) x E elements (E = 1 full_agg, C col_agg, KC·C col_t_agg)
 // per request; aux: the mean count of the variant (row_agg: root width,
 // col_agg: m, full_agg: m·width)
 template <class P>
@@ -470,6 +484,10 @@ int row_launch(void* const* binds, const long long* strides, int nreq,
     row_stream_kernel<P><<<grid, P::T, 0, s>>>(b, out, ostride, part, m,
                                                (float)aux);
     nparts = nblocks;
+  } else if constexpr (P::LAYOUT == 3) {
+    err = row_staged_launch<P>(b, nreq, out, ostride, part, m, nblocks, aux,
+                               s, device, &nparts);
+    if (err != cudaSuccess) return (int)err;
   } else {
     row_kernel<P><<<grid, P::WPB * 32, 0, s>>>(b, out, ostride, part, m,
                                                (float)aux);

@@ -1,12 +1,14 @@
 // Row template, streaming layout (LAYOUT 2, row_stream_kernel): rows too
-// wide to hold in registers, such as the fused softmax-CE loss over a
-// vocabulary row (V = 32,000 to 262,144 columns).  Included by row.cuh,
-// whose row_launch starts it.
+// wide to hold in registers or in a thread-block cluster's shared memory
+// (row.cuh's staged layout takes a row up to 16 CTAs' 227 KB: a fused
+// softmax-CE loss row of up to 928,000 columns), such as the loss over
+// 1,048,576 columns.  Included by row.cuh, whose row_launch starts it.
 //
 // The warp layout keeps every row-wide value of the program in registers,
 // V / 32 floats a lane per value: at V = 256,000 the loss's backward holds
 // 11 of them, 352 KB of local memory a thread, more than the card can
-// reserve for its resident threads.  Here no row-wide value is kept.
+// reserve for its resident threads.  Here no row-wide value is kept, and
+// nothing of the row either.
 //
 // Layout: a CTA of T threads per row, a persistent grid of CTAS CTAs per
 // SM walking rows i = blockIdx.x, + gridDim.x, ...  cuda_src.py splits the
@@ -28,8 +30,8 @@
 //
 // Bound on the card: bytes.  The forward of the loss reads the row twice
 // (its max, then Σ exp) where its bound counts it once; the backward reads
-// it four times and writes it once.  An online max-and-sum and rows split
-// over a cluster are later work.
+// it four times and writes it once.  Rows a cluster holds go to the
+// staged layout, which reads each once.
 //
 // Prog contract (written by cuda_src.py):
 //   LAYOUT = 2, NB, T, CTAS       binds, threads a CTA, CTAs per SM

@@ -17,12 +17,15 @@ plus an ``extern "C"`` launcher that instantiates the skeleton
 for a plain call — with per-request bind strides; ``repro_launch_outer``
 for Outer, whose kernel also takes the BCSR's block indices and is
 generated per block size).  The Row
-template has three layouts, chosen per CPlan here (:func:`row_source`):
+template has four layouts, chosen per CPlan here (:func:`row_source`):
 the tile layout (a thread per row over tiles of rows in shared memory,
 every computed value in registers), the warp layout (a warp per row) for
-programs with wide computed values, and the streaming layout (a CTA per
-row, the row read in column slices once a pass) for rows too wide for
-the warp layout's registers; the layout and its geometry go into
+programs with wide computed values that fit its registers without spill,
+the staged layout (each row copied once into the shared memory of a CTA
+or of a thread-block cluster by TMA bulk copies, every pass over it
+reading shared memory) for wider rows up to what a cluster holds, and
+the streaming layout (a CTA per row, the row read in column slices once
+a pass) for rows wider than that; the layout and its geometry go into
 ``Prog`` and :class:`KernelSource`.  The Cell template has two walks,
 chosen per CPlan here (:func:`cell_source`): the vector walk (four-cell
 groups read as float4, several groups in flight per thread) where every
@@ -103,18 +106,23 @@ class KernelSource:
     domain: tuple          # (rows, cols) the kernel walks (rows: run time)
     elems: int = 0         # reduced elements per partial (0: no partials)
     variant: str = ""      # row, cell: the template variant
-    layout: str = ""       # row: "tile", "warp" or "stream" (row_source)
+    layout: str = ""       # row: "tile", "warp", "staged" or "stream"
+    #                        (row_source)
     walk: str = ""         # cell: "vector" or "scalar" (cell_vector_binds)
     group: int = 0         # cell: cells a thread takes per load (4 or 1)
     unroll: int = 0        # cell: groups a thread keeps in flight
     threads: int = 0       # row, cell: threads per CTA
     rows: int = 0          # row: rows a CTA takes per step
-    stages: int = 0        # row tile: depth of the ring of row tiles
-    smem: int = 0          # row tile: dynamic shared memory (bytes)
+    stages: int = 0        # row tile, staged: depth of the ring of rows
+    smem: int = 0          # row tile, staged: a CTA's dynamic shared
+    #                        memory (bytes)
     ctas: int = 0          # row, cell: CTAs per SM the grid is sized for
     parts_per_cta: int = 0  # row, cell: partials each CTA writes
     floats: int = 0        # row warp: register floats a lane (its arrays)
-    passes: int = 0        # row stream: reads of the row (folds + write)
+    passes: int = 0        # row stream, staged: passes over the row
+    #                        (folds + write)
+    cluster: int = 0       # row staged: CTAs of the cluster a row is split
+    #                        over (K)
 
     @functools.cached_property
     def key(self) -> str:
@@ -1266,10 +1274,13 @@ def _row_lanes(cplan: CPlan) -> int:
 def row_source(cplan: CPlan) -> KernelSource:
     """The Row template, all five variants: the tile layout where the
     program's computed row values are narrow (:class:`_TileEmitter`), the
-    warp layout otherwise, and the streaming layout where the warp layout
-    would hold more than :data:`WARP_FLOATS_MAX` register floats a lane
-    (``KernelSource.layout`` says which).  A program that wide which the
-    streaming layout cannot express raises ``NotImplementedError``."""
+    warp layout where its row arrays fit :data:`WARP_FLOATS_MAX` register
+    floats a lane, else the staged layout where its row-wide binds fit a
+    cluster's shared memory (:func:`staged_geometry`), else the streaming
+    layout (``KernelSource.layout`` says which).  A program the staged and
+    streaming layouts cannot express (a column aggregate, an in-program
+    matmul) keeps the warp layout up to :data:`WARP_FLOATS_LIMIT`, and
+    raises ``NotImplementedError`` beyond it."""
     variant = cplan.variant
     if variant not in _ROW_VARIANT:
         raise _unsupported(cplan, "not a Row variant")
@@ -1284,17 +1295,32 @@ def row_source(cplan: CPlan) -> KernelSource:
     src = _warp_source(cplan)
     if src.floats <= WARP_FLOATS_MAX:
         return src
-    return _stream_source(cplan)
+    try:
+        return _staged_source(cplan)
+    except _ClusterTooSmall:
+        return _stream_source(cplan)
+    except NotImplementedError:
+        if src.floats <= WARP_FLOATS_LIMIT:
+            return src
+        raise
 
 
 #: the most register floats a lane (the slots of its row arrays, summed)
-#: the warp layout takes; a wider program streams its rows instead.  The
-#: widest warp-layout CPlan of the main paths is the LM's fused rmsnorm at
-#: 4,096 columns: six arrays of 128 slots, 768 floats (it spills already);
-#: the fused loss's backward holds 11 arrays of V / 32 (1,408 at V =
-#: 4,096, 11,000 at 32,000: hundreds of KB of local memory a thread, more
-#: than the card can reserve for its resident threads at 256,000).
-WARP_FLOATS_MAX = 1024
+#: the warp layout takes for a program the staged layout can run: the
+#: largest that ptxas compiled without spill on the card.  The fused
+#: rmsnorm's warp source holds six arrays of d / 32 slots; its ptxas lines
+#: (sm_90a, PERF.md §6) at d = 256 / 512 / 768 / 1,024: 48 / 96 / 144 /
+#: 192 floats, 48 / 76 / 146 / 128 registers, no spill; at 1,536 / 2,048 /
+#: 3,072 / 4,096: 288 / 384 / 576 / 768 floats, 255 registers and 72 / 32
+#: / 288 / 668 bytes of spill.  So every LM rmsnorm width and the fused
+#: loss's backward at 2,048 (704 floats) go to the staged layout.
+WARP_FLOATS_MAX = 192
+#: the most the warp layout takes for a program the staged and streaming
+#: layouts cannot express (column aggregates, in-program matmuls): it
+#: spills there, and beyond this the card cannot reserve the local memory
+#: of its resident threads (the fused loss's backward would hold 11 arrays
+#: of V / 32, 11,000 floats at V = 32,000)
+WARP_FLOATS_LIMIT = 1024
 
 
 def _warp_source(cplan: CPlan) -> KernelSource:
@@ -1378,6 +1404,8 @@ class _StreamEmitter:
         self.level: dict[tuple, int] = {}
         self.prog: dict[int, tuple] = {}       # nid -> (pos, op, ins, attrs)
         self.aggs: list[tuple] = []            # (pass, slot, code, ref, nid)
+        self.staged: Optional[StagedGeometry] = None
+        self.recip: set = set()         # row scalars a walk divides by
         for b in cplan.binds:
             r, c = b.shape
             if r not in (1, self.M):
@@ -1459,12 +1487,16 @@ class _StreamEmitter:
         lines = [f"const float w{k} = {reader(k)};" for k in binds]
         for nid in nids:
             pos, op, ins, _a = self.prog[nid]
-            lines.append(f"const float e{pos} = "
-                         f"{_CELL_C[op].format(*(self.ref(r) for r in ins))};")
+            if op == "div" and tuple(ins[1]) in self.recip:
+                val = f"({self.ref(ins[0])} * rc_{self.ref(ins[1])})"
+            else:
+                val = _CELL_C[op].format(*(self.ref(r) for r in ins))
+            lines.append(f"const float e{pos} = {val};")
         return lines
 
     def walk(self, refs, fold: Callable, planted: bool,
-             group_head: tuple = (), group_tail: tuple = ()) -> list[str]:
+             group_head: tuple = (), group_tail: tuple = (),
+             first: bool = False) -> list[str]:
         """The column walk of one pass, in 4-column groups (float4 loads)
         where every row is 16-byte aligned (``vec``), else column by
         column: ``fold(u)`` gives the statements that consume column u's
@@ -1472,8 +1504,13 @@ class _StreamEmitter:
         ``group_head`` starts and ``group_tail`` ends each group.  Thread ``tid`` takes groups tid,
         tid + T, ... (columns tid, tid + T, ...), in that order.  The
         planted build drops the middle column slice of a ``planted``
-        walk."""
+        walk.  Staged (``self.staged``): the walk reads the CTA's slice in
+        shared memory, ``first`` (the row's first pass) chunk by chunk,
+        each after its barrier; nothing is planted here."""
         nids, binds = self.wide_closure(refs)
+        if self.staged is not None:
+            return self._staged_walk(nids, binds, fold, group_head,
+                                     group_tail, first)
         T, N = STREAM_THREADS, self.N
         mid = -(-N // (4 * T)) // 2
         skip = (f"if (rowtile::kPlanted && j / {4 * T} == {mid}) continue;"
@@ -1499,6 +1536,33 @@ class _StreamEmitter:
         return ["if (vec) {", *("  " + ln for ln in vec), "} else {",
                 *("  " + ln for ln in one), "}"]
 
+    def _staged_walk(self, nids, binds, fold, group_head, group_tail,
+                     first) -> list[str]:
+        T = self.staged.threads
+        inner = [f"const float4 q{k} = rowstaged::lds4(r{k} + j);"
+                 for k in binds]
+        inner += list(group_head)
+        for u in range(4):
+            c = _xyzw(u)
+            inner += ["{", *("  " + ln for ln in self.element(
+                nids, binds, lambda k: f"q{k}.{c}") + fold(u)), "}"]
+        inner += list(group_tail)
+        if first:
+            vec = ["for (int c = 0; c < CH; ++c) {",
+                   "  rowstaged::wait(bars + c, par);",
+                   "  const int hi = n < (c + 1) * CHW ? n : (c + 1) * CHW;",
+                   f"  for (int j = c * CHW + 4 * tid; j < hi; "
+                   f"j += {4 * T}) {{",
+                   *("    " + ln for ln in inner), "  }", "}"]
+        else:
+            vec = [f"for (int j = 4 * tid; j < n; j += {4 * T}) {{",
+                   *("  " + ln for ln in inner), "}"]
+        one = [f"for (int j = tid; j < n; j += {T}) {{",
+               *("  " + ln for ln in self.element(
+                   nids, binds, lambda k: f"r{k}[j]") + fold(None)), "}"]
+        return ["if (vec) {", *("  " + ln for ln in vec), "} else {",
+                *("  " + ln for ln in one), "}"]
+
     def scalars(self, level: int) -> list[str]:
         """The row scalars that become known at ``level`` (element-wise
         over scalars, in program order; a row aggregate's own value is
@@ -1517,103 +1581,163 @@ class _StreamEmitter:
             else:
                 out.append(f"const float s{pos} = "
                            f"{_CELL_C[op].format(*(self.ref(r) for r in ins))};")
+            out += self.reciprocal(key)
         return out
+
+    def plan_reciprocals(self) -> None:
+        """Where a 0/1 comparison is divided by a row scalar (the loss's
+        tie share ``(L == max) / count``), multiply by the scalar's
+        reciprocal, computed once a row: x / s and x * (1 / s) round to the
+        same float for x in {0, 1} (and give the same NaN, infinity and
+        signed zero), so the program's value is unchanged while the column
+        walk does one multiply where it did an IEEE division."""
+        for nid, (_pos, op, ins, _a) in self.prog.items():
+            if op != "div" or self.kind[("n", nid)] != "w":
+                continue
+            num, den = ins
+            if num[0] == "n" and self.prog[num[1]][1] in _ZERO_ONE_OPS \
+                    and self.kind_of(den) == "s" and den[0] != "l":
+                self.recip.add(tuple(den))
+
+    def reciprocal(self, ref) -> list[str]:
+        """The line defining scalar ``ref``'s reciprocal, where a walk
+        multiplies by it (:meth:`plan_reciprocals`)."""
+        if tuple(ref) not in self.recip:
+            return []
+        x = self.ref(ref)
+        return [f"const float rc_{x} = 1.f / {x};"]
+
+
+#: program ops whose value is exactly 0 or 1 (``rk::f_cmp``, ``f_neq0``)
+_ZERO_ONE_OPS = frozenset({"eq", "neq", "lt", "le", "gt", "ge", "neq0"})
+
+
+class _RowPasses:
+    """A Row program over wide rows split into passes (:class:`_StreamEmitter`)
+    and its row body, for the streaming and the staged layouts: the two
+    differ in where a pass reads the row (HBM, or the CTA's slice in shared
+    memory) and in the fold (a CTA's, or a cluster's)."""
+
+    def __init__(self, cplan: CPlan, layout: str):
+        variant = cplan.variant
+        if variant not in _STREAM_VARIANT:
+            raise _unsupported(cplan, f"a column aggregate over {layout} "
+                                      f"rows")
+        em = self.em = _StreamEmitter(cplan)
+        M, N = em.M, em.N
+        root = ("n", cplan.prog_root) if cplan.prog_root in em.prog else \
+            ("b", cplan.prog_root)
+        self.root, self.wide_root = root, em.kind_of(root) == "w"
+        self.agg = cplan.agg_op or "sum"
+        aggs = list(em.aggs)
+        if variant != NO_AGG and self.wide_root:   # the row's own aggregate
+            aggs.append((em.level_of(root), len(aggs), AGG_CODE[self.agg],
+                         root, None))
+        if variant == NO_AGG and tuple(cplan.out_shape) != (
+                M, N if self.wide_root else 1):
+            raise _unsupported(cplan, f"output {cplan.out_shape}")
+        self.aggs = aggs
+        self.npass = max([a[0] + 1 for a in aggs] + [0])
+        self.write = variant == NO_AGG and self.wide_root
+        self.passes = self.npass + int(self.write)
+        self.wide_binds = sorted(em.pos[b.nid] for b in cplan.binds
+                                 if em.kind[("b", b.nid)] == "w")
+        self.scalar_binds = [
+            f"const float sb{k} = __ldg(b.p[{k}]"
+            f"{' + i' if cplan.binds[k].shape[0] == M > 1 else ''});"
+            for k, bb in enumerate(cplan.binds)
+            if em.kind[("b", bb.nid)] == "s"]
+        self.mean = self.agg == "mean" and variant in (ROW_AGG, FULL_AGG)
+
+    def body(self, fold_call: Callable) -> list[str]:
+        """The passes, the tail and the return; ``fold_call(here)``: the
+        statements that fold the pass's accumulators ``a{slot}`` (``here``:
+        its aggregates) across the CTA (or the cluster) into ``rs[slot]``."""
+        em, cplan = self.em, self.em.cp
+        body = em.scalars(0)
+        row_value = "0.f"
+        for ps in range(self.npass):
+            here = [a for a in self.aggs if a[0] == ps]
+            body.append(f"// pass {ps}: fold {len(here)} row aggregate(s)")
+            body.append("{")
+            inner = [f"float a{slot} = rk::agg_init({code});"
+                     for _p, slot, code, _r, _n in here]
+
+            def fold(u, here=here):
+                return [f"a{slot} = rk::agg_add({code}, a{slot}, "
+                        f"{em.ref(r)});" for _p, slot, code, r, _n in here]
+
+            inner += em.walk([a[3] for a in here], fold,
+                             planted=ps == self.npass - 1, first=ps == 0)
+            inner += fold_call(here)
+            body += ["  " + ln for ln in inner]
+            body.append("}")
+            for _p, slot, code, _r, nid in here:
+                if nid is None:
+                    row_value = f"rs[{slot}]"
+                    continue
+                pos, op = em.prog[nid][:2]
+                val = f"rs[{slot}]" + (f" / {float(em.N)!r}f" if op == "mean"
+                                       else "")
+                body.append(f"const float s{pos} = {val};")
+                body += em.reciprocal(("n", nid))
+            body += em.scalars(ps + 1)
+        if self.write:
+            x = em.ref(self.root)
+            body.append(f"// pass {self.npass}: write the row")
+            body += em.walk([self.root], lambda u: [f"o[j] = {x};"]
+                            if u is None else [f"o4.{_xyzw(u)} = {x};"],
+                            planted=False, group_head=("float4 o4;",),
+                            group_tail=("rowstream::st4(o + j, o4);",),
+                            first=self.npass == 0)
+        elif not self.wide_root:
+            x = em.ref(self.root)
+            row_value = (x if cplan.variant == NO_AGG else
+                         f"rk::agg_add({AGG_CODE[self.agg]}, "
+                         f"rk::agg_init({AGG_CODE[self.agg]}), {x})")
+        body.append(f"return {row_value};")
+        return body
+
+    def prog_lines(self) -> list[str]:
+        """``Prog``'s members common to both layouts."""
+        cplan = self.em.cp
+        return [
+            f"  static constexpr int NPASS = {self.npass}, "
+            f"WRITE = {int(self.write)}, PASSES = {self.passes}, "
+            f"NS = {max(len(self.aggs), 1)};",
+            f"  static constexpr long long N = {self.em.N};",
+            "  static constexpr int C = 1, KC = 0;   // a partial is one value",
+            f"  static constexpr int VARIANT = {_ROW_VARIANT[cplan.variant]}, "
+            f"AGG = {AGG_CODE[self.agg]}, MEAN = {int(self.mean)};",
+            "  __device__ static __forceinline__ int agg_of(int) "
+            "{ return AGG; }",
+            "  __device__ static __forceinline__ float fin(int, float a, "
+            "double aux) { return MEAN ? a / (float)aux : a; }"]
 
 
 def _stream_source(cplan: CPlan) -> KernelSource:
     """The Row template in the streaming layout (``no_agg``, ``row_agg``
     and ``full_agg``; raises ``NotImplementedError`` for the rest)."""
-    variant = cplan.variant
-    if variant not in _STREAM_VARIANT:
-        raise _unsupported(cplan, "a column aggregate over streamed rows")
-    em = _StreamEmitter(cplan)
-    M, N = em.M, em.N
-    root = ("n", cplan.prog_root) if cplan.prog_root in em.prog else \
-        ("b", cplan.prog_root)
-    wide_root = em.kind_of(root) == "w"
-    agg = cplan.agg_op or "sum"
-    aggs = list(em.aggs)
-    if variant != NO_AGG and wide_root:       # the row's own aggregate
-        aggs.append((em.level_of(root), len(aggs), AGG_CODE[agg], root,
-                     None))
-    if variant == NO_AGG and tuple(cplan.out_shape) != (
-            M, N if wide_root else 1):
-        raise _unsupported(cplan, f"output {cplan.out_shape}")
-    npass = max([a[0] + 1 for a in aggs] + [0])
-    write = variant == NO_AGG and wide_root
-    wide_binds = sorted(em.pos[b.nid] for b in cplan.binds
-                        if em.kind[("b", b.nid)] == "w")
+    rp = _RowPasses(cplan, "streamed")
+    em, M, N = rp.em, rp.em.M, rp.em.N
     body = [f"const float* r{k} = b.p[{k}]"
             f"{f' + i * {N}' if cplan.binds[k].shape[0] == M > 1 else ''};"
-            for k in wide_binds]
-    body += [f"const float sb{k} = __ldg(b.p[{k}]"
-             f"{' + i' if cplan.binds[k].shape[0] == M > 1 else ''});"
-             for k, bb in enumerate(cplan.binds)
-             if em.kind[("b", bb.nid)] == "s"]
-    aligned = " && ".join([f"rowstream::aligned(r{k})" for k in wide_binds]
-                          + (["rowstream::aligned(o)"] if write else []))
+            for k in rp.wide_binds]
+    body += rp.scalar_binds
+    aligned = " && ".join([f"rowstream::aligned(r{k})" for k in rp.wide_binds]
+                          + (["rowstream::aligned(o)"] if rp.write else []))
     body.append(f"const bool vec = {'true' if N % 4 == 0 else 'false'}"
                 f"{' && ' + aligned if aligned and N % 4 == 0 else ''};")
-    body += em.scalars(0)
-    row_value = "0.f"
-    for ps in range(npass):
-        here = [a for a in aggs if a[0] == ps]
-        body.append(f"// pass {ps}: fold {len(here)} row aggregate(s)")
-        body.append("{")
-        inner = [f"float a{slot} = rk::agg_init({code});"
-                 for _p, slot, code, _r, _n in here]
-
-        def fold(u, here=here):
-            return [f"a{slot} = rk::agg_add({code}, a{slot}, "
-                    f"{em.ref(r)});" for _p, slot, code, r, _n in here]
-
-        inner += em.walk([a[3] for a in here], fold,
-                         planted=ps == npass - 1)
-        inner += [f"rowstream::fold<{STREAM_THREADS}>({code}, a{slot}, red, "
-                  f"rs + {slot});"
-                  for _p, slot, code, _r, _n in here]
-        body += ["  " + ln for ln in inner]
-        body.append("}")
-        for _p, slot, code, _r, nid in here:
-            if nid is None:
-                row_value = f"rs[{slot}]"
-                continue
-            pos, op = em.prog[nid][:2]
-            val = f"rs[{slot}]" + (f" / {float(N)!r}f" if op == "mean"
-                                   else "")
-            body.append(f"const float s{pos} = {val};")
-        body += em.scalars(ps + 1)
-    if write:
-        x = em.ref(root)
-        body.append(f"// pass {npass}: write the row")
-        body += em.walk([root], lambda u: [f"o[j] = {x};"] if u is None
-                        else [f"o4.{_xyzw(u)} = {x};"], planted=False,
-                        group_head=("float4 o4;",),
-                        group_tail=("rowstream::st4(o + j, o4);",))
-    elif not wide_root:
-        x = em.ref(root)
-        row_value = (x if variant == NO_AGG else
-                     f"rk::agg_add({AGG_CODE[agg]}, "
-                     f"rk::agg_init({AGG_CODE[agg]}), {x})")
-    body.append(f"return {row_value};")
-    mean = agg == "mean" and variant in (ROW_AGG, FULL_AGG)
-    passes = npass + int(write)
+    body += rp.body(lambda here: [
+        f"rowstream::fold<{STREAM_THREADS}>({code}, a{slot}, red, "
+        f"rs + {slot});" for _p, slot, code, _r, _n in here])
     lines = [
         "// Row template (streaming layout): " + _describe(cplan),
         *_header("row"),
         "struct Prog {",
         f"  static constexpr int NB = {len(cplan.binds)}, LAYOUT = 2, "
         f"T = {STREAM_THREADS}, CTAS = {STREAM_CTAS};",
-        f"  static constexpr int NPASS = {npass}, WRITE = {int(write)}, "
-        f"PASSES = {passes}, NS = {max(len(aggs), 1)};",
-        f"  static constexpr long long N = {N};",
-        "  static constexpr int C = 1, KC = 0;   // a partial is one value",
-        f"  static constexpr int VARIANT = {_ROW_VARIANT[variant]}, "
-        f"AGG = {AGG_CODE[agg]}, MEAN = {int(mean)};",
-        "  __device__ static __forceinline__ int agg_of(int) "
-        "{ return AGG; }",
-        "  __device__ static __forceinline__ float fin(int, float a, "
-        "double aux) { return MEAN ? a / (float)aux : a; }",
+        *rp.prog_lines(),
         "  // row i; o: its output row (written by the last pass of a wide "
         "no_agg root); returns the row's value",
         "  __device__ static __forceinline__ float row("
@@ -1623,11 +1747,187 @@ def _stream_source(cplan: CPlan) -> KernelSource:
         "  }",
         "};", "",
         *_launcher("row_launch")]
-    return KernelSource("row", "\n".join(lines), (M, N if wide_root else 1),
-                        elems=1 if variant == FULL_AGG else 0,
-                        variant=variant, layout="stream",
+    return KernelSource("row", "\n".join(lines),
+                        (M, N if rp.wide_root else 1),
+                        elems=1 if cplan.variant == FULL_AGG else 0,
+                        variant=cplan.variant, layout="stream",
                         threads=STREAM_THREADS, rows=1, ctas=STREAM_CTAS,
-                        parts_per_cta=1, passes=passes)
+                        parts_per_cta=1, passes=rp.passes)
+
+
+# --------------------------------------------------------------------------
+# Row, staged layout: each row copied once into the shared memory of a CTA
+# or of a thread-block cluster (row_staged.cuh)
+# --------------------------------------------------------------------------
+
+#: dynamic shared memory a CTA may have, and what an SM has for its CTAs
+#: (bytes; each resident CTA also takes STAGED_RESERVED of it)
+STAGED_SMEM_MAX = 232_448
+_SM_SMEM, _STAGED_RESERVED = 233_472, 1024
+#: cluster sizes the staged layout takes (above 8: non-portable, opted
+#: into at launch)
+STAGED_CLUSTERS = (1, 2, 4, 8, 16)
+#: a row that fits one CTA stays in one (no cluster fold); a wider row
+#: goes to the smallest cluster whose CTAs' slices take at most
+#: STAGED_SLICE_MAX, a third of an SM, so that three CTAs share an SM and
+#: hide each other's folds (PERF.md §6: at 2,048 x 256,000 the loss took
+#: 0.939 / 2.318 ms forward / backward with 16 CTAs of 64 KB, 1.050 /
+#: 2.632 with 8 of 128 KB).  A wide row is one stage filled in
+#: STAGED_CHUNKS chunks; a narrow row (a stage of at most STAGED_NARROW
+#: bytes, the rmsnorm's) a ring of STAGED_RING stages, one copy each.
+STAGED_SLICE_MAX = 72 * 1024
+STAGED_CHUNKS = 8
+STAGED_NARROW = 16 * 1024
+STAGED_RING = 4
+
+
+class _ClusterTooSmall(Exception):
+    """The program's row-wide binds exceed a cluster's shared memory."""
+
+
+@dataclass(frozen=True)
+class StagedGeometry:
+    cluster: int      # K: CTAs a row is split over
+    cols: int         # NK: columns a CTA holds (a multiple of 4)
+    threads: int      # T
+    stages: int       # S: rows a CTA holds at once
+    chunks: int       # CH: bulk copies a bind's slice is filled in
+    chunk_cols: int   # CHW: columns a chunk (a multiple of 4 T)
+    smem: int         # a CTA's dynamic shared memory (bytes)
+    ctas: int         # CTAs an SM holds by shared memory and threads
+
+
+def staged_threads(cols: int) -> int:
+    """Threads of a staged CTA holding ``cols`` columns: 128 for a
+    rmsnorm row (2,048-4,096 columns, several CTAs an SM), 256 for a
+    cluster's slice (three CTAs an SM), 512 for a vocabulary row that
+    holds an SM alone (16 warps)."""
+    return 128 if cols <= 4096 else \
+        256 if 4 * cols <= STAGED_SLICE_MAX else 512
+
+
+def staged_smem(threads: int, stages: int, chunks: int, nrow: int,
+                nside: int, cols: int, nslots: int, nfold: int) -> int:
+    """A staged CTA's dynamic shared memory (bytes), summed as
+    ``row_staged.cuh``'s ``rowstaged::Layout`` sums it: the row stages,
+    the side slices, the warps' partials of the ``nfold`` aggregates a pass
+    folds at most, the row scalars, the cluster partials by row parity
+    (each padded to 4 floats), then one mbarrier a chunk a stage and one
+    for the sides."""
+    pad4 = lambda x: -(-x // 4) * 4
+    floats = (stages * nrow * cols + nside * cols
+              + pad4(nfold * (threads // 32)) + pad4(nslots) + pad4(2 * nslots))
+    return 4 * floats + 8 * (stages * chunks + 1)
+
+
+def staged_geometry(N: int, nrow: int, nside: int, nslots: int, nfold: int,
+                    cluster: Optional[int] = None) -> StagedGeometry:
+    """One CTA where it holds the row, else the smallest cluster whose
+    CTAs hold their slices of every row-wide bind within STAGED_SLICE_MAX,
+    else the largest cluster with up to STAGED_SMEM_MAX a CTA
+    (``cluster``: that size, within STAGED_SMEM_MAX): a narrow row in a
+    ring of STAGED_RING stages filled by one copy each, a wide one in one
+    stage filled in STAGED_CHUNKS chunks; raises :class:`_ClusterTooSmall`
+    where no cluster of 16 holds a row."""
+    top = STAGED_CLUSTERS[-1]
+    tries = [(cluster, STAGED_SMEM_MAX)] if cluster else [
+        (K, STAGED_SMEM_MAX if K == 1 else STAGED_SLICE_MAX)
+        for K in STAGED_CLUSTERS] + [(top, STAGED_SMEM_MAX)]
+    for K, most in tries:
+        cols = -(-(-(-N // K)) // 4) * 4
+        T = staged_threads(cols)
+        step = 4 * T
+        narrow = 4 * nrow * cols <= STAGED_NARROW
+        stages = STAGED_RING if narrow else 1
+        chunks = 1 if narrow else min(STAGED_CHUNKS, -(-cols // step))
+        chunk_cols = -(-(-(-cols // chunks)) // step) * step
+        chunks = -(-cols // chunk_cols)
+        smem = staged_smem(T, stages, chunks, nrow, nside, cols, nslots,
+                           nfold)
+        if smem <= most:
+            ctas = max(1, min(2048 // T,
+                              _SM_SMEM // (smem + _STAGED_RESERVED)))
+            return StagedGeometry(K, cols, T, stages, chunks, chunk_cols,
+                                  smem, ctas)
+    raise _ClusterTooSmall(f"{nrow} row-wide bind(s) and {nside} side(s) "
+                           f"of {N} columns exceed a cluster of "
+                           f"{tries[-1][0]} CTAs")
+
+
+def _staged_source(cplan: CPlan, cluster: Optional[int] = None
+                   ) -> KernelSource:
+    """The Row template in the staged layout (``no_agg``, ``row_agg`` and
+    ``full_agg``; raises ``NotImplementedError`` for the rest, and
+    :class:`_ClusterTooSmall` where a row does not fit a cluster);
+    ``cluster``: that cluster size, not the smallest that fits."""
+    rp = _RowPasses(cplan, "staged")
+    em, M, N = rp.em, rp.em.M, rp.em.N
+    if not rp.passes:
+        raise _unsupported(cplan, "no pass reads the staged row")
+    rows = [k for k in rp.wide_binds if cplan.binds[k].shape[0] == M > 1]
+    sides = [k for k in rp.wide_binds if k not in rows]
+    nfold = max([sum(a[0] == ps for a in rp.aggs)
+                 for ps in range(rp.npass)] + [1])
+    geo = staged_geometry(N, len(rows), len(sides), max(len(rp.aggs), 1),
+                          nfold, cluster)
+    em.staged = geo
+    em.plan_reciprocals()
+    body = [f"const float* r{k} = st + {q * geo.cols};"
+            for q, k in enumerate(rows)]
+    body += [f"const float* r{k} = sd + {q * geo.cols};"
+             for q, k in enumerate(sides)]
+    body += rp.scalar_binds
+    for k, bb in enumerate(cplan.binds):
+        if em.kind[("b", bb.nid)] == "s":
+            body += em.reciprocal(("b", bb.nid))
+
+    def fold(here):
+        ops = ", ".join(str(code) for _p, _s, code, _r, _n in here)
+        slots = ", ".join(str(slot) for _p, slot, _c, _r, _n in here)
+        accs = ", ".join(f"a{slot}" for _p, slot, _c, _r, _n in here)
+        k = len(here)
+        return [f"const int op[{k}] = {{{ops}}}, sl[{k}] = {{{slots}}};",
+                f"float v[{k}] = {{{accs}}};",
+                f"rowstaged::fold<T, K, {k}>(op, sl, v, red, cp, rs);"]
+
+    body += rp.body(fold)
+    sel = lambda ks: _select([str(k) for k in ks], "-1")
+    lines = [
+        "// Row template (staged layout): " + _describe(cplan),
+        *_header("row"),
+        "struct Prog {",
+        f"  static constexpr int NB = {len(cplan.binds)}, LAYOUT = 3, "
+        f"T = {geo.threads}, K = {geo.cluster}, S = {geo.stages}, "
+        f"CH = {geo.chunks}, CHW = {geo.chunk_cols};",
+        f"  static constexpr int NR = {len(rows)}, NSD = {len(sides)}, "
+        f"NK = {geo.cols}, SMEM = {geo.smem}, VEC = {int(N % 4 == 0)}, "
+        f"NA = {nfold};",
+        *rp.prog_lines(),
+        f"  __host__ __device__ static constexpr int row_bind(int k) "
+        f"{{ return {sel(rows)}; }}",
+        f"  __host__ __device__ static constexpr int side_bind(int k) "
+        f"{{ return {sel(sides)}; }}",
+        "  // row i: st / sd: the CTA's slices of its row-staged and side "
+        "binds, n of their columns;",
+        "  // bars: the stage's chunk barriers (phase parity par), read "
+        "by the first pass; cp: this",
+        "  // row's cluster partials; o: the CTA's slice of the output row; "
+        "returns the row's value",
+        "  __device__ static __forceinline__ float row("
+        "const rk::Binds<NB>& b, long long i, int tid, const float* st, "
+        "const float* sd, int n, bool vec, uint64_t* bars, unsigned par, "
+        "float* rs, float* red, float* cp, float* o) {",
+        *("    " + ln for ln in body),
+        "  }",
+        "};", "",
+        *_launcher("row_launch")]
+    return KernelSource("row", "\n".join(lines),
+                        (M, N if rp.wide_root else 1),
+                        elems=1 if cplan.variant == FULL_AGG else 0,
+                        variant=cplan.variant, layout="staged",
+                        threads=geo.threads, rows=1, stages=geo.stages,
+                        smem=geo.smem, ctas=geo.ctas, parts_per_cta=1,
+                        passes=rp.passes, cluster=geo.cluster)
 
 
 # --------------------------------------------------------------------------

@@ -5,10 +5,11 @@ Replaces ``repro/kernels/rowwise.py::row_pallas`` — all five variants
 (``no_agg``, ``row_agg``, ``col_agg``, ``full_agg``, ``col_t_agg``), narrow
 in-program matmuls and in-program row aggregates.  The kernel source is
 generated per CPlan (:func:`repro_torch.kernels.cuda_src.row_source`) over
-``csrc/row.cuh``, in its tile, warp or streaming layout
-(``csrc/row_stream.cuh``); see those headers for the design and its
-bound.  The launch geometry (threads, rows a CTA takes per step,
-CTAs per SM, shared memory) comes from the generated source.
+``csrc/row.cuh``, in its tile, warp, staged (``csrc/row_staged.cuh``) or
+streaming layout (``csrc/row_stream.cuh``); see those headers for the
+design and its bound.  The launch geometry (threads, rows a CTA takes per
+step, CTAs per SM, shared memory, cluster size) comes from the generated
+source.
 :func:`row` launches it for one request and :func:`row_batched` for a
 batch of requests stacked on a leading axis — one launch either way, the
 batched one the counterpart of a vmapped ``pallas_call``, its persistent
@@ -62,9 +63,16 @@ def _run(cplan: CPlan, binds, strides, nreq: int,
         out = build.batch_empty(nreq, out_shape, dev)
         ostride = build.batch_stride(out_shape)
     # tile layout: a persistent grid of src.ctas CTAs per SM over tiles of
-    # src.rows rows; warp layout: a few waves of CTAs over rows; a batch
-    # shares either out over its requests
-    nblocks = build.grid(m, src.rows, dev, src.ctas, nreq)
+    # src.rows rows; warp layout: a few waves of CTAs over rows; staged
+    # layout: at most the clusters of src.cluster CTAs that src.ctas CTAs
+    # per SM make, a row each at most (row_launch cuts it to the clusters
+    # the card holds at once); a batch shares any of them out over its
+    # requests
+    if src.layout == "staged":
+        nblocks = src.cluster * build.grid(
+            m, 1, dev, max(1, src.ctas // src.cluster), nreq)
+    else:
+        nblocks = build.grid(m, src.rows, dev, src.ctas, nreq)
     part = None
     if src.elems:
         part = torch.empty(nreq * nblocks * src.parts_per_cta * src.elems,

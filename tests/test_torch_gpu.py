@@ -11,7 +11,11 @@ launched exactly for a BCSR on the card; the request-axis kernels per
 request and the fusion server on the card; a distributed segment's
 misaligned row panel copied, not refused; the LM's fused rmsnorm at
 3,072 columns as one Row launch; the fused softmax-CE loss at 32,000
-columns in the Row kernel's streaming layout.  Marked ``gpu``; without a card
+columns in the Row kernel's staged layout; the staged layout at a small
+width in one CTA and in a cluster of 4, on its scalar path and over a
+request axis, and the streaming layout, against their plain versions;
+the staged row_agg and full_agg in one CTA and in a cluster.
+Marked ``gpu``; without a card
 every test skips.  Imports no JAX (the machine with the card has none):
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -467,14 +471,14 @@ def test_lm_fused_rmsnorm_at_width_3072_is_one_row_launch(lm_norm_card):
 def test_fused_loss_streams_on_the_card_and_matches_plain(card):
     """The fused softmax-CE loss at 32,000 columns (the CLI's 100m
     preset) over 512 rows: forward and planned backward each one Row
-    launch in the streaming layout, within the kernel limit of the plain
-    version, the same bits twice (no float atomics), and the gradient
-    equal to softmax · g within 1e-6."""
+    launch in the staged layout (a row a CTA), within the kernel limit of
+    the plain version, the same bits twice (no float atomics), and the
+    gradient equal to softmax · g within 1e-6."""
     from repro_torch.core import fusion_mode
     from repro_torch.launch import train
     smoke = chip_smoke()
     srcs = [cuda_src.source_for(cp) for _l, cp in smoke.loss_cplans(32_000)]
-    assert [s.layout for s in srcs] == ["stream", "stream"]
+    assert [s.layout for s in srcs] == ["staged", "staged"]
     build.build_all(srcs)
     gen = torch.Generator(device="cuda").manual_seed(22)
     x = 2.0 * torch.randn((512, 32_000), generator=gen, device="cuda")
@@ -497,3 +501,91 @@ def test_fused_loss_streams_on_the_card_and_matches_plain(card):
         env = {b.nid: (x if b.nid == cp.main.nid else g) for b in cp.binds}
         _err, share = smoke.compare(cp, env, _l)
         assert share <= 1.0
+
+
+@pytest.mark.parametrize("layout,cluster,V", [
+    ("staged", 1, 6_000), ("staged", 4, 6_000), ("staged", 4, 6_001),
+    ("stream", 0, 6_000)])
+def test_wide_row_layouts_match_plain_on_the_card(card, layout, cluster, V):
+    """The fused loss's forward and backward over 257 rows of V columns,
+    built in the staged layout (one CTA a row, or a cluster of 4; at
+    6,001 columns the scalar path) or the streaming layout: one launch
+    each within the kernel limit of its plain version, the same bits
+    twice, and the backward's request-axis form (3 requests) equal per
+    request to the single call."""
+    smoke = chip_smoke()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    L = 2.0 * torch.randn((3, 257, V), generator=gen, device="cuda")
+    g = torch.randn((3, 257, 1), generator=gen, device="cuda")
+    for label, cp in smoke.loss_cplans(V, rows=257):
+        src = (cuda_src._staged_source(cp, cluster=cluster)
+               if layout == "staged" else cuda_src._stream_source(cp))
+        assert (src.layout, src.cluster) == (layout, cluster)
+        build.build_all([src])
+        orig = cuda_src.source_for
+        cuda_src.source_for = lambda c, bs=None: src if c is cp else \
+            orig(c, bs)
+        try:
+            env = {b.nid: (L[0] if b.nid == cp.main.nid else g[0])
+                   for b in cp.binds}
+            rowwise.launches = 0
+            got = rowwise.row(cp, env)
+            again = rowwise.row(cp, env)
+            torch.cuda.synchronize()
+            assert rowwise.launches == 2
+            assert torch.equal(got, again)
+            _err, share = smoke.compare(cp, env, f"{layout} {label}")
+            assert share <= 1.0
+            benv = {b.nid: (L if b.nid == cp.main.nid else g)
+                    for b in cp.binds}
+            batched = rowwise.row_batched(cp, benv)
+            torch.cuda.synchronize()
+            for q in range(3):
+                one = rowwise.row(cp, {nid: t[q] for nid, t in benv.items()})
+                assert torch.equal(batched[q], one), (label, q)
+        finally:
+            cuda_src.source_for = orig
+
+
+def _wide_row_cplan(expr, m: int, V: int):
+    from repro_torch.core import cplan, ir, select
+    X = ir.matrix("X", (m, V))
+    g = ir.Graph.build([expr(X)])
+    p = select.plan(g, "gen")
+    spec = [s for s in p.specs if getattr(s, "fused", False)][-1]
+    return cplan.build_cplan(g, spec)
+
+
+@pytest.mark.parametrize("V,cluster", [(32_768, 1), (65_536, 4)])
+@pytest.mark.parametrize("name,expr", [
+    ("row_agg", lambda X: ir_exp(X * 0.5).rowsums()),
+    ("row_mean", lambda X: (X * X).rowmeans()),
+    ("full_agg", lambda X: ir_exp(X - X.rowmaxs()).sum())])
+def test_staged_row_and_full_aggregates_match_plain_on_the_card(
+        card, name, expr, V, cluster):
+    """The staged layout's row_agg (a value a row, written by rank 0) and
+    full_agg (a partial a cluster, folded by rk::combine) over 301 rows
+    in one CTA and in a cluster of 4: within the kernel limit of the plain
+    version, the same bits twice."""
+    smoke = chip_smoke()
+    cp = _wide_row_cplan(expr, 301, V)
+    src = cuda_src._staged_source(cp, cluster=cluster)
+    assert src.layout == "staged"
+    build.build_all([src])
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    env = {cp.main.nid: torch.randn((301, V), generator=gen, device="cuda")}
+    orig = cuda_src.source_for
+    cuda_src.source_for = lambda c, bs=None: src if c is cp else orig(c, bs)
+    try:
+        got = rowwise.row(cp, env)
+        torch.cuda.synchronize()
+        assert torch.equal(got, rowwise.row(cp, env))
+        _err, share = smoke.compare(cp, env, f"{name} {V}")
+        assert share <= 1.0
+    finally:
+        cuda_src.source_for = orig
+
+
+def ir_exp(x):
+    from repro_torch.core import ir
+    return ir.exp(x)
