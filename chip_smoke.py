@@ -15,6 +15,8 @@ toolkit:
     python3 chip_smoke.py --lm-times   # only [lm]'s prefill, decode and
                                        # Engine.step() readings, likewise
     python3 chip_smoke.py --lm-train   # only [lm-train] (no result line)
+    python3 chip_smoke.py --lm-sharded   # only [lm-sharded] and
+                                         # [examples] (no result line)
 
 Phases, each reported on its own lines with its wall time:
 
@@ -141,8 +143,9 @@ Phases, each reported on its own lines with its wall time:
    jamba-v0.1-52b at full width for one period of 8 of its 32 layers (7
    Mamba + 1 attention, MoE 16 experts top-2 on the odd layers:
    13,265,932,288 parameters; the whole model is 103 GB in bf16) and
-   xlstm-1.3b at full width and depth (48 mLSTM layers, 4 heads of 1,024:
-   3,831,597,056 parameters), each drawn on the card from a seeded
+   xlstm-1.3b at full width for 12 of its 48 mLSTM layers (4 heads of
+   1,024; the whole model is 3,831,597,056 parameters), each
+   drawn on the card from a seeded
    ``torch.Generator`` in bf16 and, after the bf16 model is freed, in
    fp32 of the same draws.  Each: ``serve.Engine`` (4 slots) serves its
    requests through its queue (minitron 2,048 / 777 / 512 / 33 / 1
@@ -213,7 +216,46 @@ Phases, each reported on its own lines with its wall time:
    ``--resume``-d from step 5, its losses for steps 6-10 against the
    uninterrupted run's (bit for bit, or within 1e-6 relative: the line
    says which);
-23. one JSON line with every kernel (launches and times summed over the
+23. ``[lm-sharded]``: sharded LM serving, ``serve.Engine(mesh=
+   Mesh({"data": 2, "model": 2}))`` in 4 rank processes of this script
+   (``--lm-sharded-rank``) on the one card over gloo, fp32, three runs
+   (SHARDED_RUNS): minitron-4b at full width and depth and olmoe-1b-7b at
+   full width and depth (64 experts, expert-parallel over ``model``),
+   each with ``layout="fixed"``, and xlstm-1.3b at full width for 2 of
+   its 48 layers with ``layout="auto"`` and the planner's
+   ``serve_params`` forced off (every FSDP-sharded leaf gathered over
+   ``data`` before each use, a data block running a forward for each
+   slot its peer serves); the weights drawn on the host tile by tile
+   from seeded generators, each rank building the model on the meta
+   device and drawing only the tiles of its blocks; first a one-rank
+   ``Engine`` on the card with the same weights (drawn whole) serves the
+   same requests (fixed runs: six of 2,048 / 96 / 33 / 17 / 5 / 33
+   prompt tokens, 8 new each, 4 slots, the 2,048-token prompt prefilled
+   through chunked attention; the FSDP run three of 33 / 17 / 5, 4 new);
+   every rank's tokens equal to each other's and to the one-rank
+   engine's (a token may differ only where the one-rank run's top-2
+   margin is within 2 x SHARDED_RTOL of max |logit|), the prefill and
+   four teacher-forced decode logits of the 33-token prompt and of the
+   2,048-token one within SHARDED_RTOL (1e-5) of max |logit| of the
+   one-rank engine's (olmoe's MoE layers pinned to the one-rank engine's
+   experts, a routing flip allowed only at a near-tie, LM_TIE, and the
+   unpinned error recorded: 2,048 tokens through 16 layers make 32,768
+   top-8 choices, and another summation order flips a near-tie among
+   them), its
+   stored parameter and cache bytes equal to the layout planner's
+   ``_tree_accounting``; of each fixed run also four requests sampled
+   at temperature 1 equal to the one-rank engine's samples (same seed),
+   a planted fault (rank 1 keeps its partial sums of layer 0's attention
+   output) that must fail the logits check, the planner's own layout for
+   the cell, and prefill (2,048 tokens) and decode ms, collectives a
+   token and a step and their wall ms, Engine.step() walls and the host
+   share of a profiled step, with the card's name and power limit;
+24. ``[examples]``: ``examples/quickstart_torch.py``,
+   ``als_recommender_torch.py`` and ``serve_lm_torch.py`` on the card at
+   their default sizes, each in a process of its own ending in its own
+   asserts (``train_lm_torch.py``'s configuration is [lm-train]'s CLI
+   run);
+25. one JSON line with every kernel (launches and times summed over the
    single-device paths; the request-axis forms with their serving
    launches and their times at 8 x 1,048,576 x 100; a ``dist`` record per
    kernel with the [dist] ranks' own launches, its worst panel check and
@@ -2751,18 +2793,18 @@ def dist_segment(mesh, rows, calls) -> dict:
     rec["shares_psum_skipped"] = one_rank_at_a_time(
         mesh, lambda: segment_shares(compiled, sps[0], args, bad,
                                      "segment, psum skipped"))
-    gather = mesh.all_gather_rows
+    gather = mesh.all_gather
 
-    def drop_rank1(panel):
-        out = gather(panel)
+    def drop_rank1(panel, dim=0, over="row"):
+        out = gather(panel, dim, over)
         out[panel.shape[0]:2 * panel.shape[0]] = 0.0
         return out
 
-    mesh.all_gather_rows = drop_rank1
+    mesh.all_gather = drop_rank1
     try:
         bad = compiled(*args)
     finally:
-        del mesh.all_gather_rows
+        del mesh.all_gather
     rec["shares_gather_dropped"] = one_rank_at_a_time(
         mesh, lambda: segment_shares(compiled, sps[0], args, bad,
                                      "segment, rank 1's panel dropped"))
@@ -3264,15 +3306,17 @@ LM_ARCHS = (
            2304, 2048, ("state", "gate"), "float32", (2048, 512), (3, 3),
            "full width, one period of 8 of its 32 layers: all 32 are "
            "51.5e9 parameters, 103 GB in bf16, more than one card holds "
-           "(the full depth waits for the sharded engine)"),
-    LMArch("lm-xlstm", "xlstm-1.3b", 0, (512, 129, 33, 1, 129), 16, 640,
+           "(the sharded engine would spread them over four cards)"),
+    LMArch("lm-xlstm", "xlstm-1.3b", 12, (512, 129, 33, 1, 129), 16, 640,
            136, ("state",), "float64", (512, 129), (1, 2),
-           "full width and depth; prompts of 512 / 129 / 33 / 1 tokens "
-           "(16 new each) and a 136-token decode check, shorter than "
-           "[lm]'s: the mLSTM recurrence is a loop of ~20 eager ops a "
-           "step per layer; the decode check is held to its limit in "
-           "fp64, and in fp32 to LM_FLOOR_X x its rounding floor, which "
-           "is of the limit's order at 48 layers"),
+           "full width, 12 of its 48 layers (cut so that the script's "
+           "wall stays near 720 s with [lm-sharded] and [examples]; "
+           "every layer is the same mLSTM block); prompts of 512 / 129 / "
+           "33 / 1 tokens (16 new each) and a 136-token decode check, "
+           "shorter than [lm]'s: the mLSTM recurrence is a loop of ~20 "
+           "eager ops a step per layer; the decode check is held to its "
+           "limit in fp64, and in fp32 to LM_FLOOR_X x its rounding "
+           "floor"),
 )
 #: the MoE forms: one full-width MoE layer in fp32 over LM_SEQ tokens,
 #: ragged and capacity (a factor of E/k: nothing drops) against dense, of
@@ -4291,6 +4335,741 @@ def lm_train_phase() -> dict:
     return recs
 
 
+# --------------------------------------------------------------------------
+# [lm-sharded]: the sharded LM Engine over gloo ranks on the one card
+# --------------------------------------------------------------------------
+
+#: the mesh of the [lm-sharded] ranks (all on the one card, over gloo)
+SHARDED_MESH = {"data": 2, "model": 2}
+SHARDED_SEED = 23
+#: six requests through four slots (the last two reuse one); the first
+#: is two of minitron's and olmoe's 1,024-token attention chunks, so its
+#: prefill takes the chunked path on the rank's heads
+SHARDED_PROMPTS = (2048, 96, 33, 17, 5, 33)
+SHARDED_SLOTS, SHARDED_NEW, SHARDED_MAX_LEN = 4, 8, 2112
+#: the prompt whose prefill (last position) and four teacher-forced
+#: decode logits are held, and planted with the fault; each prompt that
+#: takes the chunked path is held too
+SHARDED_TEACHER = 33
+#: decode logits of the sharded engine against the one-rank engine's, of
+#: max |logit| (fp32, TF32 off: the products summed in other orders); a
+#: token may differ only where the one-rank engine's top-2 margin is
+#: within twice this
+SHARDED_RTOL = 1e-5
+#: the weights' tiles a dim (a block of the layout is a union of tiles)
+SHARDED_TILES = 4
+#: decode walls taken in one slot, and Engine.step() walls with every
+#: slot decoding (the fixed layout's)
+SHARDED_DECODES, SHARDED_STEPS = 5, 3
+#: the sampled serve of a fixed run: its requests (SHARDED_PROMPTS from
+#: the third), new tokens each and temperature; both engines are seeded
+#: SHARDED_SEED, and every rank draws for every slot, so the tokens must
+#: be the one-rank engine's
+SHARDED_SAMPLED, SHARDED_SAMPLED_NEW, SHARDED_TEMPERATURE = 2, 4, 1.0
+SHARDED_TIMEOUT_S = 900
+SHARDED_PG_TIMEOUT_S = 300
+
+
+class ShardedRun(NamedTuple):
+    """One model of [lm-sharded].  ``n_layers`` 0 keeps its depth;
+    ``layout`` "fixed" is ``Engine(layout="fixed")``, timed and planted
+    with the fault; "fsdp" is ``Engine(layout="auto")`` with the
+    planner's ``serve_params`` forced off, so that every FSDP-sharded
+    leaf is gathered over ``data`` before each use and a data block runs
+    a forward for each slot its peer serves."""
+    tag: str
+    arch: str
+    n_layers: int
+    layout: str
+    prompts: tuple
+    new: int
+    cut: str
+
+
+SHARDED_RUNS = (
+    ShardedRun("minitron", "minitron-4b", 0, "fixed", SHARDED_PROMPTS,
+               SHARDED_NEW, "full width and depth (32 layers), fp32: 16.8 GB "
+               "whole, 8.4 GB a rank"),
+    ShardedRun("olmoe", "olmoe-1b-7b", 0, "fixed", SHARDED_PROMPTS,
+               SHARDED_NEW, "full width and depth (16 layers, 64 experts, "
+               "expert-parallel over model 2), fp32: 27.7 GB whole, 13.9 GB "
+               "a rank"),
+    ShardedRun("xlstm-fsdp", "xlstm-1.3b", 2, "fsdp", (33, 17, 5), 4,
+               "full width, 2 of its 48 layers, fp32: 1.4 GB whole, 0.36 GB "
+               "a rank stored; each forward gathers every FSDP-sharded leaf "
+               "through host memory, the embedding and head included (the "
+               "same run of minitron-4b at 2 layers, 6.9 GB, took 4.6 s a "
+               "forward on the card), so its cost grows with the forwards"),
+)
+
+
+def sharded_config(run: ShardedRun):
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(run.arch), dtype="float32")
+    if run.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=run.n_layers)
+    return cfg
+
+
+def sharded_prompts(cfg, lens) -> list:
+    import numpy as np
+    rng = np.random.default_rng(SHARDED_SEED)
+    return [rng.integers(0, cfg.vocab, size=p).astype(np.int32)
+            for p in lens]
+
+
+def sharded_teachers(cfg, run: ShardedRun, prompts) -> list:
+    """The prompts of the logits checks: the SHARDED_TEACHER-token one,
+    then each that takes the chunked path."""
+    C = cfg.attn_chunk
+    return [prompts[run.prompts.index(SHARDED_TEACHER)]] + [
+        p for p in prompts if C and len(p) > C and len(p) % C == 0]
+
+
+def sharded_block(cfg, key: str, shape, index, threads: int):
+    """Block ``index`` (a slice a dim) of parameter ``key`` of the
+    [lm-sharded] weights, on the host in fp32.  The whole leaf is N(0, 1)
+    times its scale (embedding and head d^-1/2, a projection fan-in^-1/2;
+    rmsnorm scales 0), drawn tile by tile: each dim cut into
+    gcd(dim, SHARDED_TILES) tiles, each tile from a generator seeded by
+    (SHARDED_SEED, key, tile), so a rank draws only the tiles of its block
+    and the one-rank reference, drawing them all, gets the same values."""
+    import concurrent.futures
+    import itertools
+    import zlib
+    import torch
+    name = key.rsplit(".", 1)[-1]
+    out = torch.empty(tuple(s.stop - s.start for s in index))
+    if name == "scale" and cfg.norm_type == "rmsnorm":
+        return out.zero_()
+    if len(shape) < 2:
+        raise ValueError(f"{key}: no draw rule for a {len(shape)}-d leaf")
+    scale = (cfg.d_model if name in ("embed", "head") else shape[-2]) ** -0.5
+    parts = [math.gcd(n, SHARDED_TILES) for n in shape]
+
+    def tile(t):
+        lo = [ti * n // p for ti, n, p in zip(t, shape, parts)]
+        hi = [(ti + 1) * n // p for ti, n, p in zip(t, shape, parts)]
+        a = [max(l, s.start) for l, s in zip(lo, index)]
+        b = [min(h, s.stop) for h, s in zip(hi, index)]
+        if any(x >= y for x, y in zip(a, b)):
+            return
+        gen = torch.Generator().manual_seed(
+            zlib.crc32(f"{SHARDED_SEED}/{key}/{t}".encode()))
+        vals = torch.randn(tuple(h - l for l, h in zip(lo, hi)),
+                           generator=gen)
+        out[tuple(slice(x - s.start, y - s.start)
+                  for x, y, s in zip(a, b, index))] = vals[tuple(
+                      slice(x - l, y - l) for x, y, l in zip(a, b, lo))]
+    with concurrent.futures.ThreadPoolExecutor(threads) as ex:
+        list(ex.map(tile, itertools.product(*(range(p) for p in parts))))
+    return out.mul_(scale)
+
+
+def sharded_logits(engine, prompt, teacher=None) -> tuple:
+    """Prefill ``prompt`` into the engine's first own slot (its recurrent
+    state zeroed) and decode four steps fed ``teacher``'s tokens (default:
+    the argmax); returns (the five logits on the host, the fed tokens)."""
+    import torch
+    from repro_torch.serve.engine import RECURRENT_LEAVES
+    cache = engine._slot_cache(engine.slot0)
+    for layer in cache["blocks"] + cache["rest"]:
+        for k in RECURRENT_LEAVES:
+            if k in layer:
+                layer[k].zero_()
+    dev = engine.model.device
+    out, _ = engine._prefill(torch.as_tensor(prompt, dtype=torch.int64,
+                                             device=dev)[None], cache)
+    outs, fed = [out.float().cpu()], []
+    for s in range(4):
+        tok = int(torch.argmax(outs[-1][0, -1])) if teacher is None \
+            else teacher[s]
+        fed.append(tok)
+        _n, lg, _ = engine._decode(cache, torch.full(
+            (1, 1), tok, dtype=torch.int64, device=dev), len(prompt) + s)
+        outs.append(lg.float().cpu())
+    return outs, fed
+
+
+def sharded_serve(engine, prompts, new: int,
+                  temperature: float = 0.0) -> tuple[list, float]:
+    """Every prompt through the engine's queue: (tokens, wall s)."""
+    import torch
+    from repro_torch.serve import Request
+    reqs = [Request(prompt=p, max_new=new, temperature=temperature)
+            for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_done()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not all(r.done and r.error is None for r in reqs):
+        raise AssertionError("a request did not finish")
+    return [r.out for r in reqs], wall
+
+
+def sharded_margins(model, prompts, tokens) -> list:
+    """Each request's top-2 margin of max |logit| at every decode step of
+    a direct run fed its own tokens the engine's way."""
+    import torch
+    out = []
+    for p, toks in zip(prompts, tokens):
+        cache = model.init_cache(1, SHARDED_MAX_LEN)
+        feed = [int(p[-1])] + toks[:-1]
+        m = []
+        with torch.no_grad():
+            model.apply(torch.as_tensor(p, dtype=torch.int64,
+                                        device="cuda")[None], caches=cache)
+            for s, tok in enumerate(feed):
+                lg, _ = model.decode_step(cache, [[tok]], len(p) + s)
+                top = torch.topk(lg[0, -1].float(), 2).values
+                m.append(float((top[0] - top[1]) / lg.abs().max()))
+        out.append(m)
+        del cache
+    return out
+
+
+def sharded_reference(run: ShardedRun, tmp: Path) -> dict:
+    """The one-rank Engine on the card with the same weights (drawn whole,
+    8 threads): its tokens, each step's top-2 margin, of a fixed run the
+    sampled serve's tokens, and the teacher logits of
+    :func:`sharded_logits` with the MoE layers' top-k experts and margins
+    of each call (:class:`Routing`; written to ``tmp``)."""
+    import torch
+    from repro_torch.models import LM
+    from repro_torch.serve import Engine
+    cfg = sharded_config(run)
+    t0 = time.perf_counter()
+    model = LM(cfg, device="cuda").requires_grad_(False)
+    with torch.no_grad():
+        for key, p in model.state_dict(keep_vars=True).items():
+            full = tuple(slice(0, n) for n in p.shape)
+            p.copy_(sharded_block(cfg, key, tuple(p.shape), full, 8))
+    n_params = sum(p.numel() for p in model.parameters())
+    draw_s = time.perf_counter() - t0
+    prompts = sharded_prompts(cfg, run.prompts)
+    engine = Engine(model, batch_slots=SHARDED_SLOTS,
+                    max_len=SHARDED_MAX_LEN, seed=SHARDED_SEED)
+    tokens, wall = sharded_serve(engine, prompts, run.new)
+    sampled = sharded_serve(engine, prompts[SHARDED_SAMPLED:],
+                            SHARDED_SAMPLED_NEW, SHARDED_TEMPERATURE)[0] \
+        if run.layout == "fixed" else None
+    teach = []
+    for p in sharded_teachers(cfg, run, prompts):
+        rec = Routing()
+        with rec.installed():
+            logits, fed = sharded_logits(engine, p)
+        teach.append((logits, fed, [(i.cpu(), m.cpu()) for i, m in rec.taken]))
+    torch.save(teach, tmp / f"{run.tag}.pt")
+    del teach
+    margins = sharded_margins(model, prompts, tokens)
+    log(f"[lm-sharded] {run.tag}: one-rank Engine on the card, "
+        f"{n_params:,} parameters ({run.cut}), drawn in {draw_s:.1f} s; "
+        f"{len(prompts)} requests of {list(run.prompts)} tokens, "
+        f"{run.new} new each, served in {wall:.2f} s")
+    del engine, model
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {"tokens": tokens, "margins": margins, "params": n_params,
+            "sampled": sampled}
+
+
+@contextlib.contextmanager
+def planted_partial_sums(rank: int):
+    """A fault planted in one rank: ``rank`` keeps its partial sums of
+    layer 0's attention output (the all-reduce still runs, so no rank
+    waits on it)."""
+    from repro_torch.models import sharded
+    real = sharded.Scope.reduce
+
+    def reduce(self, y):
+        out = real(self, y)
+        if self.mesh.rank == rank and self.prefix == "layers.0.inner.":
+            return y
+        return out
+    sharded.Scope.reduce = reduce
+    try:
+        yield
+    finally:
+        sharded.Scope.reduce = real
+
+
+@contextlib.contextmanager
+def planner_serve_params_off():
+    """``planner.plan_layout`` answers its layout with ``serve_params``
+    off (the "fsdp" run of :class:`ShardedRun`)."""
+    from repro_torch.dist import planner
+    real = planner.plan_layout
+    planner.plan_layout = lambda *a, **k: dataclasses.replace(
+        real(*a, **k), serve_params=False)
+    try:
+        yield
+    finally:
+        planner.plan_layout = real
+
+
+def sharded_readings(engine, mesh, cfg, run, prompts, ref,
+                     timed: bool) -> dict:
+    """One rank's readings of one sharded engine: its tokens, its logits
+    against the one-rank engine's, its stored bytes against the
+    planner's, and with ``timed`` its sampled tokens, the logits with
+    the planted fault and its times."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import LogicalMesh, planner
+    from repro_torch.serve import Request
+    res = {"slot0": engine.slot0, "n_local": engine.n_local,
+           "layout": engine.layout.to_dict() if engine.layout else None,
+           "fsdp": engine.model.shard.fsdp}
+    c0, s0 = mesh.collectives, mesh.collective_s
+    res["tokens"], res["serve_s"] = sharded_serve(engine, prompts, run.new)
+    res["serve_collectives"] = mesh.collectives - c0
+    res["serve_collective_s"] = mesh.collective_s - s0
+    if timed:
+        res["sampled"] = sharded_serve(
+            engine, prompts[SHARDED_SAMPLED:], SHARDED_SAMPLED_NEW,
+            SHARDED_TEMPERATURE)[0]
+    teachers = sharded_teachers(cfg, run, prompts)
+
+    def rel(p, want, fed, pins=()):
+        # MoE layers pinned to the one-rank engine's experts (``pins``):
+        # the flipped tokens' margins are kept
+        route = Routing([(i.to(mesh.device), m.to(mesh.device))
+                         for i, m in pins]) if pins else None
+        with route.installed() if route else contextlib.nullcontext():
+            got = sharded_logits(engine, p, fed)[0]
+        return max(float((g - w).abs().max() / w.abs().max())
+                   for g, w in zip(got, want)), \
+            (route.margins if route else [])
+    res["rel_errs"], res["flip_margins"], res["unpinned_rel_errs"] = \
+        [], [], []
+    for p, (want, fed, pins) in zip(teachers, ref):
+        err, margins = rel(p, want, fed, pins)
+        res["rel_errs"].append(err)
+        res["flip_margins"] += margins
+        if pins:
+            res["unpinned_rel_errs"].append(rel(p, want, fed)[0])
+    res["rel_err"] = max(res["rel_errs"])
+    if timed:
+        with planted_partial_sums(1):
+            res["fault_rel_err"] = rel(teachers[0], *ref[0][:2])[0]
+    shape = ShapeConfig("engine_decode", SHARDED_MAX_LEN, SHARDED_SLOTS,
+                        "decode")
+    lm = LogicalMesh(mesh.shape)
+    params, cache = planner._abstract_state(cfg, shape)
+    res["stored"] = engine.stored_bytes()
+    res["planner_stored"] = {
+        "params": planner._tree_accounting(lm, engine.param_specs,
+                                           params)["stored"],
+        "cache": planner._tree_accounting(lm, engine.cache_specs,
+                                          cache)["stored"]}
+    if not timed:
+        return res
+
+    # times: prefills (the longest prompt once, the second three times)
+    # and decode steps in the rank's first slot, then Engine.step() with
+    # every slot decoding
+    cache_ = engine._slot_cache(engine.slot0)
+    walls = []
+    for p in (prompts[0],) + (prompts[1],) * 3:
+        toks = torch.as_tensor(p, dtype=torch.int64, device=mesh.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine._prefill(toks[None], cache_)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    res["long_prefill_ms"], res["prefill_ms"] = walls[0], walls[1:]
+    tok = toks[None, -1:]
+    walls, colls, coll_ms = [], [], []
+    for s in range(SHARDED_DECODES):
+        c0, s0 = mesh.collectives, mesh.collective_s
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nxt, _lg, _ = engine._decode(cache_, tok, len(toks) + s)
+        int(nxt.reshape(-1)[0])
+        walls.append((time.perf_counter() - t0) * 1e3)
+        colls.append(mesh.collectives - c0)
+        coll_ms.append((mesh.collective_s - s0) * 1e3)
+    res["decode_ms"], res["decode_collectives"] = walls, colls
+    res["decode_collective_ms"] = coll_ms
+    teacher = prompts[run.prompts.index(SHARDED_TEACHER)]
+    for _ in range(SHARDED_SLOTS):
+        engine.submit(Request(prompt=teacher, max_new=SHARDED_STEPS + 3))
+    engine.step()                     # admits (prefills) every slot
+    steps, colls, coll_ms = [], [], []
+    for _ in range(SHARDED_STEPS):
+        c0, s0 = mesh.collectives, mesh.collective_s
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+        colls.append(mesh.collectives - c0)
+        coll_ms.append((mesh.collective_s - s0) * 1e3)
+    wall_ms, busy_ms = profile_run(
+        f"[lm-sharded] rank {mesh.rank}: Engine.step(), "
+        f"{SHARDED_SLOTS} slots decoding ({engine.n_local} on this rank)",
+        engine.step)
+    engine.run_until_done()
+    res["step_ms"], res["step_collectives"] = steps, colls
+    res["step_collective_ms"] = coll_ms
+    res["host_share"] = 1 - busy_ms / wall_ms
+    res["profiled_step"] = {"wall_ms": wall_ms, "busy_ms": busy_ms}
+    res["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return res
+
+
+def sharded_rank_run(run: ShardedRun, mesh, outdir: Path) -> dict:
+    """One model on one rank: ``Engine(mesh=..., layout="fixed")``, or
+    for an "fsdp" run ``layout="auto"`` with the planner's
+    ``serve_params`` forced off; the model built on the meta device and
+    each block drawn on demand; returns the rank's readings (a fixed
+    run's with the planner's own layout for this decode cell)."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import planner, sharding as sh
+    from repro_torch.models import LM
+    from repro_torch.serve import Engine
+    cfg = sharded_config(run)
+    prompts = sharded_prompts(cfg, run.prompts)
+    ref = torch.load(outdir / f"{run.tag}.pt")
+    shapes = {k: tuple(v.shape) for k, v in
+              planner._abstract_state(cfg)[0].items()}
+
+    def weights(key, index):
+        return sharded_block(cfg, key, shapes[key], index, 2)
+    fixed = run.layout == "fixed"
+    model = LM(cfg, device="meta")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with contextlib.nullcontext() if fixed else planner_serve_params_off():
+        eng = Engine(model, batch_slots=SHARDED_SLOTS,
+                     max_len=SHARDED_MAX_LEN, mesh=mesh,
+                     layout="fixed" if fixed else "auto", weights=weights,
+                     seed=SHARDED_SEED)
+    torch.cuda.synchronize()
+    res = {"place_s": time.perf_counter() - t0}
+    res["readings"] = sharded_readings(eng, mesh, cfg, run, prompts, ref,
+                                       timed=fixed)
+    if fixed:
+        # the planner's own choice for this cell, and whether it would
+        # serve the fixed layout's blocks
+        shape = ShapeConfig("engine_decode", SHARDED_MAX_LEN, SHARDED_SLOTS,
+                            "decode")
+        lay = planner.plan_layout(mesh, cfg, shape)
+        res["planner_layout"] = lay.to_dict()
+        res["planner_same_blocks"] = sh.param_specs(
+            mesh, cfg, planner._abstract_state(cfg)[0],
+            serve=lay.serve_params) == eng.param_specs
+    del eng, model
+    torch.cuda.empty_cache()
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def sharded_rank(rank: int, world: int, init: str, outdir: str) -> None:
+    """One rank of [lm-sharded] (``--lm-sharded-rank``): joins the gloo
+    process group, builds ``Mesh(SHARDED_MESH)`` on the card and runs
+    every model of SHARDED_RUNS in turn (:func:`sharded_rank_run`);
+    writes ``outdir/rank<rank>.json``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=init, world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=SHARDED_PG_TIMEOUT_S))
+    try:
+        from repro_torch.dist import Mesh
+        mesh = Mesh(SHARDED_MESH, device="cuda:0")
+        res = {"rank": rank, "coords": mesh.coords}
+        for run in SHARDED_RUNS:
+            res[run.tag] = sharded_rank_run(run, mesh, Path(outdir))
+        (Path(outdir) / f"rank{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_check(run: ShardedRun, ref: dict, ranks: list) -> dict:
+    """The ranks' readings of one model held to the one-rank engine's and
+    the planner's (see :func:`sharded_phase`); returns the phase record."""
+    card = card_line()
+    tol = SHARDED_RTOL
+    lay = run.layout
+    rs = [r["readings"] for r in ranks]
+    for r, rd in enumerate(rs):
+        if rd["tokens"] != rs[0]["tokens"]:
+            raise AssertionError(f"[lm-sharded] {run.tag} {lay}: rank "
+                                 f"{r}'s tokens differ from rank 0's")
+        if rd["rel_err"] > tol:
+            raise AssertionError(
+                f"[lm-sharded] {run.tag} {lay}: rank {r}'s logits "
+                f"{rd['rel_err']:.3e} of max |logit| from the one-rank "
+                f"engine's, above {tol:g}")
+        for k in ("params", "cache"):
+            if rd["stored"][k] != rd["planner_stored"][k]:
+                raise AssertionError(
+                    f"[lm-sharded] {run.tag} {lay}: rank {r} stores "
+                    f"{rd['stored'][k]} {k} bytes, the planner "
+                    f"{rd['planner_stored'][k]}")
+        if rd["fsdp"] is not (lay == "fsdp"):
+            raise AssertionError(f"[lm-sharded] {run.tag} {lay}: rank {r} "
+                                 f"gathers FSDP leaves: {rd['fsdp']}")
+        wide = [m for m in rd["flip_margins"] if not m <= LM_TIE]
+        if wide:
+            raise AssertionError(
+                f"[lm-sharded] {run.tag} {lay}: rank {r}'s MoE routing "
+                f"flipped {len(wide)} tokens away from a near-tie (the "
+                f"one-rank engine's margins {wide}, limit {LM_TIE:g})")
+    flips = []
+    for q, (got, want, m) in enumerate(zip(rs[0]["tokens"], ref["tokens"],
+                                           ref["margins"])):
+        s = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                 None)
+        if s is None:
+            continue
+        if m[s] > 2 * tol:
+            raise AssertionError(
+                f"[lm-sharded] {run.tag} {lay}: request {q}'s tokens {got} "
+                f"!= the one-rank engine's {want} from step {s}, where its "
+                f"top-2 margin {m[s]:.3e} of max |logit| is above "
+                f"{2 * tol:g}")
+        flips.append((q, s, m[s]))
+    errs = [rd["rel_err"] for rd in rs]
+    cfg = sharded_config(run)
+    held = [len(p) for p in
+            sharded_teachers(cfg, run, sharded_prompts(cfg, run.prompts))]
+    margins = sorted({m for rd in rs for m in rd["flip_margins"]})
+    unpinned = [max(e) for e in zip(*(rd["unpinned_rel_errs"] for rd in rs))]
+    out = {"layout": lay, "rel_err": max(errs), "flips": flips,
+           "rel_errs": [max(e) for e in zip(*(rd["rel_errs"] for rd in rs))],
+           "flip_margins": margins, "unpinned_rel_errs": unpinned,
+           "rank_wall_s": max(r["wall_s"] for r in ranks),
+           "engine_layout": rs[0]["layout"],
+           "serve_s": max(rd["serve_s"] for rd in rs),
+           "serve_collectives": rs[0]["serve_collectives"],
+           "serve_collective_s": max(rd["serve_collective_s"] for rd in rs)}
+    log(f"[lm-sharded] {run.tag} {lay}: tokens of {len(rs)} ranks equal to "
+        f"each other and to the one-rank engine's"
+        + (f" but at near-ties {flips}" if flips else "")
+        + f"; logits {out['rel_errs']} of max |logit| (limit {tol:g}) for "
+        f"prompts of {held} tokens"
+        + (f" with the MoE layers pinned to the one-rank engine's experts, "
+           f"{len(margins)} routing flips at its margins "
+           f"{[float(f'{m:.3e}') for m in margins]} (limit {LM_TIE:g}); "
+           f"unpinned {unpinned}, recorded" if unpinned else "") + "; "
+        f"stored bytes a rank equal to the planner's "
+        f"({rs[0]['stored']['params']:,} parameter, "
+        f"{rs[0]['stored']['cache']:,} cache); layout {rs[0]['layout']}; "
+        f"{len(run.prompts)} requests served in {out['serve_s']:.2f} s "
+        f"with {out['serve_collectives']} collectives a rank "
+        f"({out['serve_collective_s']:.2f} s of them, {card})")
+    out["place_s"] = max(r["place_s"] for r in ranks)
+    log(f"[lm-sharded] {run.tag} {lay}: blocks placed in "
+        f"{out['place_s']:.1f} s a rank; the run's rank wall "
+        f"{out['rank_wall_s']:.1f} s")
+    if lay != "fixed":                # sampling, the fault, times: fixed's
+        return out
+    for r, rd in enumerate(rs):
+        if rd["sampled"] != ref["sampled"]:
+            raise AssertionError(
+                f"[lm-sharded] {run.tag}: rank {r}'s sampled tokens "
+                f"{rd['sampled']} != the one-rank engine's {ref['sampled']}")
+    log(f"[lm-sharded] {run.tag}: sampled at temperature "
+        f"{SHARDED_TEMPERATURE:g} (seed {SHARDED_SEED}), every rank's "
+        f"tokens equal the one-rank engine's: {ref['sampled']}")
+    worst = max(rd["fault_rel_err"] for rd in rs)
+    if not worst > tol:
+        raise AssertionError(f"[lm-sharded] {run.tag}: the planted "
+                             f"fault passed ({worst:.3e})")
+    log(f"[lm-sharded] {run.tag}: planted fault (rank 1 keeps its "
+        f"partial sums of layer 0's attention output): logits "
+        f"{worst:.3e} of max |logit|, above {tol:g}: rejected")
+    med = statistics.median
+    rec = {
+        "long_prefill_ms": med(rd["long_prefill_ms"] for rd in rs),
+        "prefill_ms": med(v for rd in rs for v in rd["prefill_ms"]),
+        "decode_ms": med(v for rd in rs for v in rd["decode_ms"]),
+        "decode_collectives": med(v for rd in rs
+                                  for v in rd["decode_collectives"]),
+        "decode_collective_ms": med(v for rd in rs
+                                    for v in rd["decode_collective_ms"]),
+        "step_ms": med(v for rd in rs for v in rd["step_ms"]),
+        "step_collectives": med(v for rd in rs
+                                for v in rd["step_collectives"]),
+        "step_collective_ms": med(v for rd in rs
+                                  for v in rd["step_collective_ms"]),
+        "host_share": med(rd["host_share"] for rd in rs),
+        "peak_gb": max(rd["peak_gb"] for rd in rs),
+        "fault_rel_err": worst}
+    log(f"[lm-sharded] {run.tag} {lay} ({card}): prefill of "
+        f"{run.prompts[0]} tokens {rec['long_prefill_ms']:.2f} ms (once), "
+        f"of {run.prompts[1]} tokens {rec['prefill_ms']:.2f} ms; decode "
+        f"{rec['decode_ms']:.2f} ms a token (one slot, host clock, "
+        f"median over ranks), {rec['decode_collectives']:g} collectives "
+        f"a token, {rec['decode_collective_ms']:.2f} ms of them; "
+        f"Engine.step() with {SHARDED_SLOTS} slots decoding "
+        f"{rec['step_ms']:.2f} ms, {rec['step_collectives']:g} "
+        f"collectives a step, {rec['step_collective_ms']:.2f} ms of "
+        f"them; host share of a profiled step {rec['host_share']:.3f}; "
+        f"peak {rec['peak_gb']:.2f} GB a rank")
+    out.update(rec)
+    out["planner_layout"] = ranks[0]["planner_layout"]
+    out["planner_same_blocks"] = ranks[0]["planner_same_blocks"]
+    log(f"[lm-sharded] {run.tag}: the planner's layout for this decode "
+        f"cell {out['planner_layout']} "
+        + ("serves the fixed layout's blocks" if out["planner_same_blocks"]
+           else "shards otherwise than the fixed layout"))
+    return out
+
+
+def sharded_phase() -> dict:
+    """[lm-sharded]: each model of SHARDED_RUNS served first by a one-rank
+    Engine on the card, then by ``Engine(mesh=Mesh(SHARDED_MESH))`` with
+    the run's layout in rank processes on the same card over gloo (one
+    spawn for every model); returns each model's record."""
+    import tempfile
+    import torch
+    from repro_torch.dist.launch import rank_env, run_ranks
+    t0 = time.perf_counter()
+    world = math.prod(SHARDED_MESH.values())
+    log(f"[lm-sharded] Engine(mesh=Mesh({SHARDED_MESH})) in {world} rank "
+        f"processes on the one card over gloo (NCCL refuses two ranks on one "
+        f"device; collectives go through host memory); {card_line()}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_sharded_") as tmp:
+        refs = {run.tag: sharded_reference(run, Path(tmp))
+                for run in SHARDED_RUNS}
+        t1 = time.perf_counter()
+        init = f"file://{Path(tmp) / 'rendezvous'}"
+        outs = run_ranks(
+            lambda r: [sys.executable, str(Path(__file__).resolve()),
+                       "--lm-sharded-rank", str(r), str(world), init, tmp],
+            world, timeout=SHARDED_TIMEOUT_S,
+            env=rank_env(threads=max(1, 8 // world)), cwd=str(ROOT))
+        ranks = [json.loads((Path(tmp) / f"rank{r}.json").read_text())
+                 for r in range(world)]
+    for text in outs:
+        for line in text.splitlines():
+            if line.startswith("[profile]"):
+                log(line)
+    log(f"[lm-sharded] references' wall {t1 - t0:.1f} s, ranks' wall "
+        f"{time.perf_counter() - t1:.1f} s")
+    recs = {}
+    for run in SHARDED_RUNS:
+        recs[run.tag] = sharded_check(run, refs[run.tag],
+                                      [r[run.tag] for r in ranks])
+    log(f"[lm-sharded] phase wall {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
+# --------------------------------------------------------------------------
+# [examples]: the port's examples on the card
+# --------------------------------------------------------------------------
+
+#: the examples [examples] runs at their default sizes (train_lm_torch's
+#: configuration is [lm-train]'s CLI run)
+EXAMPLES = ("quickstart_torch.py", "als_recommender_torch.py",
+            "serve_lm_torch.py")
+EXAMPLE_TIMEOUT_S = 300
+
+
+def example_sources() -> list:
+    """The kernels the [examples] processes launch, built with the rest
+    (the libraries are cached on disk by their text): quickstart's ALS
+    update over its BCSR, its squared loss and that loss's planned
+    backward, planned on its own operands; als_recommender's ALS CPlans
+    at its shape."""
+    import torch
+    from repro_torch.core import FusionContext, fused
+    from repro_torch.configs.als_paper import CONFIG as ALS_PAPER
+    from repro_torch.core.codegen import compile_plan
+    from repro_torch.core.templates import TType
+    from repro_torch.kernels import cuda_src
+    from repro_torch.kernels.blocksparse import BCSR
+    sys.path.insert(0, str(ROOT / "examples"))
+    try:
+        import quickstart_torch as qs
+    finally:
+        sys.path.pop(0)
+    data = qs.operands()
+    binds = {k: torch.from_numpy(v) for k, v in data.items() if k != "X"}
+    binds["X"] = BCSR.from_dense(data["X"], bs=128)
+    with FusionContext(mode="gen", device="cpu"):
+        update = fused(qs.als_expr, sparsity={"X": 0.1}).trace(
+            **binds).plan(mode="gen")
+        loss = fused(qs.sq_loss_expr).trace(binds["U"], binds["V"]).plan()
+        cps = [cp for p in (update, loss, loss.backward())
+               for cp in compile_plan(p.eplan).cplans()]
+    out = [cuda_src.source_for(cp, 128 if cp.ttype == TType.OUTER else None)
+           for cp in cps]
+    shape = (2048, 1536)
+    out += [cuda_src.source_for(cp, ALS_BS) for _l, cp in als_cplans(
+        meta_bcsr(shape), meta_bcsr(shape[::-1]), rank=ALS_PAPER.rank)]
+    return out
+
+
+def examples_phase() -> None:
+    """[examples]: each of EXAMPLES in a process of its own on the card,
+    all started together (each builds its kernels with nvcc at first use;
+    none is timed), each ending in its own asserts; a non-zero exit fails
+    the phase, and every process still running is then killed."""
+    import os
+    import tempfile
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        procs = {}
+        try:
+            for name in EXAMPLES:
+                log_f = open(Path(tmp) / f"{name}.log", "w+")
+                procs[name] = (subprocess.Popen(
+                    [sys.executable, str(ROOT / "examples" / name)],
+                    cwd=str(ROOT), env=env, stdout=log_f,
+                    stderr=subprocess.STDOUT), log_f, time.perf_counter())
+            for name, (p, log_f, t1) in procs.items():
+                code = p.wait(timeout=max(
+                    1.0, EXAMPLE_TIMEOUT_S - (time.perf_counter() - t0)))
+                wall = time.perf_counter() - t1
+                log_f.seek(0)
+                text = log_f.read()
+                if code != 0:
+                    raise AssertionError(f"[examples] {name} exited {code}:"
+                                         f"\n{text[-3000:]}")
+                tail = text.strip().splitlines()[-3:]
+                log(f"[examples] {name}: exit 0, done {wall:.1f} s into "
+                    f"the phase ({card_line()}); " + " | ".join(tail))
+        finally:
+            for p, log_f, _t in procs.values():
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+                log_f.close()
+    log(f"[examples] phase wall {time.perf_counter() - t0:.1f} s")
+
+
+def sharded_only() -> None:
+    """``--lm-sharded``: [lm-sharded] and [examples] alone (no result
+    line)."""
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[env] {ROOT} torch {torch.__version__}; nvidia-smi: "
+        f"{card_line()}")
+    recs = sharded_phase()
+    examples_phase()
+    log(json.dumps({"lm_sharded": recs}, default=str))
+
+
 def lm_times_only() -> None:
     """``--lm-times``: [lm]'s times alone (minitron-4b in bf16, no
     checks, no result line): prefill and decode ms and the host share of
@@ -4422,8 +5201,9 @@ def run() -> None:
             sources[src.key] = src
             sources[planted(src).key] = planted(src)
     # [lm-train]: the fused loss at every vocabulary width, forward and
-    # backward, and its planted builds; the warp layout's ptxas readings
-    for src in loss_sources() + warp_probe_sources():
+    # backward, and its planted builds; the warp layout's ptxas readings;
+    # [examples]: what the examples' processes launch
+    for src in loss_sources() + warp_probe_sources() + example_sources():
         sources[src.key] = src
     t_plan = time.perf_counter() - t0
     build.build_all(sources.values())
@@ -4611,6 +5391,10 @@ def run() -> None:
 
     # 22. [lm-train]: the fused loss, the train step and the CLI ----------
     train_recs = lm_train_phase()
+
+    # 23.-24. [lm-sharded]: the sharded Engine; [examples] ----------------
+    sharded_phase()
+    examples_phase()
 
     # 23. result lines -------------------------------------------------------
     rows = []
@@ -4889,11 +5673,16 @@ def main() -> int:
         # one rank process of the [dist] phase, started by that phase
         dist_rank(int(args[1]), int(args[2]), args[3], args[4], args[5])
         return 0
+    if args[:1] == ["--lm-sharded-rank"] and len(args) == 5:
+        # one rank process of the [lm-sharded] phase, started by that phase
+        sharded_rank(int(args[1]), int(args[2]), args[3], args[4])
+        return 0
     modes = {(): run, ("--times",): times_only,
-             ("--lm-times",): lm_times_only, ("--lm-train",): lm_train_only}
+             ("--lm-times",): lm_times_only, ("--lm-train",): lm_train_only,
+             ("--lm-sharded",): sharded_only}
     if tuple(args) not in modes:
         print("usage: python3 chip_smoke.py [--times | --lm-times | "
-              "--lm-train]", file=sys.stderr)
+              "--lm-train | --lm-sharded]", file=sys.stderr)
         return 2
     try:
         modes[tuple(args)]()

@@ -269,7 +269,7 @@ def lower_segment(sp: SegmentPlan, mesh: Mesh, values=None, *,
             else:
                 env[roots[0]] = out
             if export:
-                outs.append(mesh.all_gather_rows(out)
+                outs.append(mesh.all_gather(out)
                             if epilogue == "none" else out)
         return tuple(outs)
 

@@ -1,9 +1,11 @@
 """Serving step factories: prefill and single-token decode over the port's
 :class:`~repro_torch.models.LM`, which holds its weights.  Both run without
-autograd.  The reference's dry-run helpers (``prefill_specs``,
-``decode_specs``, ``cache_specs_abstract``, built on
+autograd, and unchanged on a model sharded over a mesh (``LM.shard_``, as
+``serve.Engine(mesh=...)`` places it): the layers run on the rank's blocks
+and the logits come back whole.  The reference's dry-run helpers
+(``prefill_specs``, ``decode_specs``, ``cache_specs_abstract``, built on
 ``jax.ShapeDtypeStruct``) wait with the dry-run tools (ROADMAP.md queue A
-item 7)."""
+item 7.4)."""
 
 from __future__ import annotations
 

@@ -13,9 +13,9 @@ CLI gets by donating its buffers to the jitted step (``donate_argnums``):
 the step's state lives once on the card.
 
 The CLI runs on one device.  The reference's parameter placement over a
-host mesh (``sh.param_specs``) waits with the sharded engine, and its
-``train_batch_specs`` (``jax.ShapeDtypeStruct`` stand-ins) with the
-dry-run tools (ROADMAP.md queue A items 7.3 and 7.4).
+host mesh (``sh.param_specs``, with its activation rules) and its
+``train_batch_specs`` (``jax.ShapeDtypeStruct`` stand-ins) wait with the
+dry-run tools (ROADMAP.md queue A item 7.4).
 """
 
 from __future__ import annotations
@@ -59,7 +59,8 @@ def _fused_lse(logits2d: torch.Tensor, mode: str) -> torch.Tensor:
     current context's kernel policy on ``logits2d``'s device, then reuse
     the Compiled operator.  Differentiable: the backward pass runs the
     planned gradient DAG.  The reference's ``layout`` and ``staged``
-    options wait with the sharded engine (ROADMAP.md queue A item 7.3)."""
+    options wait with the training placement (ROADMAP.md queue A item
+    7.4)."""
     ctx = current_context()
     key = (tuple(logits2d.shape), mode, ctx.key(), str(logits2d.device))
     op = _LSE_OPS.get(key)

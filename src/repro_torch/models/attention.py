@@ -6,6 +6,12 @@ reference's ``preferred_element_type=float32`` asks, so bf16 scores are
 not rounded to bf16.  K/V are written into the cache tensors in place
 (the reference returns updated copies): a serving slot's cache is a view
 of the engine's, so nothing is copied back.
+
+Under a mesh (``sh``, :mod:`.sharded`) a rank runs its block of query
+heads and of KV heads where ``wq`` / ``wk`` / ``wv`` are sharded on whole
+heads (all heads, gathered, where a block would split one), maps each
+local query head to its KV head (local or replicated), writes its block
+of the cache's heads, and reduces ``wo``'s partial sums.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from .layers import normal
+from .sharded import row, weights
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
@@ -68,9 +75,42 @@ def _scores(q: torch.Tensor, k: torch.Tensor, spec: str,
     return torch.einsum(spec, q.float(), k.float()) * scale
 
 
+def _qkv(x: torch.Tensor, p, cfg: ModelConfig, positions, sh):
+    """Roped q, k and v (B, S, heads, hd) of the heads this rank runs, and
+    the KV head each of its query heads reads (None: ``repeat_interleave``
+    by H / KV, as without a mesh)."""
+    B, S, _d = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    h0 = g0 = 0
+    if sh is not None:
+        q, h0 = sh.heads(q, "wq", H)
+        k, g0 = sh.heads(k, "wk", KV)
+        v, _ = sh.heads(v, "wv", KV)
+    q = rope(q.reshape(B, S, -1, hd), positions, cfg.rope_theta)
+    k = rope(k.reshape(B, S, -1, hd), positions, cfg.rope_theta)
+    v = v.reshape(B, S, -1, hd)
+    rep = H // KV
+    Hl, KVl = q.shape[2], k.shape[2]
+    kv_of = None
+    if (h0, Hl) != (rep * g0, rep * KVl):
+        kv_of = torch.arange(h0, h0 + Hl, device=x.device) // rep - g0
+    return q, k, v, kv_of
+
+
+def _expand(kv: torch.Tensor, rep: int, kv_of) -> torch.Tensor:
+    """Each query head's K or V (B, S, heads, hd): query head h reads KV
+    head h // rep, as ``jnp.repeat`` pairs them (``Tensor.repeat`` would
+    tile); ``kv_of`` maps a rank's query heads where its KV heads are not
+    their block's."""
+    if kv_of is None:
+        return torch.repeat_interleave(kv, rep, dim=2)
+    return kv.index_select(2, kv_of)
+
+
 def attention(x: torch.Tensor, p, cfg: ModelConfig, *,
               positions: torch.Tensor, window: int = 0,
-              cache: Optional[dict] = None):
+              cache: Optional[dict] = None, sh=None):
     """Full-sequence attention (train / prefill).  Returns (out,
     new_cache): when ``cache`` is given (prefill), K/V are written into
     its first S positions.
@@ -79,16 +119,12 @@ def attention(x: torch.Tensor, p, cfg: ModelConfig, *,
     are computed chunk by chunk with an online softmax (flash-attention
     structure), so the S×S matrix never materialises."""
     B, S, _d = x.shape
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = rope((x @ p["wq"]).reshape(B, S, H, hd), positions, cfg.rope_theta)
-    k = rope((x @ p["wk"]).reshape(B, S, KV, hd), positions, cfg.rope_theta)
-    v = (x @ p["wv"]).reshape(B, S, KV, hd)
-
-    rep = H // KV
-    # repeat_interleave pairs query head h with KV head h // rep, as
-    # jnp.repeat does (Tensor.repeat would tile)
-    kq = torch.repeat_interleave(k, rep, dim=2)
-    vq = torch.repeat_interleave(v, rep, dim=2)
+    hd = cfg.hd
+    p = weights(p, sh)
+    q, k, v, kv_of = _qkv(x, p, cfg, positions, sh)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    kq = _expand(k, rep, kv_of)
+    vq = _expand(v, rep, kv_of)
     C = cfg.attn_chunk
     if C and S > C and S % C == 0:
         out = _chunked_attention(q, kq, vq, positions, window)
@@ -98,7 +134,7 @@ def attention(x: torch.Tensor, p, cfg: ModelConfig, *,
         scores = torch.where(keep, scores, -1e30)
         w = torch.softmax(scores, dim=-1).to(x.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", w, vq)
-    out = out.reshape(B, S, H * hd) @ p["wo"]
+    out = row(out.reshape(B, S, -1), p, "wo", sh)
 
     if cache is not None:
         _write(cache["k"], k, 0)
@@ -147,7 +183,7 @@ def _chunk_of(S: int, target: int = 1024) -> int:
 
 
 def decode_attention(x: torch.Tensor, p, cfg: ModelConfig, *, cache: dict,
-                     pos: int, window: int = 0):
+                     pos: int, window: int = 0, sh=None):
     """Single-token attention against the KV cache.  x: (B, 1, d); pos:
     the current position (an int).  Returns (out (B, 1, d), cache), the
     cache with this token's K/V written at ``pos``.
@@ -155,12 +191,11 @@ def decode_attention(x: torch.Tensor, p, cfg: ModelConfig, *, cache: dict,
     ``cfg.gqa_grouped`` computes scores with the grouped-head einsum: the
     KV cache is read once instead of as an H/KV× repeated copy."""
     B = x.shape[0]
-    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
     S = cache["k"].shape[1]
     posb = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
-    q = rope((x @ p["wq"]).reshape(B, 1, H, hd), posb, cfg.rope_theta)
-    k = rope((x @ p["wk"]).reshape(B, 1, KV, hd), posb, cfg.rope_theta)
-    v = (x @ p["wv"]).reshape(B, 1, KV, hd)
+    p = weights(p, sh)
+    q, k, v, kv_of = _qkv(x, p, cfg, posb, sh)
     _write_decode(cache, k, v, pos)
     ck, cv = cache["k"], cache["v"]
 
@@ -169,22 +204,22 @@ def decode_attention(x: torch.Tensor, p, cfg: ModelConfig, *, cache: dict,
     if window:
         keep &= k_pos > pos - window
 
-    rep = H // KV
-    if cfg.gqa_grouped and rep > 1:
-        qg = q.reshape(B, 1, KV, rep, hd)
+    rep = cfg.n_heads // cfg.n_kv_heads
+    if cfg.gqa_grouped and rep > 1 and kv_of is None:
+        qg = q.reshape(B, 1, ck.shape[2], rep, hd)
         scores = _scores(qg, ck, "bqgrd,bkgd->bgrqk", hd ** -0.5)
         scores = torch.where(keep, scores, -1e30)
         w = torch.softmax(scores, dim=-1).to(x.dtype)
         out = torch.einsum("bgrqk,bkgd->bqgrd", w, cv)
-        return out.reshape(B, 1, H * hd) @ p["wo"], cache
+        return row(out.reshape(B, 1, -1), p, "wo", sh), cache
 
-    kq = torch.repeat_interleave(ck, rep, dim=2)           # (B, S, H, hd)
-    vq = torch.repeat_interleave(cv, rep, dim=2)
+    kq = _expand(ck, rep, kv_of)                           # (B, S, H, hd)
+    vq = _expand(cv, rep, kv_of)
     scores = _scores(q, kq, "bqhd,bkhd->bhqk", hd ** -0.5)
     scores = torch.where(keep, scores, -1e30)
     w = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", w, vq)
-    return out.reshape(B, 1, H * hd) @ p["wo"], cache
+    return row(out.reshape(B, 1, -1), p, "wo", sh), cache
 
 
 def _write_decode(cache: dict, k: torch.Tensor, v: torch.Tensor,

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import fused, fusion_mode, ir
+from .sharded import row, weights
 
 
 def norm(x: torch.Tensor, scale: torch.Tensor, kind: str = "rmsnorm",
@@ -70,16 +71,19 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
-def mlp(x: torch.Tensor, p, kind: str) -> torch.Tensor:
-    """Dense MLP; the activation chain is a Cell-template fusion site."""
+def mlp(x: torch.Tensor, p, kind: str, sh=None) -> torch.Tensor:
+    """Dense MLP; the activation chain is a Cell-template fusion site.
+    Under a mesh (``sh``) ``w1`` / ``w3`` give the rank's block of the ff
+    columns and ``w2``'s partial sums are reduced (:mod:`.sharded`)."""
+    p = weights(p, sh)
     if kind in ("swiglu", "geglu"):
         act = F.silu if kind == "swiglu" else _gelu
-        return (act(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+        return row(act(x @ p["w1"]) * (x @ p["w3"]), p, "w2", sh)
     if kind == "gelu":
-        return _gelu(x @ p["w1"]) @ p["w2"]
+        return row(_gelu(x @ p["w1"]), p, "w2", sh)
     if kind == "relu2":
         h = torch.clamp_min(x @ p["w1"], 0.0)
-        return (h * h) @ p["w2"]
+        return row(h * h, p, "w2", sh)
     raise ValueError(kind)
 
 

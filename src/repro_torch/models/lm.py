@@ -14,6 +14,13 @@ writes its cache or recurrent state in place.  Modality frontends are
 stubs as in the reference: llava takes precomputed patch embeddings
 (``prefix_emb``), musicgen sums its codebooks' embeddings and has a head
 per codebook.
+
+:meth:`LM.shard_` turns a model into one rank's part of a layout on a
+mesh (``serve.Engine(mesh=...)`` calls it): its parameters become the
+rank's blocks, and every layer runs on them (:mod:`.sharded`); the
+embedding looks up the rank's block of the vocabulary (other ids give
+zeros) and reduces, and the logits' vocabulary blocks are gathered, so
+that an ``argmax`` sees every logit.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from . import mamba as mamba_mod
 from . import xlstm as xlstm_mod
 from .layers import apply_norm, mlp, mlp_params, norm_params
 from .moe import moe, moe_params
+from .sharded import Sharded, place, weights
 
 N_PATCHES = 256          # llava vision-stub prefix length
 
@@ -104,6 +112,32 @@ class LM(nn.Module):
             nn.ModuleDict({name: _params(p, dt, dev) for name, p in
                            self._layer_params(spec, None).items()})
             for spec in self.specs)
+        #: the layout this rank's parameters are blocks of (None: whole)
+        self.shard: Optional[Sharded] = None
+
+    @torch.no_grad()
+    def shard_(self, mesh, specs: dict, weights=None) -> "LM":
+        """Make this model one rank's part of the layout ``specs`` (every
+        state-dict key's spec, :func:`repro_torch.dist.sharding.
+        param_specs`) on ``mesh``: each parameter is replaced by the
+        rank's block of it on ``mesh.device`` (``weights(key, index)``
+        gives the block where the model has no values, e.g. one built on
+        the ``meta`` device; see :func:`.sharded.place`).  A model placed
+        by the same specs on the same mesh already stays as it is; any
+        other layout of a sharded model raises.  Returns the module."""
+        specs = {k: tuple(v) for k, v in specs.items()}
+        if self.shard is not None:
+            if self.shard.mesh is mesh and self.shard.specs == specs:
+                return self
+            raise RuntimeError("the model is sharded by another layout "
+                               "already")
+        missing = set(self.state_dict()) ^ set(specs)
+        if missing:
+            raise ValueError(f"specs and parameters differ: {sorted(missing)}")
+        place(self, mesh, specs, weights)
+        self.shard = Sharded(mesh, specs)
+        self.device = torch.device(mesh.device)
+        return self
 
     # ------------------------------------------------------------------ init
     def _layer_params(self, spec: LayerSpec,
@@ -151,38 +185,49 @@ class LM(nn.Module):
 
     # --------------------------------------------------------------- forward
     def _apply_layer(self, spec: LayerSpec, p, x, positions, cache=None,
-                     decode=False, pos=None):
+                     decode=False, pos=None, sh=None):
         """One layer; its cache or state (if any) is written in place.
-        Returns (x, the MoE aux loss: None in decode or without MoE)."""
+        Returns (x, the MoE aux loss: None in decode or without MoE).
+        ``sh``: the layer's :class:`.sharded.Scope` under a mesh."""
         cfg = self.cfg
-        h = apply_norm(x, p["ln1"], cfg)
+        si = sm = None
+        if sh is not None:
+            si, sm = sh.sub("inner"), sh.sub("mlp")
+        h = apply_norm(x, p["ln1"], cfg)      # norm leaves: never sharded
         if spec.kind == "attn":
             if decode:
                 y, _ = attn_mod.decode_attention(
                     h, p["inner"], cfg, cache=cache, pos=pos,
-                    window=spec.window)
+                    window=spec.window, sh=si)
             else:
                 y, _ = attn_mod.attention(
                     h, p["inner"], cfg, positions=positions,
-                    window=spec.window, cache=cache)
+                    window=spec.window, cache=cache, sh=si)
         elif spec.kind == "mamba":
-            y, _ = (mamba_mod.mamba_decode(h, p["inner"], cfg, cache)
+            y, _ = (mamba_mod.mamba_decode(h, p["inner"], cfg, cache, sh=si)
                     if decode else
-                    mamba_mod.mamba(h, p["inner"], cfg, state=cache))
+                    mamba_mod.mamba(h, p["inner"], cfg, state=cache, sh=si))
         else:
-            y, _ = (xlstm_mod.mlstm_decode(h, p["inner"], cfg, cache)
+            y, _ = (xlstm_mod.mlstm_decode(h, p["inner"], cfg, cache, sh=si)
                     if decode else
-                    xlstm_mod.mlstm(h, p["inner"], cfg, state=cache))
+                    xlstm_mod.mlstm(h, p["inner"], cfg, state=cache, sh=si))
         x = x + y
         aux = None
         if cfg.d_ff:
             h2 = apply_norm(x, p["ln2"], cfg)
             if spec.use_moe:
-                y2, aux = moe(h2, p["mlp"], cfg, with_aux=not decode)
+                y2, aux = moe(h2, p["mlp"], cfg, with_aux=not decode, sh=sm)
             else:
-                y2 = mlp(h2, p["mlp"], cfg.mlp_type)
+                y2 = mlp(h2, p["mlp"], cfg.mlp_type, sh=sm)
             x = x + y2
         return x, aux
+
+    def _scopes(self) -> list:
+        """Each layer's :class:`.sharded.Scope` (Nones without a mesh)."""
+        if self.shard is None:
+            return [None] * len(self.specs)
+        return [self.shard.scope(f"layers.{i}.")
+                for i in range(len(self.specs))]
 
     def _layer_caches(self, caches):
         """The cache of each layer in execution order (views of the block
@@ -194,14 +239,39 @@ class LM(nn.Module):
                for g in range(self.n_groups) for i in range(P)]
         return out + list(caches["rest"])
 
+    def _table(self, name: str):
+        """(the ``embed`` / ``head`` parameter, FSDP blocks gathered, and
+        its :class:`.sharded.Scope`; the parameter itself without a
+        mesh)."""
+        t = getattr(self, name)
+        if self.shard is None:
+            return t, None
+        sh = self.shard.scope("")
+        return weights({name: t}, sh)[name], sh
+
     def _embed(self, tokens, prefix_emb=None):
         cfg = self.cfg
         tokens = torch.as_tensor(tokens, device=self.device).long()
+        embed, sh = self._table("embed")
+        if sh is not None and sh.tp_dim("embed") is not None:
+            # the rank's block of the vocabulary; other ids give zeros
+            V = embed.shape[-2]
+            v0 = sh.r * V
+
+            def look(table, ids):
+                ids = ids - v0
+                hit = (ids >= 0) & (ids < V)
+                return torch.where(hit[..., None],
+                                   table[torch.where(hit, ids, 0)], 0.0)
+        else:
+            look = lambda table, ids: table[ids]          # noqa: E731
         if cfg.n_codebooks > 1:     # musicgen: (B, S, nc) summed streams
-            x = sum(self.embed[c][tokens[..., c]]
+            x = sum(look(embed[c], tokens[..., c])
                     for c in range(cfg.n_codebooks))
         else:
-            x = self.embed[tokens]
+            x = look(embed, tokens)
+        if sh is not None and sh.tp_dim("embed") is not None:
+            x = sh.reduce(x)
         if prefix_emb is not None:  # llava: prepend patch embeddings
             prefix = torch.as_tensor(prefix_emb, device=self.device)
             x = torch.cat([prefix.to(x.dtype), x], dim=1)
@@ -209,8 +279,11 @@ class LM(nn.Module):
 
     def _logits(self, x):
         cfg = self.cfg
-        head = self.head if self.head is not None else self.embed.T
-        out = x @ head
+        name = "head" if self.head is not None else "embed"
+        head, sh = self._table(name)
+        out = x @ (head if self.head is not None else head.T)
+        if sh is not None and sh.tp_dim(name) is not None:
+            out = sh.gather(out)    # every rank sees every logit
         if cfg.n_codebooks > 1:
             out = out.reshape(*x.shape[:-1], cfg.n_codebooks, cfg.vocab)
         return out
@@ -227,9 +300,9 @@ class LM(nn.Module):
         B, S = x.shape[:2]
         positions = torch.arange(S, device=self.device).expand(B, S)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        for spec, p, c in zip(self.specs, self.layers,
-                              self._layer_caches(caches)):
-            x, a = self._apply_layer(spec, p, x, positions, cache=c)
+        for spec, p, c, sh in zip(self.specs, self.layers,
+                                  self._layer_caches(caches), self._scopes()):
+            x, a = self._apply_layer(spec, p, x, positions, cache=c, sh=sh)
             if a is not None:
                 aux = aux + a
         x = apply_norm(x, self.final_norm, self.cfg)
@@ -249,30 +322,32 @@ class LM(nn.Module):
         layer's state advanced by the token."""
         pos = int(pos)
         x = self._embed(token)
-        for spec, p, c in zip(self.specs, self.layers,
-                              self._layer_caches(caches)):
+        for spec, p, c, sh in zip(self.specs, self.layers,
+                                  self._layer_caches(caches), self._scopes()):
             x, _ = self._apply_layer(spec, p, x, None, cache=c, decode=True,
-                                     pos=pos)
+                                     pos=pos, sh=sh)
         x = apply_norm(x, self.final_norm, self.cfg)
         return self._logits(x), caches
 
     # ---------------------------------------------------------------- caches
-    def _layer_cache(self, spec: LayerSpec, batch: int, max_len: int):
-        cfg, dt, dev = self.cfg, self.dtype, self.device
+    def _layer_cache(self, spec: LayerSpec, batch: int, max_len: int, dev):
+        cfg, dt = self.cfg, self.dtype
         if spec.kind == "attn":
             return attn_mod.init_cache(cfg, batch, max_len, dt, dev)
         if spec.kind == "mamba":
             return mamba_mod.init_mamba_state(cfg, batch, dt, dev)
         return xlstm_mod.init_xlstm_state(cfg, batch, dev)
 
-    def init_cache(self, batch: int, max_len: int) -> dict:
-        """Zeroed caches of ``batch`` rows: block leaves (G, batch, ...),
-        rest leaves (batch, ...)."""
+    def init_cache(self, batch: int, max_len: int, device=None) -> dict:
+        """Zeroed caches of ``batch`` rows on ``device`` (default: the
+        model's): block leaves (G, batch, ...), rest leaves (batch,
+        ...)."""
         G = self.n_groups
+        dev = self.device if device is None else torch.device(device)
         blocks = [{k: v.expand((G,) + v.shape).clone() for k, v in
-                   self._layer_cache(spec, batch, max_len).items()}
+                   self._layer_cache(spec, batch, max_len, dev).items()}
                   for spec in self.pattern]
-        rest = [self._layer_cache(s, batch, max_len)
+        rest = [self._layer_cache(s, batch, max_len, dev)
                 for s in self.rest_specs]
         return {"blocks": blocks, "rest": rest}
 

@@ -10,6 +10,13 @@ slot's state is a view of the engine's pool) and return it.
 Two quirks of the reference are kept for parity (ROADMAP.md queue C):
 ``dt`` takes only ``dt_bias[-1]``, and the prefill's causal conv starts
 from zeros whatever ``state["conv"]`` holds.
+
+Under a mesh (``sh``, :mod:`.sharded`) a rank runs its block of the di
+channels (where ``A_log`` / ``conv_w`` / ``x_proj`` are sharded over
+``model``): ``in_proj``'s blocks are gathered (a block of ``[u | z]`` is
+not a block of channels), the conv and the scan run on the rank's
+channels and state, and only ``x_proj``'s and ``out_proj``'s partial sums
+are reduced.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from .layers import fixed, normal
+from .sharded import row, weights
 
 
 def mamba_params(gen: Optional[torch.Generator], cfg: ModelConfig) -> dict:
@@ -52,10 +60,10 @@ def _write_state(state: dict, new: dict) -> None:
         state[k].copy_(v)
 
 
-def _ssm_inputs(u: torch.Tensor, p, N: int):
+def _ssm_inputs(u: torch.Tensor, p, N: int, sh=None):
     """B, C (fp32) and the step size dt (fp32, from ``dt_bias[-1]`` only,
     as the reference) of the conv output u (..., di)."""
-    xdbc = u @ p["x_proj"]                                # (..., 2N+1)
+    xdbc = row(u, p, "x_proj", sh)                        # (..., 2N+1)
     B_ = xdbc[..., :N].float()
     C_ = xdbc[..., N:2 * N].float()
     dt = F.softplus(xdbc[..., 2 * N:] + p["dt_bias"][-1]).float()
@@ -92,54 +100,68 @@ def _selective_scan(u, dt, B_, C_, A, h0):
     return y, h
 
 
+def _channels(x: torch.Tensor, p, cfg: ModelConfig, sh):
+    """u, z (..., channels) of ``x @ in_proj`` and the channel-wide
+    vectors (``conv_b``, ``D``) of the channels this rank runs (all
+    without a mesh)."""
+    p = weights(p, sh)
+    xz = x @ p["in_proj"]
+    if sh is None:
+        u, z = torch.chunk(xz, 2, dim=-1)
+        return p, u, z, p["conv_b"], p["D"]
+    u, z = torch.chunk(sh.full(xz, "in_proj"), 2, dim=-1)
+    c0, n = sh.channels(u.shape[-1], "A_log")
+    cut = lambda t: t[..., c0:c0 + n]                     # noqa: E731
+    return p, cut(u), cut(z), cut(p["conv_b"]), cut(p["D"])
+
+
 def mamba(x: torch.Tensor, p, cfg: ModelConfig, *,
-          state: Optional[dict] = None):
+          state: Optional[dict] = None, sh=None):
     """Full-sequence Mamba.  x: (B, L, d).  Returns (out, state): with a
     state, the scan starts from ``state["h"]`` and the final state is
     written into it."""
     B, L, d = x.shape
-    di = cfg.ssm_expand * d
     N, K = cfg.ssm_state, cfg.ssm_conv
-    xz = x @ p["in_proj"]
-    u, z = torch.chunk(xz, 2, dim=-1)                     # (B, L, di)
+    p, u, z, conv_b, D = _channels(x, p, cfg, sh)         # (B, L, di)
+    di = u.shape[-1]
     # causal depthwise conv, from zeros
     pad = torch.zeros((B, K - 1, di), dtype=u.dtype, device=u.device)
     uc = torch.cat([pad, u], dim=1)
-    u = sum(uc[:, i:i + L] * p["conv_w"][i] for i in range(K)) + p["conv_b"]
+    u = sum(uc[:, i:i + L] * p["conv_w"][i] for i in range(K)) + conv_b
     u = F.silu(u)
-    B_, C_, dt = _ssm_inputs(u, p, N)
+    B_, C_, dt = _ssm_inputs(u, p, N, sh)
     dt = dt.expand(B, L, di)
     A = -torch.exp(p["A_log"].float())
     h0 = (state["h"] if state is not None else
           torch.zeros((B, di, N), dtype=torch.float32, device=x.device))
     y, hL = _selective_scan(u.float(), dt, B_, C_, A, h0)
-    y = y.to(x.dtype) + u * p["D"]
-    out = (y * F.silu(z)) @ p["out_proj"]
+    y = y.to(x.dtype) + u * D
+    out = row(y * F.silu(z), p, "out_proj", sh)
     if state is not None:
         # conv state: the last K-1 raw inputs (uc = [pad(K-1), u_raw(L)])
         _write_state(state, {"h": hL, "conv": uc[:, L:]})
     return out, state
 
 
-def mamba_decode(x: torch.Tensor, p, cfg: ModelConfig, state: dict):
+def mamba_decode(x: torch.Tensor, p, cfg: ModelConfig, state: dict,
+                 sh=None):
     """One-token Mamba step.  x: (B, 1, d); state: {h (B, di, N) fp32,
     conv (B, K-1, di)}, updated in place.  Returns (out (B, 1, d),
     state)."""
-    B, _, d = x.shape
-    di = cfg.ssm_expand * d
+    B = x.shape[0]
     N, K = cfg.ssm_state, cfg.ssm_conv
-    xz = x[:, 0] @ p["in_proj"]
-    u, z = torch.chunk(xz, 2, dim=-1)                     # (B, di)
+    p, u, z, conv_b, D = _channels(x[:, 0], p, cfg, sh)   # (B, di)
+    di = u.shape[-1]
     conv_buf = torch.cat([state["conv"], u[:, None]], dim=1)
-    u = sum(conv_buf[:, i] * p["conv_w"][i] for i in range(K)) + p["conv_b"]
+    u = sum(conv_buf[:, i] * p["conv_w"][i] for i in range(K)) + conv_b
     u = F.silu(u)
-    B_, C_, dt = _ssm_inputs(u, p, N)
+    B_, C_, dt = _ssm_inputs(u, p, N, sh)
     dt = dt.expand(B, di)
     A = -torch.exp(p["A_log"].float())
     h = state["h"] * torch.exp(dt[..., None] * A) \
         + dt[..., None] * B_[:, None, :] * u.float()[..., None]
-    y = torch.einsum("bdn,bn->bd", h, C_).to(x.dtype) + u * p["D"]
-    out = (y * F.silu(z)) @ p["out_proj"]
+    y = torch.einsum("bdn,bn->bd", h, C_).to(x.dtype) + u * D
+    out = row(y * F.silu(z), p, "out_proj", sh)
     _write_state(state, {"h": h, "conv": conv_buf[:, 1:]})
     return out[:, None], state
 

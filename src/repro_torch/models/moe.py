@@ -9,12 +9,21 @@ summation order):
   group (the reference's ``lax.ragged_dot``), dropless.
 * ``capacity`` — GShard-style dispatch into an (E, C, d) buffer; (token,
   slot) pairs past an expert's capacity C drop to the residual path.
-* ``a2a`` — the expert-parallel dispatch; without a mesh (the only case
-  until the sharded engine is ported, ROADMAP.md queue A item 7) it is the
-  local capacity dispatch, as in the reference.
+* ``a2a`` — the reference's expert-parallel all-to-all dispatch; the port
+  runs it as the capacity dispatch, as the reference does without a mesh
+  (its all-to-all waits with the dry-run's ``--optimized`` arm, ROADMAP.md
+  queue A item 7.4).
+
+Under a mesh (``sh``, :mod:`.sharded`) every form computes the rank's
+experts only where the experts are sharded over ``model`` (expert
+parallelism), or each expert's block of ff columns (ff-TP), and reduces
+the partial sums over the model group.  The router is replicated, so
+every rank routes every token alike.
 
 Every combine is deterministic: a token's k contributions are summed in
-slot order (no ``index_add_``, whose CUDA form sums with float atomics).
+slot order (no ``index_add_``, whose CUDA form sums with float atomics);
+under a mesh a rank sums its own experts' contributions in slot order
+(the others' are zero) before the reduction.
 Sorting by expert is stable, as ``jnp.argsort`` is, so the tokens that
 ``capacity`` drops are the reference's.
 """
@@ -28,6 +37,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from .layers import _gelu, normal
+from .sharded import weights
 
 
 def moe_params(gen: Optional[torch.Generator], cfg: ModelConfig) -> dict:
@@ -76,6 +86,19 @@ def _experts(h_in: torch.Tensor, p, cfg: ModelConfig) -> torch.Tensor:
     return h @ p["w2"]
 
 
+def _experts_of(cfg: ModelConfig, sh):
+    """(first expert, count, partial): the experts this rank holds, and
+    whether its outputs are partial sums to reduce over the model group
+    (expert- or ff-parallel weights)."""
+    E = cfg.n_experts
+    if sh is None:
+        return 0, E, False
+    d = sh.tp_dim("w1")
+    if d == 0:                       # expert parallel: a block of experts
+        return sh.r * (E // sh.tp), E // sh.tp, True
+    return 0, E, d == 2              # ff-TP: every expert's ff block
+
+
 def _slot_sum(y: torch.Tensor) -> torch.Tensor:
     """(T, k, d) -> (T, d): each token's k contributions summed in slot
     order."""
@@ -86,16 +109,19 @@ def _slot_sum(y: torch.Tensor) -> torch.Tensor:
 
 
 def moe_dense(x: torch.Tensor, p, cfg: ModelConfig, *,
-              with_aux: bool = True):
+              with_aux: bool = True, sh=None):
     """x: (T, d) -> (T, d).  All experts compute, gates combine."""
     gates, _, _, aux = _gates(x, p["router"], cfg.top_k, with_aux)
     y = _experts(x[None], p, cfg)                            # (E, T, d)
-    out = torch.einsum("etd,te->td", y, gates)
-    return out.to(x.dtype), aux
+    e0, El, partial = _experts_of(cfg, sh)
+    if El != cfg.n_experts:
+        gates = gates[:, e0:e0 + El]
+    out = torch.einsum("etd,te->td", y, gates).to(x.dtype)
+    return (sh.reduce(out) if partial else out), aux
 
 
 def moe_ragged(x: torch.Tensor, p, cfg: ModelConfig, *,
-               with_aux: bool = True):
+               with_aux: bool = True, sh=None):
     """Dropless sort-based routing: one matmul per expert group."""
     T, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
@@ -106,17 +132,20 @@ def moe_ragged(x: torch.Tensor, p, cfg: ModelConfig, *,
     inv = torch.argsort(order)
     xs = torch.repeat_interleave(x, k, dim=0)[order]         # sorted
     sizes = torch.bincount(flat_e, minlength=e).tolist()
-    y = torch.empty_like(xs)
+    e0, El, partial = _experts_of(cfg, sh)
+    # another rank's experts contribute zero here
+    y = torch.empty_like(xs) if El == e else torch.zeros_like(xs)
     start = 0
     for j, n in enumerate(sizes):
-        if n:
+        if n and e0 <= j < e0 + El:
             rows = xs[start:start + n]
             y[start:start + n] = _experts(
-                rows[None], {w: p[w][j:j + 1] for w in ("w1", "w2", "w3")
-                             if w in p}, cfg)[0]
+                rows[None], {w: p[w][j - e0:j - e0 + 1]
+                             for w in ("w1", "w2", "w3") if w in p}, cfg)[0]
         start += n
     y = y[inv] * flat_w[:, None]
-    return _slot_sum(y.reshape(T, k, d)).to(x.dtype), aux
+    out = _slot_sum(y.reshape(T, k, d)).to(x.dtype)
+    return (sh.reduce(out) if partial else out), aux
 
 
 def _dispatch(topi: torch.Tensor, e: int, capacity_factor: float):
@@ -138,7 +167,8 @@ def _dispatch(topi: torch.Tensor, e: int, capacity_factor: float):
 
 
 def moe_capacity(x: torch.Tensor, p, cfg: ModelConfig,
-                 capacity_factor: float = 1.25, *, with_aux: bool = True):
+                 capacity_factor: float = 1.25, *, with_aux: bool = True,
+                 sh=None):
     """GShard-style capacity dispatch: (token, slot) pairs sorted by
     expert fill a (E, C, d) buffer, each expert runs its rows, results
     gather back; pairs past capacity contribute 0 (the residual path).
@@ -151,14 +181,20 @@ def moe_capacity(x: torch.Tensor, p, cfg: ModelConfig,
     tok_of = torch.arange(T, device=x.device).repeat_interleave(k)
     buf = torch.zeros((e * C, d), dtype=x.dtype, device=x.device)
     buf[slot[keep]] = x[tok_of[order][keep]]
-    y = _experts(buf.reshape(e, C, d), p, cfg).reshape(e * C, d)
+    e0, El, partial = _experts_of(cfg, sh)
+    if El != e:                      # this rank's experts' rows only
+        ranked_e = topi.reshape(-1)[order]
+        keep = keep & (ranked_e >= e0) & (ranked_e < e0 + El)
+        buf, slot = buf[e0 * C:(e0 + El) * C], slot - e0 * C
+    y = _experts(buf.reshape(El, C, d), p, cfg).reshape(El * C, d)
     ranked_w = topv.reshape(-1).to(x.dtype)[order]
     contrib = torch.where(keep[:, None],
-                          y[torch.clamp_max(slot, e * C - 1)]
+                          y[torch.clamp(slot, 0, El * C - 1)]
                           * ranked_w[:, None], 0.0)
     # back to (token, slot) order, then each token's slots in order
     contrib = contrib[torch.argsort(order)]
-    return _slot_sum(contrib.reshape(T, k, d)).to(x.dtype), aux
+    out = _slot_sum(contrib.reshape(T, k, d)).to(x.dtype)
+    return (sh.reduce(out) if partial else out), aux
 
 
 def capacity_dropped(x: torch.Tensor, p, cfg: ModelConfig,
@@ -171,18 +207,23 @@ def capacity_dropped(x: torch.Tensor, p, cfg: ModelConfig,
 
 
 def moe_a2a(x: torch.Tensor, p, cfg: ModelConfig,
-            capacity_factor: float = 1.25, *, with_aux: bool = True):
+            capacity_factor: float = 1.25, *, with_aux: bool = True,
+            sh=None):
     """Expert-parallel dispatch.  Without a mesh the reference falls back
-    to the local capacity dispatch; the port has no mesh for it yet (the
-    sharded engine, ROADMAP.md queue A item 7), so it always does."""
-    return moe_capacity(x, p, cfg, capacity_factor, with_aux=with_aux)
+    to the local capacity dispatch; the port always runs it (under a mesh
+    on the rank's experts, reduced), its all-to-all waiting with the
+    dry-run tools (ROADMAP.md queue A item 7.4)."""
+    return moe_capacity(x, p, cfg, capacity_factor, with_aux=with_aux,
+                        sh=sh)
 
 
-def moe(x: torch.Tensor, p, cfg: ModelConfig, *, with_aux: bool = True):
+def moe(x: torch.Tensor, p, cfg: ModelConfig, *, with_aux: bool = True,
+        sh=None):
     """x: (B, S, d) -> (B, S, d), plus the load-balance aux scalar (None
     unless ``with_aux``: decode needs none)."""
     B, S, d = x.shape
     fn = {"ragged": moe_ragged, "capacity": moe_capacity,
           "dense": moe_dense, "a2a": moe_a2a}[cfg.moe_impl]
-    out, aux = fn(x.reshape(B * S, d), p, cfg, with_aux=with_aux)
+    out, aux = fn(x.reshape(B * S, d), weights(p, sh), cfg,
+                  with_aux=with_aux, sh=sh)
     return out.reshape(B, S, d), aux

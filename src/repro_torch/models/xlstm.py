@@ -10,6 +10,12 @@ state is a view of the engine's pool).
 
 ``F.softplus`` returns its input above 20 where JAX's is exact: log σ(f)
 differs from the reference's by at most about 2e-9 there.
+
+Under a mesh (``sh``, :mod:`.sharded`) a rank runs its block of heads
+where ``wq`` / ``wk`` / ``wv`` are sharded on whole heads: ``up``'s
+blocks are gathered (q, k and v read every channel of u), the replicated
+``wif`` gives every head's gates, of which the rank takes its own, the
+cell runs on its heads' state, and ``down``'s partial sums are reduced.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from .layers import normal
 from .mamba import _recorded, _write_state
+from .sharded import row, weights
 
 
 def xlstm_params(gen: Optional[torch.Generator], cfg: ModelConfig) -> dict:
@@ -65,20 +72,32 @@ def _cell_step(state, inputs):
 
 
 def mlstm(x: torch.Tensor, p, cfg: ModelConfig, *,
-          state: Optional[dict] = None):
+          state: Optional[dict] = None, sh=None):
     """x: (B, L, d) -> (B, L, d).  Returns (out, state): with a state,
     the loop starts from it and the final state is written into it."""
     B, L, d = x.shape
     di = cfg.ssm_expand * d
     H = cfg.n_heads
     hd = di // H
+    p = weights(p, sh)
     xz = x @ p["up"]
+    if sh is not None:
+        xz = sh.full(xz, "up")
     u, z = torch.chunk(xz, 2, dim=-1)                     # (B, L, di)
-    q = ((u @ p["wq"]).reshape(B, L, H, hd) * hd ** -0.5).float()
-    k = ((u @ p["wk"]).reshape(B, L, H, hd) * hd ** -0.5).float()
-    v = (u @ p["wv"]).reshape(B, L, H, hd).float()
+    q, k, v = u @ p["wq"], u @ p["wk"], u @ p["wv"]
+    if sh is not None:
+        q, h0 = sh.heads(q, "wq", H)
+        k, _ = sh.heads(k, "wk", H)
+        v, _ = sh.heads(v, "wv", H)
+    q = (q.reshape(B, L, -1, hd) * hd ** -0.5).float()
+    k = (k.reshape(B, L, -1, hd) * hd ** -0.5).float()
+    v = v.reshape(B, L, -1, hd).float()
     gif = (u @ p["wif"]).float()                          # (B, L, 2H)
     ipre, logf = gif[..., :H], -F.softplus(-gif[..., H:])  # log σ(f)
+    H = q.shape[2]                                        # this rank's
+    if sh is not None and H != cfg.n_heads:
+        ipre, logf = ipre[..., h0:h0 + H], logf[..., h0:h0 + H]
+        z = z[..., h0 * hd:(h0 + H) * hd]
 
     if state is None:
         st = (torch.zeros((B, H, hd, hd), dtype=torch.float32,
@@ -92,15 +111,16 @@ def mlstm(x: torch.Tensor, p, cfg: ModelConfig, *,
         st, h = _cell_step(st, (q[:, t], k[:, t], v[:, t], ipre[:, t],
                                 logf[:, t]))
         hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, L, di).to(x.dtype)
-    out = (h * F.silu(z)) @ p["down"]
+    h = torch.stack(hs, dim=1).reshape(B, L, H * hd).to(x.dtype)
+    out = row(h * F.silu(z), p, "down", sh)
     if state is not None:
         _write_state(state, dict(zip(("C", "n", "m"), st)))
     return out, state
 
 
-def mlstm_decode(x: torch.Tensor, p, cfg: ModelConfig, state: dict):
-    return mlstm(x, p, cfg, state=state)
+def mlstm_decode(x: torch.Tensor, p, cfg: ModelConfig, state: dict,
+                 sh=None):
+    return mlstm(x, p, cfg, state=state, sh=sh)
 
 
 def init_xlstm_state(cfg: ModelConfig, batch: int, device="cpu") -> dict:

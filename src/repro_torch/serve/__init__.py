@@ -1,9 +1,9 @@
 """Serving on the card: :class:`FusionServer` (async continuous batching
 over compiled plans, one request-axis kernel launch per fused operator and
 batch), its metrics, the LM :class:`Engine` (continuous batching of
-prefill and KV-cache decode over the port's LM; its sharded form waits
-with the layout planner, ROADMAP.md queue A item 7), and the shared error
-taxonomy."""
+prefill and KV-cache decode over the port's LM, on one device or sharded
+over the ranks of a :class:`~repro_torch.dist.Mesh` by the layout rules or
+the layout planner), and the shared error taxonomy."""
 
 from .engine import Engine, Request
 from .errors import (AdmissionError, DeadlineExceededError,

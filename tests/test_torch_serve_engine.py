@@ -279,10 +279,15 @@ def test_reference_slot_axis_fault_is_pinned_and_the_port_serves():
     assert got == want and len(got[0]) == 4
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()}, {"layout": "auto"}])
-def test_sharded_serving_is_not_ported_yet(starcoder, kw):
+@pytest.mark.parametrize("kw,err", [({"mesh": object()}, TypeError),
+                                    ({"layout": "auto"}, ValueError),
+                                    ({"layout": "best"}, ValueError)])
+def test_sharded_serving_is_not_ported_yet(starcoder, kw, err):
+    """Sharded serving is ported (tests/test_torch_sharded_engine.py);
+    what is not a mesh, a layout without one and an unknown layout are
+    refused before anything is placed."""
     _cfg, _params, model = starcoder
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    with pytest.raises(err, match="mesh|layout"):
         Engine(model, **kw)
 
 
