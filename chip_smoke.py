@@ -17,6 +17,8 @@ toolkit:
     python3 chip_smoke.py --lm-train   # only [lm-train] (no result line)
     python3 chip_smoke.py --lm-sharded   # only [lm-sharded] and
                                          # [examples] (no result line)
+    python3 chip_smoke.py --lm-train-sharded   # only [lm-train-sharded]
+                                               # (no result line)
 
 Phases, each reported on its own lines with its wall time:
 
@@ -137,13 +139,14 @@ Phases, each reported on its own lines with its wall time:
    the call's CUDA-event ms), and the collectives' wall time;
 18.-21. ``[lm]``, ``[lm-moe]``, ``[lm-hybrid]``, ``[lm-xlstm]``: the LM
    serving path, one phase a model of ``LM_ARCHS``: minitron-4b at full
-   width and depth (32 attention layers, d_model 3,072, vocab 256,000;
-   4,190,306,304 parameters), olmoe-1b-7b at full width and depth (16
-   layers, 64 experts top-8, dense MoE: 6,919,096,320 parameters),
+   width for 8 of its 32 attention layers (d_model 3,072, vocab 256,000;
+   the whole model is 4,190,306,304 parameters), olmoe-1b-7b at full
+   width for 4 of its 16 layers (64 experts top-8, dense MoE; the whole
+   model is 6,919,096,320 parameters),
    jamba-v0.1-52b at full width for one period of 8 of its 32 layers (7
    Mamba + 1 attention, MoE 16 experts top-2 on the odd layers:
    13,265,932,288 parameters; the whole model is 103 GB in bf16) and
-   xlstm-1.3b at full width for 12 of its 48 mLSTM layers (4 heads of
+   xlstm-1.3b at full width for 4 of its 48 mLSTM layers (4 heads of
    1,024; the whole model is 3,831,597,056 parameters), each
    drawn on the card from a seeded
    ``torch.Generator`` in bf16 and, after the bf16 model is freed, in
@@ -219,13 +222,14 @@ Phases, each reported on its own lines with its wall time:
 23. ``[lm-sharded]``: sharded LM serving, ``serve.Engine(mesh=
    Mesh({"data": 2, "model": 2}))`` in 4 rank processes of this script
    (``--lm-sharded-rank``) on the one card over gloo, fp32, three runs
-   (SHARDED_RUNS): minitron-4b at full width and depth and olmoe-1b-7b at
-   full width and depth (64 experts, expert-parallel over ``model``),
+   (SHARDED_RUNS): minitron-4b at full width for 8 of its 32 layers
+   and olmoe-1b-7b at full width for 4 of its 16 layers (64 experts,
+   expert-parallel over ``model``),
    each with ``layout="fixed"``, and xlstm-1.3b at full width for 2 of
    its 48 layers with ``layout="auto"`` and the planner's
    ``serve_params`` forced off (every FSDP-sharded leaf gathered over
    ``data`` before each use, a data block running a forward for each
-   slot its peer serves); the weights drawn on the host tile by tile
+   slot its peer serves); the weights drawn on the card tile by tile
    from seeded generators, each rank building the model on the meta
    device and drawing only the tiles of its blocks; first a one-rank
    ``Engine`` on the card with the same weights (drawn whole) serves the
@@ -249,13 +253,36 @@ Phases, each reported on its own lines with its wall time:
    output) that must fail the logits check, the planner's own layout for
    the cell, and prefill (2,048 tokens) and decode ms, collectives a
    token and a step and their wall ms, Engine.step() walls and the host
-   share of a profiled step, with the card's name and power limit;
-24. ``[examples]``: ``examples/quickstart_torch.py``,
+   share of a profiled step, with the card's name and power limit; the
+   collectives of a decode token equal to what the dry-run
+   (``launch.dryrun_lib`` on ``meta`` under a ``RecordingMesh``)
+   records for that step;
+24. ``[lm-train-sharded]``: sharded training,
+   ``launch.train.make_train_step(mesh=Mesh({"data": 2, "model": 2}))``
+   in 4 rank processes of this script (``--lm-train-sharded-rank``) on
+   the one card over gloo, each global batch 4 x 128 tokens: (a)
+   minitron-4b at full width, 2 layers, fp32, fusion "gen", 3 steps
+   against the one-rank step on the card from the same weights and
+   batches (loss and grad-norm traces within 1e-5 relative; every rank's
+   updated blocks within 1e-5 of max |p| of the one-rank run's wherever
+   its first moment is at least 1e-3 of its largest; 2 Row launches a
+   step on each rank; rank 1 leaving its part out of one FSDP
+   reduce-scatter must fail); (b) olmoe-1b-7b at full width, 2 layers,
+   ``moe_impl="a2a"`` (32 experts a rank, one all-to-all each way a
+   layer), fp32, 2 steps against one rank dispatching each data block
+   at its own capacity; (c) minitron-4b at full width and depth, bf16
+   weights, fp32 AdamW moments, 2 steps (the second profiled): finite
+   losses, each rank's stored bytes and collectives a step equal to the
+   dry-run's for the same cell (run on the CPU meanwhile), peak memory
+   beside the dry-run's arguments + temporaries, step ms, collectives
+   ms, host share; the fused loss's Row kernel held to its plain version
+   at a rank's 256 x 256,000;
+25. ``[examples]``: ``examples/quickstart_torch.py``,
    ``als_recommender_torch.py`` and ``serve_lm_torch.py`` on the card at
    their default sizes, each in a process of its own ending in its own
    asserts (``train_lm_torch.py``'s configuration is [lm-train]'s CLI
    run);
-25. one JSON line with every kernel (launches and times summed over the
+26. one JSON line with every kernel (launches and times summed over the
    single-device paths; the request-axis forms with their serving
    launches and their times at 8 x 1,048,576 x 100; a ``dist`` record per
    kernel with the [dist] ranks' own launches, its worst panel check and
@@ -264,8 +291,10 @@ Phases, each reported on its own lines with its wall time:
    its calls at 2,048 and 4,096 columns with each phase's prefill and
    decode times; ``row_loss`` / ``row_loss_vjp``, the fused loss's forward
    and backward at 256,000 columns in the staged layout, launches from
-   [lm-train]'s full-size run, a part at every width), the card line, and
-   the final ``{"ok": true, ...}`` line.
+   [lm-train]'s full-size run, a part at every width;
+   ``row_loss_sharded`` / ``row_loss_vjp_sharded``, the same at a rank's
+   256 x 256,000 of [lm-train-sharded], launches from its full-depth
+   run), the card line, and the final ``{"ok": true, ...}`` line.
 
 Any failed check raises; the script then prints the traceback and exits 1
 without a result line.  It imports nothing of JAX or of ``repro``.
@@ -3296,22 +3325,28 @@ class LMArch(NamedTuple):
 LM_ARCHS = (
     # prompts of 2,048 tokens (chunked attention: over attn_chunk 1,024 and
     # a multiple of it), 777 and 512 (dense scores), 33 and 1
-    LMArch("lm", LM_ARCH, 0, (2048, 777, 512, 33, 1, 777), 32, 2304,
+    LMArch("lm", LM_ARCH, 8, (2048, 777, 512, 33, 1, 777), 32, 2304,
            LM_SEQ, ("kv",), "float32", (2048, 512), (3, 3),
-           "full width and depth", counted=True, attn_checks=True),
-    LMArch("lm-moe", "olmoe-1b-7b", 0, (2048, 777, 512, 33, 777), 32, 2304,
+           "full width, 8 of its 32 layers (cut to pay for "
+           "[lm-train-sharded]; [lm-sharded] serves it and [lm-train] and "
+           "[lm-train-sharded] train it at full depth)", counted=True,
+           attn_checks=True),
+    LMArch("lm-moe", "olmoe-1b-7b", 4, (2048, 777, 512, 33, 777), 32, 2304,
            2048, ("gate",), "float32", (2048, 512), (3, 3),
-           "full width and depth", counted=True),
+           "full width, 4 of its 16 layers (cut as [lm]'s; "
+           "[lm-sharded] serves it at full depth)",
+           counted=True),
     LMArch("lm-hybrid", "jamba-v0.1-52b", 8, (2048, 777, 512, 33, 777), 32,
            2304, 2048, ("state", "gate"), "float32", (2048, 512), (3, 3),
            "full width, one period of 8 of its 32 layers: all 32 are "
            "51.5e9 parameters, 103 GB in bf16, more than one card holds "
            "(the sharded engine would spread them over four cards)"),
-    LMArch("lm-xlstm", "xlstm-1.3b", 12, (512, 129, 33, 1, 129), 16, 640,
+    LMArch("lm-xlstm", "xlstm-1.3b", 4, (512, 129, 33, 1, 129), 16, 640,
            136, ("state",), "float64", (512, 129), (1, 2),
-           "full width, 12 of its 48 layers (cut so that the script's "
-           "wall stays near 720 s with [lm-sharded] and [examples]; "
-           "every layer is the same mLSTM block); prompts of 512 / 129 / "
+           "full width, 4 of its 48 layers (cut so that the script's "
+           "wall stays near 775 s with [lm-sharded], [lm-train-sharded] "
+           "and [examples]; every layer is the same mLSTM block); "
+           "prompts of 512 / 129 / "
            "33 / 1 tokens (16 new each) and a 136-token decode check, "
            "shorter than [lm]'s: the mLSTM recurrence is a loop of ~20 "
            "eager ops a step per layer; the decode check is held to its "
@@ -3330,13 +3365,14 @@ def lm_norm_widths() -> list:
     return sorted({get_config(m.arch).d_model for m in LM_ARCHS})
 
 
-def lm_arch_model(run: LMArch, dtype: str):
-    """The run's model on the card in ``dtype``, drawn from a generator
-    seeded with LM_SEED (the same draws in either dtype, cast)."""
+def lm_arch_model(run: LMArch, dtype: str, **change):
+    """The run's model on the card in ``dtype`` (and the configuration's
+    ``change``), drawn from a generator seeded with LM_SEED (the same
+    draws in either dtype, cast)."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.models import LM
-    cfg = dataclasses.replace(get_config(run.arch), dtype=dtype)
+    cfg = dataclasses.replace(get_config(run.arch), dtype=dtype, **change)
     if run.n_layers:
         cfg = dataclasses.replace(cfg, n_layers=run.n_layers)
     gen = torch.Generator(device="cuda").manual_seed(LM_SEED)
@@ -3413,8 +3449,8 @@ def planted_gate_zero():
     from repro_torch.models import moe
     orig = moe._gates
 
-    def gates(x, router, k, with_aux=True):
-        g, topv, topi, aux = orig(x, router, k, with_aux)
+    def gates(x, router, k, with_aux=True, sh=None):
+        g, topv, topi, aux = orig(x, router, k, with_aux, sh)
         g = g.scatter(1, topi[:, :1], 0.0)
         topv = topv.clone()
         topv[:, 0] = 0.0
@@ -3446,9 +3482,9 @@ class Routing:
         self.pins, self.taken, self.calls = pins, [], 0
         self.offset, self.margins = 0, []
 
-    def __call__(self, x, router, k, with_aux=True):
+    def __call__(self, x, router, k, with_aux=True, sh=None):
         import torch
-        g, topv, topi, aux = self.orig(x, router, k, with_aux)
+        g, topv, topi, aux = self.orig(x, router, k, with_aux, sh)
         if self.pins is None:
             probs = torch.softmax((x @ router).float(), dim=-1)
             top = torch.topk(probs, k + 1, dim=-1).values
@@ -4426,43 +4462,41 @@ def sharded_teachers(cfg, run: ShardedRun, prompts) -> list:
         p for p in prompts if C and len(p) > C and len(p) % C == 0]
 
 
-def sharded_block(cfg, key: str, shape, index, threads: int):
+def sharded_block(cfg, key: str, shape, index):
     """Block ``index`` (a slice a dim) of parameter ``key`` of the
-    [lm-sharded] weights, on the host in fp32.  The whole leaf is N(0, 1)
-    times its scale (embedding and head d^-1/2, a projection fan-in^-1/2;
-    rmsnorm scales 0), drawn tile by tile: each dim cut into
-    gcd(dim, SHARDED_TILES) tiles, each tile from a generator seeded by
-    (SHARDED_SEED, key, tile), so a rank draws only the tiles of its block
-    and the one-rank reference, drawing them all, gets the same values."""
-    import concurrent.futures
+    [lm-sharded] weights, drawn on the card in fp32.  The whole leaf is
+    N(0, 1) times its scale (embedding and head d^-1/2, a projection
+    fan-in^-1/2; rmsnorm scales 0), drawn tile by tile: each dim cut into
+    gcd(dim, SHARDED_TILES) tiles, each tile from a CUDA generator seeded
+    by (SHARDED_SEED, key, tile), so a rank draws only the tiles of its
+    block and the one-rank reference, drawing them all, gets the same
+    values."""
     import itertools
     import zlib
     import torch
     name = key.rsplit(".", 1)[-1]
-    out = torch.empty(tuple(s.stop - s.start for s in index))
+    out = torch.empty(tuple(s.stop - s.start for s in index), device="cuda")
     if name == "scale" and cfg.norm_type == "rmsnorm":
         return out.zero_()
     if len(shape) < 2:
         raise ValueError(f"{key}: no draw rule for a {len(shape)}-d leaf")
     scale = (cfg.d_model if name in ("embed", "head") else shape[-2]) ** -0.5
     parts = [math.gcd(n, SHARDED_TILES) for n in shape]
-
-    def tile(t):
+    gen = torch.Generator(device="cuda")
+    for t in itertools.product(*(range(p) for p in parts)):
         lo = [ti * n // p for ti, n, p in zip(t, shape, parts)]
         hi = [(ti + 1) * n // p for ti, n, p in zip(t, shape, parts)]
         a = [max(l, s.start) for l, s in zip(lo, index)]
         b = [min(h, s.stop) for h, s in zip(hi, index)]
         if any(x >= y for x, y in zip(a, b)):
-            return
-        gen = torch.Generator().manual_seed(
-            zlib.crc32(f"{SHARDED_SEED}/{key}/{t}".encode()))
+            continue
+        gen.manual_seed(zlib.crc32(f"{SHARDED_SEED}/{key}/{t}".encode()))
         vals = torch.randn(tuple(h - l for l, h in zip(lo, hi)),
-                           generator=gen)
+                           generator=gen, device="cuda")
         out[tuple(slice(x - s.start, y - s.start)
                   for x, y, s in zip(a, b, index))] = vals[tuple(
                       slice(x - l, y - l) for x, y, l in zip(a, b, lo))]
-    with concurrent.futures.ThreadPoolExecutor(threads) as ex:
-        list(ex.map(tile, itertools.product(*(range(p) for p in parts))))
+        del vals
     return out.mul_(scale)
 
 
@@ -4532,8 +4566,8 @@ def sharded_margins(model, prompts, tokens) -> list:
 
 
 def sharded_reference(run: ShardedRun, tmp: Path) -> dict:
-    """The one-rank Engine on the card with the same weights (drawn whole,
-    8 threads): its tokens, each step's top-2 margin, of a fixed run the
+    """The one-rank Engine on the card with the same weights (drawn whole
+    on the card): its tokens, each step's top-2 margin, of a fixed run the
     sampled serve's tokens, and the teacher logits of
     :func:`sharded_logits` with the MoE layers' top-k experts and margins
     of each call (:class:`Routing`; written to ``tmp``)."""
@@ -4546,7 +4580,7 @@ def sharded_reference(run: ShardedRun, tmp: Path) -> dict:
     with torch.no_grad():
         for key, p in model.state_dict(keep_vars=True).items():
             full = tuple(slice(0, n) for n in p.shape)
-            p.copy_(sharded_block(cfg, key, tuple(p.shape), full, 8))
+            p.copy_(sharded_block(cfg, key, tuple(p.shape), full))
     n_params = sum(p.numel() for p in model.parameters())
     draw_s = time.perf_counter() - t0
     prompts = sharded_prompts(cfg, run.prompts)
@@ -4739,7 +4773,7 @@ def sharded_rank_run(run: ShardedRun, mesh, outdir: Path) -> dict:
               planner._abstract_state(cfg)[0].items()}
 
     def weights(key, index):
-        return sharded_block(cfg, key, shapes[key], index, 2)
+        return sharded_block(cfg, key, shapes[key], index)
     fixed = run.layout == "fixed"
     model = LM(cfg, device="meta")
     torch.cuda.reset_peak_memory_stats()
@@ -4908,6 +4942,16 @@ def sharded_check(run: ShardedRun, ref: dict, ranks: list) -> dict:
         "host_share": med(rd["host_share"] for rd in rs),
         "peak_gb": max(rd["peak_gb"] for rd in rs),
         "fault_rel_err": worst}
+    pred = sharded_prediction(run)
+    if any(v != pred for rd in rs for v in rd["decode_collectives"]):
+        raise AssertionError(
+            f"[lm-sharded] {run.tag}: decode collectives a token "
+            f"{[rd['decode_collectives'] for rd in rs]}, the dry-run's "
+            f"{pred}")
+    rec["predicted_decode_collectives"] = pred
+    log(f"[lm-sharded] {run.tag} {lay}: the dry-run (launch.dryrun_lib on "
+        f"meta under RecordingMesh({SHARDED_MESH}), this decode step) "
+        f"predicts {pred} collectives a token; every rank measured {pred}")
     log(f"[lm-sharded] {run.tag} {lay} ({card}): prefill of "
         f"{run.prompts[0]} tokens {rec['long_prefill_ms']:.2f} ms (once), "
         f"of {run.prompts[1]} tokens {rec['prefill_ms']:.2f} ms; decode "
@@ -4927,6 +4971,23 @@ def sharded_check(run: ShardedRun, ref: dict, ranks: list) -> dict:
         + ("serves the fixed layout's blocks" if out["planner_same_blocks"]
            else "shards otherwise than the fixed layout"))
     return out
+
+
+def sharded_prediction(run: ShardedRun) -> int:
+    """The collectives of one decode token the dry-run records for the
+    run's engine: rank 0's decode step of its configuration (the fixed
+    layout: ``serve_params``) over SHARDED_SLOTS slots of
+    SHARDED_MAX_LEN, on ``meta`` under a RecordingMesh of SHARDED_MESH."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import RecordingMesh
+    from repro_torch.launch import dryrun_lib
+    rec = dryrun_lib.measure_cell(
+        run.arch, "engine_decode", RecordingMesh(SHARDED_MESH),
+        cfg=sharded_config(run),
+        shape=ShapeConfig("engine_decode", SHARDED_MAX_LEN, SHARDED_SLOTS,
+                          "decode"),
+        variant={"serve_params": True})
+    return sum(rec["collective_bytes_per_device"]["counts"].values())
 
 
 def sharded_phase() -> dict:
@@ -4968,6 +5029,611 @@ def sharded_phase() -> dict:
                                       [r[run.tag] for r in ranks])
     log(f"[lm-sharded] phase wall {time.perf_counter() - t0:.1f} s")
     return recs
+
+
+# --------------------------------------------------------------------------
+# [lm-train-sharded]: the sharded train step over gloo ranks on the one card
+# --------------------------------------------------------------------------
+
+#: the mesh of the [lm-train-sharded] ranks (all on the one card, over gloo)
+TS_MESH = {"data": 2, "model": 2}
+#: global batch of every run (each data block's rank takes 2 x 128 tokens:
+#: the fused loss's rows on a rank are LOSS_MAIN_SHAPES' first shape)
+TS_BATCH, TS_SEQ = 4, 128
+#: (a) parity: minitron-4b at full width, TS_LAYERS layers, fp32, fusion
+#: "gen", TS_STEPS steps against the one-rank step on the card
+TS_LAYERS, TS_STEPS = 2, 3
+#: (b) expert parallelism: olmoe-1b-7b at full width, TS_LAYERS layers,
+#: moe_impl "a2a" (32 experts a rank), fp32, TS_MOE_STEPS steps against a
+#: one-rank run that dispatches each data block with its own capacity
+TS_MOE_STEPS = 2
+#: (c) full depth: minitron-4b, bf16 weights, fp32 AdamW moments, fusion
+#: "gen", TS_FULL_STEPS steps (the last profiled)
+TS_FULL_STEPS = 2
+TS_RTOL = 1e-5
+#: the blocks after (a)'s steps are held to the one-rank run's within
+#: TS_RTOL of max |p| where the rank's first moment is at least this share
+#: of its leaf's largest (the one-rank run's); below it AdamW's step
+#: m / (sqrt(v) + eps) is decided by rounding, and those entries are held
+#: to the bound such a step allows (:func:`ts_masked_bound`)
+TS_MOMENT_FLOOR = 1e-3
+TS_TIMEOUT_S = 900
+TS_PG_TIMEOUT_S = 300
+
+
+def ts_batches(cfg, steps: int) -> list:
+    """``steps`` global batches of TS_BATCH x TS_SEQ tokens from the port's
+    loader (seed 0)."""
+    from repro_torch.data import DataConfig, ShardedLoader
+    loader = ShardedLoader(DataConfig(seq_len=TS_SEQ, global_batch=TS_BATCH,
+                                      vocab=cfg.vocab))
+    out = [next(loader) for _ in range(steps)]
+    loader.close()
+    return [{k: v for k, v in b.items() if k != "step"} for b in out]
+
+
+def ts_moe_model(moe_impl: str):
+    """olmoe-1b-7b at full width, TS_LAYERS layers, fp32, ``moe_impl``,
+    drawn on the card from a generator seeded with LM_SEED (the draws do
+    not depend on ``moe_impl``)."""
+    return lm_arch_model(LM_ARCHS[1]._replace(n_layers=TS_LAYERS),
+                         "float32", moe_impl=moe_impl)
+
+
+def ts_run(step, params, opt, batches) -> tuple[list, list]:
+    """The steps' losses and grad norms (fusion under kernels="cuda")."""
+    from repro_torch.core import fusion_mode
+    losses, norms = [], []
+    with fusion_mode(kernels="cuda"):
+        for b in batches:
+            params, opt, m = step(params, opt, b)
+            losses.append(float(m["loss"]))
+            norms.append(float(m["grad_norm"]))
+    return losses, norms
+
+
+def ts_reference(tmp: Path) -> dict:
+    """The one-rank runs on the card: (a) minitron-4b, TS_LAYERS layers,
+    fp32, fusion "gen", TS_STEPS steps (its final parameters saved to
+    ``tmp`` for the ranks' blocks to be held to, with each leaf's largest
+    first moment); (b) olmoe-1b-7b,
+    TS_LAYERS layers, the capacity dispatch over each data block (two
+    microbatches, one a data block: the reference's ``shard_map``
+    dispatches a block's tokens at a capacity of its own)."""
+    import torch
+    from repro_torch.kernels import rowwise
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    t0 = time.perf_counter()
+    model = train_model(TS_LAYERS, "float32")
+    cfg = model.cfg
+    params = {k: v.detach().clone() for k, v in model.named_parameters()}
+    tc = train.TrainConfig(fusion="gen")
+    opt = adamw.init(params, tc.opt)
+    torch.cuda.synchronize()
+    rowwise.launches = 0
+    losses, norms = ts_run(train.make_train_step(model, cfg, tc), params,
+                           opt, ts_batches(cfg, TS_STEPS))
+    torch.cuda.synchronize()
+    launches = rowwise.launches
+    top = max(float(v.abs().max()) for v in params.values())
+    m_top = {k: float(v.abs().max()) for k, v in opt["m"].items()}
+    torch.save({k: v.cpu() for k, v in params.items()}, tmp / "ts_a.pt")
+    del model, params, opt
+    torch.cuda.empty_cache()
+    moe = ts_moe_model("capacity")
+    p = {k: v.detach().clone() for k, v in moe.named_parameters()}
+    tcm = train.TrainConfig(n_microbatches=TS_MESH["data"])
+    moe_losses, moe_norms = ts_run(
+        train.make_train_step(moe, moe.cfg, tcm), p, adamw.init(p, tcm.opt),
+        ts_batches(moe.cfg, TS_MOE_STEPS))
+    del moe, p
+    torch.cuda.empty_cache()
+    log(f"[lm-train-sharded] one-rank references on the card: minitron-4b "
+        f"at full width, {TS_LAYERS} layers, fp32, fusion gen, "
+        f"{TS_STEPS} steps of {TS_BATCH} x {TS_SEQ} tokens: losses "
+        f"{losses}, grad norms {norms}, Row launches {launches}; "
+        f"olmoe-1b-7b, {TS_LAYERS} layers, capacity dispatch a data block: "
+        f"losses {moe_losses}; wall {time.perf_counter() - t0:.1f} s")
+    if launches != 2 * TS_STEPS:
+        raise AssertionError(f"[lm-train-sharded] the one-rank step "
+                             f"launched {launches} Row kernels in "
+                             f"{TS_STEPS} steps, not 2 a step")
+    return {"losses": losses, "norms": norms, "top": top, "m_top": m_top,
+            "moe_losses": moe_losses, "moe_norms": moe_norms}
+
+
+def ts_full_config():
+    """(c)'s configuration: minitron-4b at full width and depth, bf16."""
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(LM_ARCH), dtype="bfloat16")
+
+
+def ts_prediction() -> dict:
+    """The dry-run of (c) on the CPU: rank 0's step of minitron-4b (bf16,
+    full depth, batch TS_BATCH x TS_SEQ, one microbatch) on ``meta`` under
+    a RecordingMesh of TS_MESH; the fused loss off, which issues no
+    collective."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.dist import RecordingMesh
+    from repro_torch.launch import dryrun_lib
+    t0 = time.perf_counter()
+    rec = dryrun_lib.measure_cell(
+        LM_ARCH, "lm-train-sharded", RecordingMesh(TS_MESH),
+        cfg=ts_full_config(),
+        shape=ShapeConfig("lm-train-sharded", TS_SEQ, TS_BATCH, "train"),
+        variant={"n_mb": 1})
+    rec["wall_s"] = time.perf_counter() - t0
+    return rec
+
+
+def ts_weights(cfg, shapes: dict, mesh):
+    """``weights(key, index)`` for (c): each block drawn on the card from
+    a generator seeded by its key and its rank's coordinates (N(0, 1)
+    times the leaf's scale; rmsnorm scales 0): a rank draws its blocks
+    only (no run is held to another's weights)."""
+    import zlib
+    import torch
+
+    def draw(key, index):
+        name = key.rsplit(".", 1)[-1]
+        shape = tuple(s.stop - s.start for s in index)
+        if name == "scale":
+            return torch.zeros(shape, device=mesh.device)
+        full = shapes[key]
+        scale = (cfg.d_model if name in ("embed", "head")
+                 else full[-2]) ** -0.5
+        gen = torch.Generator(device=mesh.device).manual_seed(zlib.crc32(
+            f"{LM_SEED}/{key}/{[s.start for s in index]}".encode()))
+        return torch.randn(shape, generator=gen,
+                           device=mesh.device).mul_(scale)
+    return draw
+
+
+def ts_masked_bound(cfg, steps: int) -> float:
+    """The most that AdamW can move one entry apart in two runs of
+    ``steps`` steps where its gradient is decided by rounding: step t moves
+    p by lr_t · m̂ / (sqrt(v̂) + eps), whose size is at most c_t =
+    sqrt(sum_s w1_s² / w2_s) over the bias-corrected moments' weights
+    (Cauchy-Schwarz; 1 at t = 1), so the two runs' steps differ by at
+    most 2 · lr_t · c_t, and weight decay carries the difference so far
+    by 1 + lr_t · wd."""
+    from repro_torch.optim import adamw
+    b1, b2, bound = cfg.b1, cfg.b2, 0.0
+    for t in range(1, steps + 1):
+        w1 = [(1 - b1) * b1 ** (t - s) / (1 - b1 ** t)
+              for s in range(1, t + 1)]
+        w2 = [(1 - b2) * b2 ** (t - s) / (1 - b2 ** t)
+              for s in range(1, t + 1)]
+        c = math.sqrt(sum(a * a / b for a, b in zip(w1, w2)))
+        lr = float(adamw.schedule(t, cfg))
+        bound = bound * (1 + lr * cfg.weight_decay) + 2 * lr * c
+    return bound
+
+
+def ts_blocks(mesh, specs, params, opt, want, m_top: dict, b2: float,
+              steps: int) -> dict:
+    """The rank's blocks against ``want`` (the one-rank run's whole
+    leaves), leaf by leaf: the largest |difference| where the rank's first
+    moment is at least TS_MOMENT_FLOOR of the leaf's largest (``held``)
+    and below it (``masked``), the masked share of each leaf, and the
+    entries of the largest difference overall and among the held ones,
+    with their |m| and sqrt(v̂) (v̂ = v / (1 - b2^steps), the gradient's
+    scale; AdamW's eps is 1e-8)."""
+    import torch
+    from repro_torch.dist import sharding as sh
+    held = masked = 0.0
+    shares, worst, worst_held = {}, None, None
+
+    def entry(k, d, i, small):
+        m = opt["m"][k].reshape(-1)[i]
+        v = opt["v"][k].reshape(-1)[i]
+        return {"leaf": k, "diff": float(d[i]), "masked": bool(small[i]),
+                "m": float(m.abs()),
+                "g_scale": float((v / (1 - b2 ** steps)).sqrt())}
+    for k, p in params.items():
+        w = sh.local_shard(mesh, specs[k], want[k]).to(p.device)
+        d = (p - w).abs().reshape(-1)
+        small = (opt["m"][k].abs() < TS_MOMENT_FLOOR * m_top[k]).reshape(-1)
+        shares[k] = float(small.float().mean())
+        dh = torch.where(small, 0.0, d)
+        dm = torch.where(small, d, 0.0)
+        held, masked = max(held, float(dh.max())), max(masked, float(dm.max()))
+        i = int(d.argmax())
+        if worst is None or float(d[i]) > worst["diff"]:
+            worst = entry(k, d, i, small)
+        i = int(dh.argmax())
+        if worst_held is None or float(dh[i]) > worst_held["diff"]:
+            worst_held = entry(k, d, i, small)
+        del w, d, small, dh, dm
+    return {"held": held, "masked": masked, "masked_share": shares,
+            "worst": worst, "worst_held": worst_held}
+
+
+def ts_rank_parity(mesh, tmp: Path, top: float, m_top: dict) -> dict:
+    """(a) on one rank: the sharded step from the one-rank run's weights;
+    its losses, grad norms and Row launches, its blocks after the steps
+    against the one-rank run's (:func:`ts_blocks`), and the planted
+    fault's first step (rank 1 leaves its part out of the first FSDP
+    reduce-scatter)."""
+    import torch
+    from repro_torch.dist import sharding as sh
+    from repro_torch.kernels import rowwise
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    model = train_model(TS_LAYERS, "float32")
+    cfg = model.cfg
+    specs = sh.param_specs(mesh, cfg, model.state_dict())
+    model.shard_(mesh, specs)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    init = {k: v.detach().clone() for k, v in model.named_parameters()}
+    tc = train.TrainConfig(fusion="gen")
+    step = train.make_train_step(model, cfg, tc, mesh=mesh)
+    batches = ts_batches(cfg, TS_STEPS)
+    params = {k: v.detach().clone() for k, v in init.items()}
+    opt = adamw.init(params, tc.opt)
+    torch.cuda.synchronize()
+    rowwise.launches = 0
+    c0, s0, t0 = mesh.collectives, mesh.collective_s, time.perf_counter()
+    losses, norms = ts_run(step, params, opt, batches)
+    torch.cuda.synchronize()
+    launches, colls = rowwise.launches, mesh.collectives - c0
+    walls = {"steps": time.perf_counter() - t0,
+             "collectives": mesh.collective_s - s0}
+    t0 = time.perf_counter()
+    want = torch.load(tmp / "ts_a.pt", mmap=True)
+    blocks = ts_blocks(mesh, specs, params, opt, want, m_top, tc.opt.b2,
+                       TS_STEPS)
+    del want
+    walls["compare"] = time.perf_counter() - t0
+    # the planted fault: rank 1's part of one reduce-scatter left out
+    real = mesh.reduce_scatter
+    state = {"left": mesh.rank == 1}
+
+    def reduce_scatter(t, dim=0, over="row"):
+        if state["left"]:
+            state["left"] = False
+            t = torch.zeros_like(t)
+        return real(t, dim, over)
+    params = {k: v.detach().clone() for k, v in init.items()}
+    opt = adamw.init(params, tc.opt)
+    mesh.reduce_scatter = reduce_scatter
+    try:
+        bad_losses, bad_norms = ts_run(step, params, opt, batches[:1])
+    finally:
+        del mesh.reduce_scatter
+    del params, opt, init, model
+    torch.cuda.empty_cache()
+    return {"losses": losses, "norms": norms, "launches": launches,
+            "collectives": colls, "param_err": blocks["held"] / top,
+            "masked_err": blocks["masked"], "blocks": blocks,
+            "bad_losses": bad_losses, "bad_norms": bad_norms,
+            "walls_s": walls}
+
+
+def ts_rank_moe(mesh) -> dict:
+    """(b) on one rank: olmoe-1b-7b with ``moe_impl="a2a"`` inside
+    ``activation_rules(mesh, "dp")``: its losses and all-to-alls."""
+    import torch
+    from repro_torch.dist import sharding as sh
+    from repro_torch.launch import train
+    from repro_torch.optim import adamw
+    model = ts_moe_model("a2a")
+    cfg = model.cfg
+    model.shard_(mesh, sh.param_specs(mesh, cfg, model.state_dict()))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    params = dict(model.named_parameters())
+    tc = train.TrainConfig()
+    opt = adamw.init(params, tc.opt)
+    mesh.log.reset()
+    with sh.activation_rules(mesh, "dp"):
+        losses, norms = ts_run(train.make_train_step(model, cfg, tc,
+                                                     mesh=mesh),
+                               params, opt, ts_batches(cfg, TS_MOE_STEPS))
+    a2a = mesh.log.record()["counts"]["all-to-all"]
+    del model, params, opt
+    torch.cuda.empty_cache()
+    return {"losses": losses, "norms": norms, "all_to_all": a2a}
+
+
+def ts_rank_full(mesh) -> dict:
+    """(c) on one rank: minitron-4b at full width and depth, bf16, fp32
+    AdamW moments, fusion "gen": stored bytes, TS_FULL_STEPS steps (walls,
+    collectives and their seconds, Row launches; the last step under the
+    profiler, for its host share), peak memory."""
+    import torch
+    from repro_torch.dist import sharding as sh
+    from repro_torch.kernels import rowwise
+    from repro_torch.launch import train
+    from repro_torch.models import LM
+    from repro_torch.optim import adamw
+    cfg = ts_full_config()
+    model = LM(cfg, device="meta").requires_grad_(False)
+    shapes = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    specs = sh.param_specs(mesh, cfg, model.state_dict())
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.shard_(mesh, specs, weights=ts_weights(cfg, shapes, mesh))
+    params = dict(model.named_parameters())
+    tc = train.TrainConfig(fusion="gen")
+    opt = adamw.init(params, tc.opt)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    batches = ts_batches(cfg, TS_FULL_STEPS)
+    local = train.batch_block(mesh, cfg, batches[0], model)
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+    stored = (nbytes(params.values()) + nbytes(opt["m"].values())
+              + nbytes(opt["v"].values()) + nbytes([opt["count"]])
+              + nbytes(local.values()))
+    step = train.make_train_step(model, cfg, tc, mesh=mesh)
+    from repro_torch.core import fusion_mode
+    rowwise.launches = 0
+    walls, colls, coll_s, losses = [], [], [], []
+    with fusion_mode(kernels="cuda"):
+        for i, b in enumerate(batches):
+            c0, s0 = mesh.collectives, mesh.collective_s
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            if i < len(batches) - 1:
+                m = step(params, opt, b)[2]
+            else:                     # the last step under the profiler
+                got = []
+                wall_ms, busy_ms = profile_run(
+                    f"[lm-train-sharded] rank {mesh.rank}: step {i + 1} of "
+                    f"{cfg.name} at full size",
+                    lambda: got.append(step(params, opt, b)[2]))
+                m = got[0]
+            losses.append(float(m["loss"]))
+            walls.append((time.perf_counter() - t1) * 1e3)
+            colls.append(mesh.collectives - c0)
+            coll_s.append(mesh.collective_s - s0)
+        torch.cuda.synchronize()
+        launches = rowwise.launches
+        peak = torch.cuda.max_memory_allocated()
+    del model, params, opt
+    torch.cuda.empty_cache()
+    return {"losses": losses, "step_ms": walls, "collectives": colls,
+            "collective_ms": [v * 1e3 for v in coll_s],
+            "launches": launches, "stored": stored, "peak": peak,
+            "place_s": place_s, "host_share": 1 - busy_ms / wall_ms,
+            "profiled": {"wall_ms": wall_ms, "busy_ms": busy_ms}}
+
+
+def ts_rank(rank: int, world: int, init: str, outdir: str) -> None:
+    """One rank of [lm-train-sharded] (``--lm-train-sharded-rank``): joins
+    the gloo group, builds ``Mesh(TS_MESH)`` on the card and runs (a),
+    (b) and (c); writes ``outdir/ts<rank>.json``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=init, world_size=world, rank=rank,
+        timeout=datetime.timedelta(seconds=TS_PG_TIMEOUT_S))
+    try:
+        from repro_torch.dist import Mesh
+        mesh = Mesh(TS_MESH, device="cuda:0")
+        tmp = Path(outdir)
+        tops = json.loads((tmp / "ts_top.json").read_text())
+        res = {"rank": rank, "coords": mesh.coords}
+        t0 = time.perf_counter()
+        res["parity"] = ts_rank_parity(mesh, tmp, tops["top"],
+                                       tops["m_top"])
+        t1 = time.perf_counter()
+        res["moe"] = ts_rank_moe(mesh)
+        t2 = time.perf_counter()
+        res["full"] = ts_rank_full(mesh)
+        t3 = time.perf_counter()
+        res["walls_s"] = {"parity": t1 - t0, "moe": t2 - t1,
+                          "full": t3 - t2}
+        res["wall_s"] = t3 - t0
+        (tmp / f"ts{rank}.json").write_text(json.dumps(res))
+    finally:
+        dist.destroy_process_group()
+
+
+def ts_check(ref: dict, pred: dict, ranks: list) -> dict:
+    """The ranks' readings held to the one-rank runs and the dry-run."""
+    from repro_torch.launch import train
+    card = card_line()
+    tol = TS_RTOL
+    bound = ts_masked_bound(train.TrainConfig().opt, TS_STEPS)
+    for r, rd in enumerate(ranks):
+        blk = rd["parity"]["blocks"]
+        shares = blk["masked_share"]
+        log(f"[lm-train-sharded] (a) rank {r}'s blocks: held entries "
+            f"{rd['parity']['param_err']:.3e} of max |p| (limit {tol:g}), "
+            f"masked entries {blk['masked']:.3e} (limit {bound:.3e}, "
+            f"{bound / ref['top']:.3e} of max |p|); largest difference "
+            f"{json.dumps(blk['worst'])}; largest held "
+            f"{json.dumps(blk['worst_held'])}; masked share by leaf: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in shares.items() if v))
+    for r, rd in enumerate(ranks):
+        a = rd["parity"]
+        rel = trace_rel(a["losses"] + a["norms"], ref["losses"]
+                        + ref["norms"])
+        if not rel <= tol:
+            raise AssertionError(f"[lm-train-sharded] (a) rank {r}: traces "
+                                 f"{a['losses']} / {a['norms']} against the "
+                                 f"one-rank {ref['losses']} / "
+                                 f"{ref['norms']}: {rel:.3e} > {tol:g}")
+        if not a["param_err"] <= tol:
+            raise AssertionError(f"[lm-train-sharded] (a) rank {r}: blocks "
+                                 f"{a['param_err']:.3e} of max |p| from "
+                                 f"the one-rank run's")
+        if not a["masked_err"] <= bound:
+            raise AssertionError(f"[lm-train-sharded] (a) rank {r}: masked "
+                                 f"entries {a['masked_err']:.3e} apart, "
+                                 f"more than AdamW's rounding allows "
+                                 f"({bound:.3e})")
+        if a["launches"] != 2 * TS_STEPS:
+            raise AssertionError(f"[lm-train-sharded] (a) rank {r}: "
+                                 f"{a['launches']} Row launches in "
+                                 f"{TS_STEPS} steps, not 2 a step")
+        a["rel"] = rel
+        a["bad_rel"] = trace_rel(a["bad_losses"] + a["bad_norms"],
+                                 ref["losses"][:1] + ref["norms"][:1])
+    bad = max(rd["parity"]["bad_rel"] for rd in ranks)
+    if not bad > tol:
+        raise AssertionError(f"[lm-train-sharded] (a): the planted fault "
+                             f"passed ({bad:.3e})")
+    rel = max(rd["parity"]["rel"] for rd in ranks)
+    err = max(rd["parity"]["param_err"] for rd in ranks)
+    masked = max(rd["parity"]["masked_err"] for rd in ranks)
+    log(f"[lm-train-sharded] (a) minitron-4b, full width, {TS_LAYERS} "
+        f"layers, fp32, fusion gen, {TS_STEPS} steps on {len(ranks)} ranks "
+        f"of {TS_MESH}: losses {ranks[0]['parity']['losses']} and grad "
+        f"norms {ranks[0]['parity']['norms']}, {rel:.3e} relative from the "
+        f"one-rank step's (limit {tol:g}); every rank's updated blocks "
+        f"{err:.3e} of max |p| from the one-rank run's where the first "
+        f"moment is at least {TS_MOMENT_FLOOR:g} of its leaf's largest "
+        f"(limit {tol:g}), {masked:.3e} apart below it (limit "
+        f"{bound:.3e}, AdamW's rounding-decided steps); 2 Row launches a "
+        f"step on each rank; {ranks[0]['parity']['collectives']} "
+        f"collectives a rank in {TS_STEPS} steps; planted fault (rank 1 "
+        f"leaves its part out of one FSDP reduce-scatter): the first "
+        f"step's loss and grad norm {bad:.3e} relative: rejected; rank 0's "
+        f"{TS_STEPS} steps {ranks[0]['parity']['walls_s']['steps']:.1f} s "
+        f"(collectives "
+        f"{ranks[0]['parity']['walls_s']['collectives']:.1f} s), the blocks' "
+        f"comparison {ranks[0]['parity']['walls_s']['compare']:.1f} s")
+    for r, rd in enumerate(ranks):
+        b = rd["moe"]
+        rel_b = trace_rel(b["losses"], ref["moe_losses"])
+        if not rel_b <= tol:
+            raise AssertionError(f"[lm-train-sharded] (b) rank {r}: losses "
+                                 f"{b['losses']} against the one-rank "
+                                 f"{ref['moe_losses']}: {rel_b:.3e}")
+        b["rel"] = rel_b
+    moe_rel = max(rd["moe"]["rel"] for rd in ranks)
+    log(f"[lm-train-sharded] (b) olmoe-1b-7b, full width, {TS_LAYERS} "
+        f"layers, moe_impl a2a (32 experts a rank), fp32, {TS_MOE_STEPS} "
+        f"steps: losses {ranks[0]['moe']['losses']}, {moe_rel:.3e} "
+        f"relative from the one-rank capacity dispatch a data block "
+        f"({ref['moe_losses']}); {ranks[0]['moe']['all_to_all']} "
+        f"all-to-alls a rank")
+    counts = sum(pred["collective_bytes_per_device"]["counts"].values())
+    args = pred["memory"]["argument_bytes"]
+    temp = pred["memory"]["temp_bytes"]
+    for r, rd in enumerate(ranks):
+        c = rd["full"]
+        if not all(math.isfinite(v) for v in c["losses"]):
+            raise AssertionError(f"[lm-train-sharded] (c) rank {r}: losses "
+                                 f"{c['losses']}")
+        if c["stored"] != args:
+            raise AssertionError(f"[lm-train-sharded] (c) rank {r} stores "
+                                 f"{c['stored']:,} bytes, the dry-run's "
+                                 f"arguments {args:,}")
+        if any(n != counts for n in c["collectives"]):
+            raise AssertionError(f"[lm-train-sharded] (c) rank {r}: "
+                                 f"{c['collectives']} collectives a step, "
+                                 f"the dry-run {counts}")
+        if c["launches"] != 2 * TS_FULL_STEPS:
+            raise AssertionError(f"[lm-train-sharded] (c) rank {r}: "
+                                 f"{c['launches']} Row launches")
+    med = statistics.median
+    full = {"losses": ranks[0]["full"]["losses"],
+            # step 1 (the last step ran under the profiler)
+            "step_ms": med(rd["full"]["step_ms"][0] for rd in ranks),
+            "collective_ms": med(rd["full"]["collective_ms"][0]
+                                 for rd in ranks),
+            "profiled_step_ms": med(rd["full"]["step_ms"][-1]
+                                    for rd in ranks),
+            "collectives": counts,
+            "host_share": med(rd["full"]["host_share"] for rd in ranks),
+            "peak_gb": [rd["full"]["peak"] / 1e9 for rd in ranks],
+            "stored_gb": ranks[0]["full"]["stored"] / 1e9,
+            "predicted_args_gb": args / 1e9,
+            "predicted_temp_gb": temp / 1e9,
+            "place_s": max(rd["full"]["place_s"] for rd in ranks),
+            "launches": sum(rd["full"]["launches"] for rd in ranks)}
+    log(f"[lm-train-sharded] (c) minitron-4b, full width and depth, bf16 "
+        f"weights, fp32 AdamW moments, fusion gen, {TS_FULL_STEPS} steps "
+        f"({card}): losses {full['losses']} (finite); stored "
+        f"{full['stored_gb']:.3f} GB a rank = the dry-run's arguments "
+        f"({args:,} bytes); {counts} collectives a step = the dry-run's "
+        f"({json.dumps(pred['collective_bytes_per_device']['counts'])}); "
+        f"step 1 {full['step_ms']:.1f} ms (host clock, median over "
+        f"ranks), collectives {full['collective_ms']:.1f} ms of it; step "
+        f"{TS_FULL_STEPS} under the profiler {full['profiled_step_ms']:.1f} "
+        f"ms, host share {full['host_share']:.3f}; peak "
+        f"{[round(v, 2) for v in full['peak_gb']]} GB a rank against the "
+        f"dry-run's arguments + temporaries "
+        f"{full['predicted_args_gb'] + full['predicted_temp_gb']:.2f} GB "
+        f"({full['predicted_temp_gb']:.2f} GB temporaries, dry-run "
+        f"{pred['wall_s']:.1f} s on the CPU); blocks drawn in "
+        f"{full['place_s']:.1f} s")
+    return {"parity": {"rel": rel, "param_err": err, "masked_err": masked,
+                       "masked_bound": bound, "planted_rel": bad,
+                       "ranks": [rd["parity"] for rd in ranks]},
+            "moe": {"rel": moe_rel, "losses": ranks[0]["moe"]["losses"],
+                    "reference": ref["moe_losses"]},
+            "full": full, "prediction": {
+                "counts": pred["collective_bytes_per_device"]["counts"],
+                "argument_bytes": args, "temp_bytes": temp}}
+
+
+def train_sharded_phase() -> dict:
+    """[lm-train-sharded]: the one-rank references on the card, the
+    fused loss's Row kernel held to its plain version at a rank's shape,
+    then (a), (b), (c) in TS_MESH's rank processes on the card over gloo
+    (one spawn), the dry-run of (c) on the CPU meanwhile; returns the
+    phase's record, with the loss kernels' parts at a rank's shape."""
+    import concurrent.futures
+    import tempfile
+    import torch
+    from repro_torch.dist.launch import rank_env, run_ranks
+    t0 = time.perf_counter()
+    world = math.prod(TS_MESH.values())
+    log(f"[lm-train-sharded] make_train_step(mesh=Mesh({TS_MESH})) in "
+        f"{world} rank processes on the one card over gloo; "
+        f"{card_line()}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(LM_SEED + 3)
+    rows = TS_BATCH // TS_MESH["data"] * TS_SEQ
+    parts = loss_shape_checks(gen, rows, 256000)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ts_") as tmp, \
+            concurrent.futures.ThreadPoolExecutor(1) as ex:
+        tmp = Path(tmp)
+        ref = ts_reference(tmp)
+        (tmp / "ts_top.json").write_text(json.dumps(
+            {"top": ref["top"], "m_top": ref["m_top"]}))
+        pred = ex.submit(ts_prediction)
+        t1 = time.perf_counter()
+        init = f"file://{tmp / 'rendezvous'}"
+        outs = run_ranks(
+            lambda r: [sys.executable, str(Path(__file__).resolve()),
+                       "--lm-train-sharded-rank", str(r), str(world), init,
+                       str(tmp)],
+            world, timeout=TS_TIMEOUT_S,
+            env=rank_env(threads=max(1, 8 // world)), cwd=str(ROOT))
+        ranks = [json.loads((tmp / f"ts{r}.json").read_text())
+                 for r in range(world)]
+        pred = pred.result()
+    for text in outs:
+        for line in text.splitlines():
+            if line.startswith("[profile]"):
+                log(line)
+    log(f"[lm-train-sharded] ranks' wall {time.perf_counter() - t1:.1f} s "
+        f"(each {max(r['wall_s'] for r in ranks):.1f} s: "
+        + ", ".join(f"{k} {max(r['walls_s'][k] for r in ranks):.1f} s"
+                    for k in ranks[0]["walls_s"]) + ")")
+    log(json.dumps({"lm_train_sharded_ranks": [
+        {k: v for k, v in r.items()} for r in ranks]}, default=str))
+    rec = ts_check(ref, pred, ranks)
+    rec["parts"] = parts
+    rec["wall_s"] = time.perf_counter() - t0
+    log(f"[lm-train-sharded] phase wall {rec['wall_s']:.1f} s")
+    return rec
 
 
 # --------------------------------------------------------------------------
@@ -5068,6 +5734,25 @@ def sharded_only() -> None:
     recs = sharded_phase()
     examples_phase()
     log(json.dumps({"lm_sharded": recs}, default=str))
+
+
+def train_sharded_only() -> None:
+    """``--lm-train-sharded``: [lm-train-sharded] alone (the loss kernels
+    built first; no result line)."""
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.kernels import build
+    log(f"[env] {ROOT} torch {torch.__version__}; nvidia-smi: "
+        f"{card_line()}")
+    t0 = time.perf_counter()
+    build.build_all({s.key: s for s in loss_sources()}.values())
+    log(f"[build] loss kernels {time.perf_counter() - t0:.1f} s")
+    rec = train_sharded_phase()
+    rec.pop("parts")
+    log(json.dumps({"lm_train_sharded": rec}, default=str))
 
 
 def lm_times_only() -> None:
@@ -5392,8 +6077,10 @@ def run() -> None:
     # 22. [lm-train]: the fused loss, the train step and the CLI ----------
     train_recs = lm_train_phase()
 
-    # 23.-24. [lm-sharded]: the sharded Engine; [examples] ----------------
+    # 23.-25. [lm-sharded]: the sharded Engine; [lm-train-sharded]: the
+    # sharded train step; [examples] --------------------------------------
     sharded_phase()
+    ts_rec = train_sharded_phase()
     examples_phase()
 
     # 23. result lines -------------------------------------------------------
@@ -5463,6 +6150,23 @@ def run() -> None:
                     f"{STREAM_SKELETON}); launches in [lm-train]'s "
                     f"full-size run"),
             "parts": rec["parts"]})
+    for name, label, what in (
+            ("row_loss_sharded", "_lse", "forward: log-sum-exp rows"),
+            ("row_loss_vjp_sharded", "_lse:vjp", "planned backward")):
+        part = ts_rec["parts"][label]
+        rows.append({
+            "name": name, "route": "cuda", "source": KERNELS["row"][0],
+            "replaces": KERNELS["row"][1],
+            "launches": ts_rec["full"]["launches"] // 2,
+            "max_abs_err": part["max_abs_err"], "ms": part["ms"],
+            "plain_ms": part["plain_ms"], "bound_ms": part["bound_ms"],
+            "bound_by": part["bound_by"], "library_ms": part["library_ms"],
+            "layout": part["layout"], "skeleton": STAGED_SKELETON,
+            "per": (f"one call of the fused softmax-CE loss's {what} over "
+                    f"a rank's {part['rows']} x 256,000 fp32 logits in "
+                    f"[lm-train-sharded]; launches: every rank's in its "
+                    f"full-depth run (c)"),
+            "parts": [part]})
     log(json.dumps({"kernels": rows}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
@@ -5677,12 +6381,18 @@ def main() -> int:
         # one rank process of the [lm-sharded] phase, started by that phase
         sharded_rank(int(args[1]), int(args[2]), args[3], args[4])
         return 0
+    if args[:1] == ["--lm-train-sharded-rank"] and len(args) == 5:
+        # one rank process of [lm-train-sharded], started by that phase
+        ts_rank(int(args[1]), int(args[2]), args[3], args[4])
+        return 0
     modes = {(): run, ("--times",): times_only,
              ("--lm-times",): lm_times_only, ("--lm-train",): lm_train_only,
-             ("--lm-sharded",): sharded_only}
+             ("--lm-sharded",): sharded_only,
+             ("--lm-train-sharded",): train_sharded_only}
     if tuple(args) not in modes:
         print("usage: python3 chip_smoke.py [--times | --lm-times | "
-              "--lm-train | --lm-sharded]", file=sys.stderr)
+              "--lm-train | --lm-sharded | --lm-train-sharded]",
+              file=sys.stderr)
         return 2
     try:
         modes[tuple(args)]()

@@ -23,10 +23,16 @@ state dict of :class:`~repro_torch.models.LM` (the keys
 stacked, so each port spec is the reference's stacked-leaf spec without
 its leading ``None``.  :func:`local_shard` cuts a rank's block of a whole
 tensor by its mesh coordinates, :func:`join_shards` puts the blocks back.
+
+:func:`activation_rules` / :func:`current_rules` / :func:`activation_spec` /
+:func:`constrain` are the reference's activation-sharding rules: the
+specs entry for entry, and a context that the sharded layers read.
 """
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
 from typing import Optional
 
 TP_AXIS = "model"
@@ -280,3 +286,96 @@ def mesh_coords(mesh, rank: int) -> dict:
         coords[a] = rank % mesh.shape[a]
         rank //= mesh.shape[a]
     return {a: coords[a] for a in mesh.axis_names}
+
+
+# ---------------------------------------------------------------------------
+# activation-sharding rules
+# ---------------------------------------------------------------------------
+
+_ACT = threading.local()
+
+
+def current_rules():
+    """The (mesh, mode) pair of the innermost active
+    :func:`activation_rules` context, or None."""
+    return getattr(_ACT, "rules", None)
+
+
+@contextmanager
+def activation_rules(mesh, mode: str = "dp"):
+    """Enable the activation-sharding rules inside the context (this
+    thread).  ``mode``: ``"dp"`` (batch over FSDP, TP on head/ff/vocab
+    dims) or ``"sp"`` (additionally sequence-parallel residuals).  Inside
+    it, ``models.moe.moe_a2a`` runs its expert-parallel all-to-all, and
+    under ``"sp"`` a sharded model's residual stream holds the rank's
+    sequence block over ``model`` (:mod:`repro_torch.models.sharded`)."""
+    if mode not in ("dp", "sp"):
+        raise ValueError(f"activation mode {mode!r}: 'dp' or 'sp'")
+    prev = current_rules()
+    _ACT.rules = (mesh, mode)
+    try:
+        yield
+    finally:
+        _ACT.rules = prev
+
+
+def activation_spec(mesh, layout: str, shape: tuple,
+                    mode: str = "dp") -> Optional[tuple]:
+    """The partition spec of an activation of the given layout string
+    (``"btd"``, ``"bthd"``, ``"btf"``, ``"btv"``) and global ``shape``, or
+    None for an unknown layout / rank mismatch."""
+    F = fsdp_axes(mesh) or None
+    tp = tp_axis(mesh)
+    roles = {
+        "btd": (F, tp if mode == "sp" else None, None),
+        "bthd": (F, None, tp, None),
+        "btf": (F, None, tp),
+        "btv": (F, None, tp),
+    }.get(layout)
+    if roles is None or len(roles) != len(shape):
+        return None
+    return _spec(mesh, shape, roles)
+
+
+def seq_parallel(mesh) -> bool:
+    """Whether the residual stream of a model sharded on ``mesh`` holds
+    the rank's sequence block over ``model``: ``activation_rules(m, "sp")``
+    on a mesh ``m`` of ``mesh``'s shape with more than one model rank."""
+    rules = current_rules()
+    return (rules is not None and rules[1] == "sp"
+            and axis_size(mesh, TP_AXIS) > 1
+            and dict(rules[0].shape) == dict(mesh.shape))
+
+
+def constrain(x, layout: str, seq: Optional[int] = None):
+    """The activation-sharding rule at the reference's places: ``x``
+    brought to the rank's block of ``layout`` (:func:`activation_spec`).
+    The identity outside :func:`activation_rules`.
+
+    The port's sharded layers compute on the rank's blocks already: the
+    batch block, and their heads / ff / vocabulary blocks, which is the
+    ``"dp"`` rule and the ``"bthd"`` / ``"btf"`` / ``"btv"`` entries of
+    ``"sp"``; so there this checks ``x``'s rank and passes it through.
+    Under ``"sp"`` a ``"btd"`` residual holds the rank's sequence block
+    over ``model``: given ``seq``, the global sequence length, a tensor
+    that holds all ``seq`` positions (replicated over the model group) is
+    cut to the rank's block, whose gradient is summed over the group
+    where autograd records; a block passes through.  (A row-parallel
+    product's partial sums reach the block by a reduce-scatter instead,
+    ``models.sharded.Scope.reduce_seq``.)"""
+    rules = current_rules()
+    if rules is None:
+        return x
+    want = {"btd": 3, "bthd": 4, "btf": 3, "btv": 3}.get(layout)
+    if want is not None and x.dim() not in (want, want + 1):
+        # musicgen's logits carry a codebook dim: (B, S, nc, V)
+        raise ValueError(f"constrain: a {layout!r} activation of rank "
+                         f"{x.dim()}")
+    mesh = rules[0]
+    tp = axis_size(mesh, TP_AXIS)
+    if (layout != "btd" or seq is None or not seq_parallel(mesh)
+            or seq % tp or x.shape[1] != seq):
+        return x
+    from .mesh import enter_fn
+    k = seq // tp
+    return enter_fn(mesh, x).narrow(1, mesh.coords[TP_AXIS] * k, k)

@@ -45,10 +45,12 @@ TPU_V5E = HardwareSpec()
 
 #: NVIDIA H100 SXM datasheet figures: 3.35 TB/s HBM3, 989 TFLOP/s dense
 #: bf16 tensor-core rate, 80 GB, 450 GB/s NVLink each way per card (in the
-#: ``ici_bw`` slot; ``dcn_bw`` keeps the default, no inter-node figure is
-#: claimed).  Not calibrated, and not used by the planner yet.
+#: ``ici_bw`` slot), and between nodes the DGX H100 datasheet's one
+#: 400 Gb/s ConnectX-7 port per card, 50 GB/s (in the ``dcn_bw`` slot).
+#: Datasheet values, not measured; the dry-run's roofline reads them, the
+#: fusion planner does not.
 H100_SXM = HardwareSpec(name="h100-sxm", peak_flops=989e12, hbm_bw=3.35e12,
-                        ici_bw=450e9, hbm_bytes=80e9)
+                        ici_bw=450e9, dcn_bw=50e9, hbm_bytes=80e9)
 
 
 # ---------------------------------------------------------------------------

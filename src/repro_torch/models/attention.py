@@ -11,7 +11,9 @@ Under a mesh (``sh``, :mod:`.sharded`) a rank runs its block of query
 heads and of KV heads where ``wq`` / ``wk`` / ``wv`` are sharded on whole
 heads (all heads, gathered, where a block would split one), maps each
 local query head to its KV head (local or replicated), writes its block
-of the cache's heads, and reduces ``wo``'s partial sums.
+of the cache's heads, and reduces ``wo``'s partial sums (under
+``activation_rules(mesh, "sp")`` reduce-scatters them along the
+sequence).  ``constrain`` marks the reference's ``"bthd"`` points.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from .layers import normal
-from .sharded import row, weights
+from repro_torch.dist.sharding import constrain
+from .sharded import enter, proj, row, weights
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
@@ -81,15 +84,21 @@ def _qkv(x: torch.Tensor, p, cfg: ModelConfig, positions, sh):
     by H / KV, as without a mesh)."""
     B, S, _d = x.shape
     H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    xe = enter(x, sh)
+    q, k, v = (proj(x, xe, p, w, sh) for w in ("wq", "wk", "wv"))
     h0 = g0 = 0
     if sh is not None:
         q, h0 = sh.heads(q, "wq", H)
         k, g0 = sh.heads(k, "wk", KV)
         v, _ = sh.heads(v, "wv", KV)
-    q = rope(q.reshape(B, S, -1, hd), positions, cfg.rope_theta)
-    k = rope(k.reshape(B, S, -1, hd), positions, cfg.rope_theta)
-    v = v.reshape(B, S, -1, hd)
+        if q.shape[-1] < H * hd and k.shape[-1] == KV * hd:
+            # the rank's query heads read whole K / V
+            k, v = sh.enter(k), sh.enter(v)
+    q = rope(constrain(q.reshape(B, S, -1, hd), "bthd"), positions,
+             cfg.rope_theta)
+    k = rope(constrain(k.reshape(B, S, -1, hd), "bthd"), positions,
+             cfg.rope_theta)
+    v = constrain(v.reshape(B, S, -1, hd), "bthd")
     rep = H // KV
     Hl, KVl = q.shape[2], k.shape[2]
     kv_of = None
@@ -134,7 +143,7 @@ def attention(x: torch.Tensor, p, cfg: ModelConfig, *,
         scores = torch.where(keep, scores, -1e30)
         w = torch.softmax(scores, dim=-1).to(x.dtype)
         out = torch.einsum("bhqk,bkhd->bqhd", w, vq)
-    out = row(out.reshape(B, S, -1), p, "wo", sh)
+    out = row(out.reshape(B, S, -1), p, "wo", sh, seq=True)
 
     if cache is not None:
         _write(cache["k"], k, 0)

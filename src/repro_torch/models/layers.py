@@ -4,10 +4,9 @@ Parameters are dict-like (an ``nn.ParameterDict`` of the model, or a plain
 dict of tensors) under the reference's names.  The rmsnorm chain is a
 fusion site for the paper's planner: ``norm(..., fusion=mode)`` runs it as
 one staged fused operator of :mod:`repro_torch.core` (on the card, the
-generated Row kernel); the default path is plain torch.  The reference's
-``constrain`` (an activation-sharding annotation, the identity outside a
-JAX sharding context) has no counterpart here and is dropped where the
-reference calls it.
+generated Row kernel); the default path is plain torch.  ``constrain``
+(:func:`repro_torch.dist.sharding.constrain`) marks the reference's
+activation-sharding points: the identity outside ``activation_rules``.
 """
 
 from __future__ import annotations
@@ -19,7 +18,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import fused, fusion_mode, ir
-from .sharded import row, weights
+from repro_torch.dist.sharding import constrain
+from .sharded import enter, proj, row, weights
 
 
 def norm(x: torch.Tensor, scale: torch.Tensor, kind: str = "rmsnorm",
@@ -76,15 +76,21 @@ def mlp(x: torch.Tensor, p, kind: str, sh=None) -> torch.Tensor:
     Under a mesh (``sh``) ``w1`` / ``w3`` give the rank's block of the ff
     columns and ``w2``'s partial sums are reduced (:mod:`.sharded`)."""
     p = weights(p, sh)
+    xe = enter(x, sh)
+
+    def up(w):
+        return proj(x, xe, p, w, sh)
     if kind in ("swiglu", "geglu"):
         act = F.silu if kind == "swiglu" else _gelu
-        return row(act(x @ p["w1"]) * (x @ p["w3"]), p, "w2", sh)
-    if kind == "gelu":
-        return row(_gelu(x @ p["w1"]), p, "w2", sh)
-    if kind == "relu2":
-        h = torch.clamp_min(x @ p["w1"], 0.0)
-        return row(h * h, p, "w2", sh)
-    raise ValueError(kind)
+        h = constrain(act(up("w1")) * up("w3"), "btf")
+    elif kind == "gelu":
+        h = constrain(_gelu(up("w1")), "btf")
+    elif kind == "relu2":
+        h = torch.clamp_min(up("w1"), 0.0)
+        h = constrain(h * h, "btf")
+    else:
+        raise ValueError(kind)
+    return row(h, p, "w2", sh, seq=True)
 
 
 def normal(gen: Optional[torch.Generator], shape,

@@ -20,7 +20,12 @@ mesh (``serve.Engine(mesh=...)`` calls it): its parameters become the
 rank's blocks, and every layer runs on them (:mod:`.sharded`); the
 embedding looks up the rank's block of the vocabulary (other ids give
 zeros) and reduces, and the logits' vocabulary blocks are gathered, so
-that an ``argmax`` sees every logit.
+that an ``argmax`` sees every logit.  Where autograd records, the same
+code runs its collectives' differentiable forms (the sharded train step).
+``constrain`` stands at the reference's activation-sharding points (the
+residual ``"btd"``, the logits ``"btv"``): the identity outside
+``dist.sharding.activation_rules``; under ``"sp"`` it cuts a layer's whole
+output to the residual's sequence block.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from . import xlstm as xlstm_mod
 from .layers import apply_norm, mlp, mlp_params, norm_params
 from .moe import moe, moe_params
 from .sharded import Sharded, place, weights
+from repro_torch.dist.sharding import constrain
 
 N_PATCHES = 256          # llava vision-stub prefix length
 
@@ -191,9 +197,17 @@ class LM(nn.Module):
         ``sh``: the layer's :class:`.sharded.Scope` under a mesh."""
         cfg = self.cfg
         si = sm = None
+        S = x.shape[1] if positions is None else positions.shape[1]
         if sh is not None:
             si, sm = sh.sub("inner"), sh.sub("mlp")
-        h = apply_norm(x, p["ln1"], cfg)      # norm leaves: never sharded
+        ln1 = p["ln1"]
+        ln2 = p["ln2"] if cfg.d_ff else None
+        if sh is not None:
+            ln1 = sh.seq_params(ln1)
+            ln2 = ln2 if ln2 is None else sh.seq_params(ln2)
+        h = apply_norm(x, ln1, cfg)           # norm leaves: never sharded
+        if sh is not None:                    # "sp": the whole sequence
+            h = sh.seq_gather(h, S)
         if spec.kind == "attn":
             if decode:
                 y, _ = attn_mod.decode_attention(
@@ -211,15 +225,18 @@ class LM(nn.Module):
             y, _ = (xlstm_mod.mlstm_decode(h, p["inner"], cfg, cache, sh=si)
                     if decode else
                     xlstm_mod.mlstm(h, p["inner"], cfg, state=cache, sh=si))
-        x = x + y
+        # under "sp" x is the rank's sequence block, so y is brought to it
+        x = x + constrain(y, "btd", S)
         aux = None
         if cfg.d_ff:
-            h2 = apply_norm(x, p["ln2"], cfg)
+            h2 = apply_norm(x, ln2, cfg)
+            if sh is not None:
+                h2 = sh.seq_gather(h2, S)
             if spec.use_moe:
                 y2, aux = moe(h2, p["mlp"], cfg, with_aux=not decode, sh=sm)
             else:
                 y2 = mlp(h2, p["mlp"], cfg.mlp_type, sh=sm)
-            x = x + y2
+            x = x + constrain(y2, "btd", S)
         return x, aux
 
     def _scopes(self) -> list:
@@ -271,17 +288,24 @@ class LM(nn.Module):
         else:
             x = look(embed, tokens)
         if sh is not None and sh.tp_dim("embed") is not None:
-            x = sh.reduce(x)
+            # under "sp" the rank's sequence block of the sum
+            x = sh.reduce(x) if prefix_emb is not None else sh.reduce_seq(x)
         if prefix_emb is not None:  # llava: prepend patch embeddings
             prefix = torch.as_tensor(prefix_emb, device=self.device)
             x = torch.cat([prefix.to(x.dtype), x], dim=1)
-        return x
+        S = tokens.shape[1] + (0 if prefix_emb is None
+                               else prefix_emb.shape[1])
+        return constrain(x, "btd", S)
 
-    def _logits(self, x):
+    def _logits(self, x, S: int):
         cfg = self.cfg
         name = "head" if self.head is not None else "embed"
         head, sh = self._table(name)
-        out = x @ (head if self.head is not None else head.T)
+        if sh is not None:
+            # the whole sequence ("sp"), entering the vocabulary blocks
+            x = sh.enter(sh.seq_gather(x, S))
+        out = constrain(x @ (head if self.head is not None else head.T),
+                        "btv")
         if sh is not None and sh.tp_dim(name) is not None:
             out = sh.gather(out)    # every rank sees every logit
         if cfg.n_codebooks > 1:
@@ -297,7 +321,9 @@ class LM(nn.Module):
         same caches are returned; moe_aux is the MoE layers' load-balance
         loss summed over layers (fp32; 0 without MoE)."""
         x = self._embed(tokens, prefix_emb)
-        B, S = x.shape[:2]
+        B = x.shape[0]
+        S = torch.as_tensor(tokens).shape[1] + (
+            0 if prefix_emb is None else prefix_emb.shape[1])
         positions = torch.arange(S, device=self.device).expand(B, S)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for spec, p, c, sh in zip(self.specs, self.layers,
@@ -305,8 +331,11 @@ class LM(nn.Module):
             x, a = self._apply_layer(spec, p, x, positions, cache=c, sh=sh)
             if a is not None:
                 aux = aux + a
-        x = apply_norm(x, self.final_norm, self.cfg)
-        return self._logits(x), caches, aux
+        final = self.final_norm
+        if self.shard is not None:
+            final = self.shard.scope("").seq_params(final)
+        x = apply_norm(x, final, self.cfg)
+        return self._logits(x, S), caches, aux
 
     def forward(self, tokens, prefix_emb=None):
         """The training forward, :meth:`apply` without caches: (logits,
@@ -327,7 +356,7 @@ class LM(nn.Module):
             x, _ = self._apply_layer(spec, p, x, None, cache=c, decode=True,
                                      pos=pos, sh=sh)
         x = apply_norm(x, self.final_norm, self.cfg)
-        return self._logits(x), caches
+        return self._logits(x, x.shape[1]), caches
 
     # ---------------------------------------------------------------- caches
     def _layer_cache(self, spec: LayerSpec, batch: int, max_len: int, dev):

@@ -16,7 +16,9 @@ channels (where ``A_log`` / ``conv_w`` / ``x_proj`` are sharded over
 ``model``): ``in_proj``'s blocks are gathered (a block of ``[u | z]`` is
 not a block of channels), the conv and the scan run on the rank's
 channels and state, and only ``x_proj``'s and ``out_proj``'s partial sums
-are reduced.
+are reduced.  Where autograd records, the replicated tensors entering the
+rank's channels (``[u | z]``, ``conv_b``, ``D``, and B, C, dt) pass
+``Scope.enter``.
 """
 
 from __future__ import annotations
@@ -60,13 +62,21 @@ def _write_state(state: dict, new: dict) -> None:
         state[k].copy_(v)
 
 
+def _split(sh) -> bool:
+    """Whether the rank runs a block of the di channels."""
+    return sh is not None and sh.tp_dim("A_log") == 0
+
+
 def _ssm_inputs(u: torch.Tensor, p, N: int, sh=None):
     """B, C (fp32) and the step size dt (fp32, from ``dt_bias[-1]`` only,
-    as the reference) of the conv output u (..., di)."""
+    as the reference) of the conv output u (..., di).  Under a mesh they
+    are replicated and enter the rank's channels."""
     xdbc = row(u, p, "x_proj", sh)                        # (..., 2N+1)
     B_ = xdbc[..., :N].float()
     C_ = xdbc[..., N:2 * N].float()
     dt = F.softplus(xdbc[..., 2 * N:] + p["dt_bias"][-1]).float()
+    if _split(sh):
+        B_, C_, dt = sh.enter(B_), sh.enter(C_), sh.enter(dt)
     return B_, C_, dt
 
 
@@ -105,14 +115,17 @@ def _channels(x: torch.Tensor, p, cfg: ModelConfig, sh):
     vectors (``conv_b``, ``D``) of the channels this rank runs (all
     without a mesh)."""
     p = weights(p, sh)
-    xz = x @ p["in_proj"]
     if sh is None:
-        u, z = torch.chunk(xz, 2, dim=-1)
+        u, z = torch.chunk(x @ p["in_proj"], 2, dim=-1)
         return p, u, z, p["conv_b"], p["D"]
-    u, z = torch.chunk(sh.full(xz, "in_proj"), 2, dim=-1)
+    xz = sh.full(sh.proj(x, sh.enter(x), p, "in_proj"), "in_proj")
+    conv_b, D = p["conv_b"], p["D"]
+    if _split(sh):                  # replicated, entering the rank's block
+        xz, conv_b, D = sh.enter(xz), sh.enter(conv_b), sh.enter(D)
+    u, z = torch.chunk(xz, 2, dim=-1)
     c0, n = sh.channels(u.shape[-1], "A_log")
     cut = lambda t: t[..., c0:c0 + n]                     # noqa: E731
-    return p, cut(u), cut(z), cut(p["conv_b"]), cut(p["D"])
+    return p, cut(u), cut(z), cut(conv_b), cut(D)
 
 
 def mamba(x: torch.Tensor, p, cfg: ModelConfig, *,
@@ -136,7 +149,7 @@ def mamba(x: torch.Tensor, p, cfg: ModelConfig, *,
           torch.zeros((B, di, N), dtype=torch.float32, device=x.device))
     y, hL = _selective_scan(u.float(), dt, B_, C_, A, h0)
     y = y.to(x.dtype) + u * D
-    out = row(y * F.silu(z), p, "out_proj", sh)
+    out = row(y * F.silu(z), p, "out_proj", sh, seq=True)
     if state is not None:
         # conv state: the last K-1 raw inputs (uc = [pad(K-1), u_raw(L)])
         _write_state(state, {"h": hL, "conv": uc[:, L:]})

@@ -9,10 +9,12 @@ summation order):
   group (the reference's ``lax.ragged_dot``), dropless.
 * ``capacity`` — GShard-style dispatch into an (E, C, d) buffer; (token,
   slot) pairs past an expert's capacity C drop to the residual path.
-* ``a2a`` — the reference's expert-parallel all-to-all dispatch; the port
-  runs it as the capacity dispatch, as the reference does without a mesh
-  (its all-to-all waits with the dry-run's ``--optimized`` arm, ROADMAP.md
-  queue A item 7.4).
+* ``a2a`` — the reference's expert-parallel dispatch: inside
+  ``dist.sharding.activation_rules``, on a model whose experts shard over
+  ``model`` and whose tokens split over the data axes, each rank
+  dispatches its tokens at a capacity of its own and sends each expert's
+  rows to the expert's rank with one all-to-all over ``model`` each way;
+  otherwise the local capacity dispatch, as the reference falls back.
 
 Under a mesh (``sh``, :mod:`.sharded`) every form computes the rank's
 experts only where the experts are sharded over ``model`` (expert
@@ -23,7 +25,12 @@ every rank routes every token alike.
 Every combine is deterministic: a token's k contributions are summed in
 slot order (no ``index_add_``, whose CUDA form sums with float atomics);
 under a mesh a rank sums its own experts' contributions in slot order
-(the others' are zero) before the reduction.
+(the others' are zero) before the reduction.  Where autograd records
+under a mesh, the token rows and gates entering a rank's own experts pass
+``Scope.enter``, so that their gradients' partial sums are all-reduced over
+the model group.  ``dense``, ``capacity`` and ``a2a`` index by no mask,
+so they run on ``meta`` tensors (the dry-run); ``ragged``'s group sizes
+are data.
 Sorting by expert is stable, as ``jnp.argsort`` is, so the tokens that
 ``capacity`` drops are the reference's.
 """
@@ -55,10 +62,13 @@ def moe_params(gen: Optional[torch.Generator], cfg: ModelConfig) -> dict:
 
 
 def _gates(x: torch.Tensor, router: torch.Tensor, k: int,
-           with_aux: bool = True):
+           with_aux: bool = True, sh=None):
     """(T, E) normalized top-k gate weights (in x's dtype), the top-k
     weights and experts (T, k), and the load-balance aux loss (fp32; None
-    unless ``with_aux``)."""
+    unless ``with_aux``).  Where autograd records on a mesh whose data
+    blocks split the tokens, the aux's two per-expert means are the whole
+    batch's (one all-reduce over the row group), as the reference's
+    global step computes them."""
     logits = (x @ router).float()
     probs = torch.softmax(logits, dim=-1)
     topv, topi = torch.topk(probs, k, dim=-1)
@@ -69,7 +79,13 @@ def _gates(x: torch.Tensor, router: torch.Tensor, k: int,
     # Switch-style load-balance aux loss
     e = probs.shape[-1]
     frac = torch.mean((gates > 0).float(), dim=0)
-    aux = e * torch.sum(frac * torch.mean(probs, dim=0))
+    mean_p = torch.mean(probs, dim=0)
+    if (sh is not None and torch.is_grad_enabled() and sh.mesh.n > 1
+            and sh.sh.batch_split):
+        from repro_torch.dist.mesh import row_mean_fn
+        both = row_mean_fn(sh.mesh, torch.cat([frac, mean_p]))
+        frac, mean_p = both[:e], both[e:]
+    aux = e * torch.sum(frac * mean_p)
     return gates.to(x.dtype), topv, topi, aux
 
 
@@ -108,12 +124,21 @@ def _slot_sum(y: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _entered(x: torch.Tensor, w: torch.Tensor, partial: bool, sh):
+    """(x, w) entering the rank's own experts where its outputs are
+    partial sums (:meth:`.sharded.Scope.enter`)."""
+    if not partial:
+        return x, w
+    return sh.enter(x), sh.enter(w)
+
+
 def moe_dense(x: torch.Tensor, p, cfg: ModelConfig, *,
               with_aux: bool = True, sh=None):
     """x: (T, d) -> (T, d).  All experts compute, gates combine."""
-    gates, _, _, aux = _gates(x, p["router"], cfg.top_k, with_aux)
-    y = _experts(x[None], p, cfg)                            # (E, T, d)
+    gates, _, _, aux = _gates(x, p["router"], cfg.top_k, with_aux, sh)
     e0, El, partial = _experts_of(cfg, sh)
+    x, gates = _entered(x, gates, partial, sh)
+    y = _experts(x[None], p, cfg)                            # (E, T, d)
     if El != cfg.n_experts:
         gates = gates[:, e0:e0 + El]
     out = torch.einsum("etd,te->td", y, gates).to(x.dtype)
@@ -125,14 +150,15 @@ def moe_ragged(x: torch.Tensor, p, cfg: ModelConfig, *,
     """Dropless sort-based routing: one matmul per expert group."""
     T, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    _, topv, topi, aux = _gates(x, p["router"], k, with_aux)
+    _, topv, topi, aux = _gates(x, p["router"], k, with_aux, sh)
+    e0, El, partial = _experts_of(cfg, sh)
+    x, topv = _entered(x, topv, partial, sh)
     flat_e = topi.reshape(-1)                                # (T*k,)
     flat_w = topv.reshape(-1).to(x.dtype)
     order = torch.argsort(flat_e, stable=True)
     inv = torch.argsort(order)
     xs = torch.repeat_interleave(x, k, dim=0)[order]         # sorted
     sizes = torch.bincount(flat_e, minlength=e).tolist()
-    e0, El, partial = _experts_of(cfg, sh)
     # another rank's experts contribute zero here
     y = torch.empty_like(xs) if El == e else torch.zeros_like(xs)
     start = 0
@@ -171,17 +197,15 @@ def moe_capacity(x: torch.Tensor, p, cfg: ModelConfig,
                  sh=None):
     """GShard-style capacity dispatch: (token, slot) pairs sorted by
     expert fill a (E, C, d) buffer, each expert runs its rows, results
-    gather back; pairs past capacity contribute 0 (the residual path).
-    The reference writes them to an overflow row it discards; here they
-    are not written."""
+    gather back; pairs past capacity contribute 0 (the residual path),
+    written to an overflow row that is discarded, as the reference's."""
     T, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
-    _, topv, topi, aux = _gates(x, p["router"], k, with_aux)
-    order, slot, keep, C = _dispatch(topi, e, capacity_factor)
-    tok_of = torch.arange(T, device=x.device).repeat_interleave(k)
-    buf = torch.zeros((e * C, d), dtype=x.dtype, device=x.device)
-    buf[slot[keep]] = x[tok_of[order][keep]]
+    _, topv, topi, aux = _gates(x, p["router"], k, with_aux, sh)
     e0, El, partial = _experts_of(cfg, sh)
+    x, topv = _entered(x, topv, partial, sh)
+    order, slot, keep, C = _dispatch(topi, e, capacity_factor)
+    buf = _fill(x, topi, order, slot, keep, e * C)
     if El != e:                      # this rank's experts' rows only
         ranked_e = topi.reshape(-1)[order]
         keep = keep & (ranked_e >= e0) & (ranked_e < e0 + El)
@@ -197,6 +221,19 @@ def moe_capacity(x: torch.Tensor, p, cfg: ModelConfig,
     return (sh.reduce(out) if partial else out), aux
 
 
+def _fill(x: torch.Tensor, topi: torch.Tensor, order, slot, keep,
+          rows: int) -> torch.Tensor:
+    """The (rows, d) dispatch buffer: each kept (token, slot) pair's token
+    row at its slot; the pairs past capacity are written to an overflow
+    row that is cut off (the reference's), so no mask indexes a tensor."""
+    T, k = topi.shape
+    tok_of = torch.arange(T, device=x.device).repeat_interleave(k)
+    buf = torch.zeros((rows + 1, x.shape[1]), dtype=x.dtype,
+                      device=x.device)
+    buf[torch.where(keep, slot, rows)] = x[tok_of[order]]
+    return buf[:rows]
+
+
 def capacity_dropped(x: torch.Tensor, p, cfg: ModelConfig,
                      capacity_factor: float = 1.25) -> int:
     """How many (token, slot) pairs :func:`moe_capacity` drops on ``x``
@@ -206,15 +243,72 @@ def capacity_dropped(x: torch.Tensor, p, cfg: ModelConfig,
     return int((~keep).sum())
 
 
+class _ScaleGrad(torch.autograd.Function):
+    """The identity; its gradient times ``c``."""
+
+    @staticmethod
+    def forward(ctx, t, c):
+        ctx.c = c
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.c, None
+
+
 def moe_a2a(x: torch.Tensor, p, cfg: ModelConfig,
             capacity_factor: float = 1.25, *, with_aux: bool = True,
             sh=None):
-    """Expert-parallel dispatch.  Without a mesh the reference falls back
-    to the local capacity dispatch; the port always runs it (under a mesh
-    on the rank's experts, reduced), its all-to-all waiting with the
-    dry-run tools (ROADMAP.md queue A item 7.4)."""
-    return moe_capacity(x, p, cfg, capacity_factor, with_aux=with_aux,
-                        sh=sh)
+    """Expert-parallel dispatch with one all-to-all over ``model`` each
+    way (the reference's ``shard_map``).
+
+    Active inside ``dist.sharding.activation_rules`` on a sharded model
+    whose experts shard over ``model`` (:func:`~repro_torch.dist.sharding.
+    moe_expert_parallel`) and whose tokens split over the data axes (its
+    batch is the rank's block, ``Sharded.batch_split``); otherwise the
+    local capacity dispatch, as the reference falls back.  The rank's
+    tokens (replicated over ``model``) are dispatched at the capacity C =
+    max(1, int(T_loc·k/E·cf)) of its own; the (E, C, d) buffer goes to the
+    experts' ranks ((E/ep, ep·C, d)), their outputs come back, each
+    token's slots are summed in slot order, and aux is averaged over the
+    data blocks.  Each expert rank computes every model peer's copy of the
+    tokens, as the reference's does, so where autograd records the
+    experts' weight gradients are scaled by 1/ep: the copies' gradients
+    are equal, and the loss counts the tokens once."""
+    from repro_torch.dist import sharding as shlib
+    from repro_torch.dist.mesh import all_to_all_fn, row_mean_fn
+    rules = shlib.current_rules()
+    mesh = None if sh is None else sh.mesh
+    if (rules is None or mesh is None
+            or rules[0].shape != mesh.shape
+            or not shlib.moe_expert_parallel(mesh, cfg)
+            or sh.tp_dim("w1") != 0 or not mesh.row_axes
+            or not sh.sh.batch_split):
+        return moe_capacity(x, p, cfg, capacity_factor, with_aux=with_aux,
+                            sh=sh)
+    T, d = x.shape
+    e, k, ep = cfg.n_experts, cfg.top_k, mesh.tp
+    _, topv, topi, aux = _gates(x, p["router"], k, with_aux)
+    order, slot, keep, C = _dispatch(topi, e, capacity_factor)
+    buf = _fill(x, topi, order, slot, keep, e * C).reshape(e, C, d)
+    # each expert's rows to its owner: (E, C, d) -> (E/ep, ep·C, d)
+    buf = all_to_all_fn(mesh, buf, 0, 1, "model")
+    pw = {w: p[w] for w in ("w1", "w2", "w3") if w in p}
+    if torch.is_grad_enabled() and ep > 1:
+        pw = {w: _ScaleGrad.apply(t, 1.0 / ep) if t.requires_grad else t
+              for w, t in pw.items()}
+    y = _experts(buf, pw, cfg)
+    # the results home: (E/ep, ep·C, d) -> (E, C, d)
+    y = all_to_all_fn(mesh, y, 1, 0, "model").reshape(e * C, d)
+    ranked_w = topv.reshape(-1).to(x.dtype)[order]
+    contrib = torch.where(keep[:, None],
+                          y[torch.clamp(slot, 0, e * C - 1)]
+                          * ranked_w[:, None], 0.0)
+    contrib = contrib[torch.argsort(order)]
+    out = _slot_sum(contrib.reshape(T, k, d)).to(x.dtype)
+    if aux is not None:
+        aux = row_mean_fn(mesh, aux)
+    return out, aux
 
 
 def moe(x: torch.Tensor, p, cfg: ModelConfig, *, with_aux: bool = True,

@@ -16,6 +16,8 @@ where ``wq`` / ``wk`` / ``wv`` are sharded on whole heads: ``up``'s
 blocks are gathered (q, k and v read every channel of u), the replicated
 ``wif`` gives every head's gates, of which the rank takes its own, the
 cell runs on its heads' state, and ``down``'s partial sums are reduced.
+Where autograd records, ``u`` entering the head projections and the gates
+and ``z`` entering the rank's heads pass ``Scope.enter``.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from .layers import normal
 from .mamba import _recorded, _write_state
-from .sharded import row, weights
+from .sharded import enter, proj, row, weights
 
 
 def xlstm_params(gen: Optional[torch.Generator], cfg: ModelConfig) -> dict:
@@ -71,6 +73,17 @@ def _cell_step(state, inputs):
     return (C, n, m_new), h_num / h_den
 
 
+def _mlstm_scan(st, q, k, v, ipre, logf):
+    """The cell over the sequence from state ``st``: q, k, v (B, L, H, hd),
+    ipre, logf (B, L, H).  Returns (the final state, h (B, L, H, hd))."""
+    hs = []
+    for t in range(q.shape[1]):
+        st, h = _cell_step(st, (q[:, t], k[:, t], v[:, t], ipre[:, t],
+                                logf[:, t]))
+        hs.append(h)
+    return st, torch.stack(hs, dim=1)
+
+
 def mlstm(x: torch.Tensor, p, cfg: ModelConfig, *,
           state: Optional[dict] = None, sh=None):
     """x: (B, L, d) -> (B, L, d).  Returns (out, state): with a state,
@@ -80,11 +93,12 @@ def mlstm(x: torch.Tensor, p, cfg: ModelConfig, *,
     H = cfg.n_heads
     hd = di // H
     p = weights(p, sh)
-    xz = x @ p["up"]
+    xz = proj(x, enter(x, sh), p, "up", sh)
     if sh is not None:
         xz = sh.full(xz, "up")
     u, z = torch.chunk(xz, 2, dim=-1)                     # (B, L, di)
-    q, k, v = u @ p["wq"], u @ p["wk"], u @ p["wv"]
+    ue = enter(u, sh)
+    q, k, v = (proj(u, ue, p, w, sh) for w in ("wq", "wk", "wv"))
     if sh is not None:
         q, h0 = sh.heads(q, "wq", H)
         k, _ = sh.heads(k, "wk", H)
@@ -93,6 +107,8 @@ def mlstm(x: torch.Tensor, p, cfg: ModelConfig, *,
     k = (k.reshape(B, L, -1, hd) * hd ** -0.5).float()
     v = v.reshape(B, L, -1, hd).float()
     gif = (u @ p["wif"]).float()                          # (B, L, 2H)
+    if sh is not None and q.shape[2] != H:   # entering the rank's heads
+        gif, z = sh.enter(gif), sh.enter(z)
     ipre, logf = gif[..., :H], -F.softplus(-gif[..., H:])  # log σ(f)
     H = q.shape[2]                                        # this rank's
     if sh is not None and H != cfg.n_heads:
@@ -106,13 +122,9 @@ def mlstm(x: torch.Tensor, p, cfg: ModelConfig, *,
               torch.zeros((B, H), dtype=torch.float32, device=x.device))
     else:
         st = (state["C"].clone(), state["n"], state["m"])
-    hs = []
-    for t in range(L):
-        st, h = _cell_step(st, (q[:, t], k[:, t], v[:, t], ipre[:, t],
-                                logf[:, t]))
-        hs.append(h)
-    h = torch.stack(hs, dim=1).reshape(B, L, H * hd).to(x.dtype)
-    out = row(h * F.silu(z), p, "down", sh)
+    st, h = _mlstm_scan(st, q, k, v, ipre, logf)
+    h = h.reshape(B, L, H * hd).to(x.dtype)
+    out = row(h * F.silu(z), p, "down", sh, seq=True)
     if state is not None:
         _write_state(state, dict(zip(("C", "n", "m"), st)))
     return out, state

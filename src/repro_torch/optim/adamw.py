@@ -9,9 +9,10 @@ elements, 3.15 GB a fp32 copy.
 
 ``update`` writes the new parameters and moments into the given tensors
 (the counterpart of the reference's donated buffers) and returns them; the
-values are the bits the reference's arithmetic gives.  The reference
-shards the state like the parameters (ZeRO-3 / FSDP); here it lives on the
-parameters' device.
+values are the bits the reference's arithmetic gives.  The state lives
+where the parameters live: on a mesh (the sharded train step) each rank
+holds and updates the moments of its blocks, as the reference shards the
+state like the parameters (ZeRO-3 / FSDP).
 """
 
 from __future__ import annotations
@@ -85,11 +86,13 @@ def _update_leaf(p, g, m, v, scale, lr, bc1, bc2, cfg: OptConfig) -> None:
 
 
 @torch.no_grad()
-def update(grads, state, params, cfg: OptConfig):
+def update(grads, state, params, cfg: OptConfig, gnorm=None):
     """Writes the update into ``params`` and ``state`` and returns
-    (params, state, metrics)."""
+    (params, state, metrics).  ``gnorm``: the gradient's global norm where
+    ``grads`` are one rank's blocks of it (default: theirs)."""
     count = state["count"].add_(1)
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = schedule(count, cfg)
     c = count.to(torch.float32)
