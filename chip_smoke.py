@@ -49,7 +49,16 @@ Phases, each reported on its own lines with its wall time:
    before it and read just after; the same run with ``kernels="never"``
    and the hand-written torch baseline must give the same objective trace,
    and a run with the planted fault must not; one more run under
-   ``torch.profiler`` splits the device time by kernel;
+   ``torch.profiler`` splits the device time by kernel; then
+   ``repro_torch.core.fuse_exprs`` over L2SVM's regions hand-built with
+   ``ir.matrix`` (the hinge, the objective, the line search's two sums,
+   Σw² and the hand-derived gradient) on the same X, y and the trained w,
+   counters set to 0 just before each call and read just after: equal to
+   the ``@fused`` staged path's on the same bindings bit for bit, every
+   fused step within the kernel limit of its plain version, a one-step
+   region's outputs held to ``kernels="never"``'s the same way and a
+   multi-step region's within TRACE_RTOL of them, and the objective with
+   the planted fold fault leaving TRACE_RTOL;
 6. timing: per main-path CPlan, the kernel's and its plain version's
    median time with CUDA events, beside the bound (bytes over 3.35 TB/s or
    fp32 flops over 67 TFLOP/s, the larger), with the kernels one call
@@ -71,7 +80,10 @@ Phases, each reported on its own lines with its wall time:
    counters set to 0 just before it, its loss trace against
    ``kernels="never"`` and against a planted-fault run; the dense-mask
    hand baseline at a reduced 12,800 x 8,192; a profile; per-CPlan times
-   (U update, V update, loss) beside their bounds;
+   (U update, V update, loss) beside their bounds; then ``_wsq_mm``
+   hand-built with a BCSR leaf through ``fuse_exprs`` once, equal to the
+   ``@fused`` path bit for bit, within the kernel limit, and with the
+   planted middle-block fault over it;
 8.-11. MLogReg (k = 5, 3 x 3 Newton-CG iterations), GLM (binomial
    probit, 3 x 3 IRLS-CG iterations), KMeans (k = 5, 5 iterations) on X
    (m,100) fp32, and the autoencoder (784-500-2-500-784, batch 512, 20
@@ -136,7 +148,19 @@ Phases, each reported on its own lines with its wall time:
    CPlan of its panel, held to its plain version on the same panel within
    the kernel limit per element and timed beside its panel bound (device
    ms from CUDA events queued behind a spin kernel, the profiler's, and
-   the call's CUDA-event ms), and the collectives' wall time;
+   the call's CUDA-event ms), and the collectives' wall time; then
+   ``fuse_exprs`` of the hand-built hinge under ``fusion_mode(layout=
+   mesh)`` (its Row launch on the rank's 2,500,000-row panel, equal to
+   the staged ``_hinge.trace(...).plan(layout=mesh)`` path bit for bit,
+   rank 1's panel dropped from the all-gather failing the kernel limit)
+   and the fused loss ``launch.train._ce`` under ``TrainConfig(fusion=
+   "gen", fusion_layout=mesh)`` over 512 x 256,000 fp32 logits (the
+   [lm-train-sharded] batch over minitron-4b's vocabulary): the Row
+   kernel's staged layout launched once each way on the rank's 128 rows,
+   loss and gradient within 1e-5 of local planning's and of
+   ``kernels="never"``'s, the planted staged-chunk fault leaving that,
+   each panel timed beside its bound, its plain version and the library
+   call (``torch.logsumexp``; ``softmax`` then ``mul_``);
 18.-21. ``[lm]``, ``[lm-moe]``, ``[lm-hybrid]``, ``[lm-xlstm]``: the LM
    serving path, one phase a model of ``LM_ARCHS``: minitron-4b at full
    width for 8 of its 32 attention layers (d_model 3,072, vocab 256,000;
@@ -294,7 +318,12 @@ Phases, each reported on its own lines with its wall time:
    [lm-train]'s full-size run, a part at every width;
    ``row_loss_sharded`` / ``row_loss_vjp_sharded``, the same at a rank's
    256 x 256,000 of [lm-train-sharded], launches from its full-depth
-   run), the card line, and the final ``{"ok": true, ...}`` line.
+   run; ``row_loss_panel`` / ``row_loss_vjp_panel``, the same over a
+   rank's 128-row panel under ``fusion_layout=mesh`` in [dist], launches
+   from every rank's counted run; each of the four kernels'
+   ``fuse_exprs_launches``, the launches of the main-path and [als]
+   ``fuse_exprs`` checks), the card line, and the final
+   ``{"ok": true, ...}`` line.
 
 Any failed check raises; the script then prints the traceback and exits 1
 without a result line.  It imports nothing of JAX or of ``repro``.
@@ -474,6 +503,219 @@ def main_path_cplans(m: int, n: int):
     return region_cplans([(l2svm._hinge, (X, w, col), False),
                           (l2svm._search_terms, (col, col), False),
                           (l2svm._objective_full, (X, w, col, lam), True)])
+
+
+# --------------------------------------------------------------------------
+# fuse_exprs: the one-shot entry point over hand-built regions
+# --------------------------------------------------------------------------
+
+def fuse_exprs_regions():
+    """L2SVM's main-path regions as ``(label, @fused region)``: each is
+    also hand-built with ``ir.matrix`` for ``fuse_exprs`` (:func:`hand_built`)
+    — the hinge, the objective, the line search's two sums, Σw² and the
+    hand-derived gradient (whose λw step is a Cell CPlan)."""
+    from repro_torch.algos import l2svm
+    from repro_torch.core import fused
+    return [("hinge", l2svm._hinge), ("objective", l2svm._objective_full),
+            ("search_terms", l2svm._search_terms),
+            ("sum_sq", fused(lambda w: (w ** 2).sum())),
+            ("gradient", l2svm._grad)]
+
+
+def l2svm_shapes(m: int, n: int) -> dict:
+    """Every operand name of :func:`fuse_exprs_regions` and its shape."""
+    return {"X": (m, n), "w": (n, 1), "y": (m, 1), "lam": (1, 1),
+            "out": (m, 1), "yXs": (m, 1)}
+
+
+def hand_built(region, shapes: dict, sparsity: dict | None = None):
+    """``region``'s expression over ``ir.matrix`` leaves of ``shapes``
+    (name -> shape), as a user builds it for ``fuse_exprs``: one output,
+    or a list of them."""
+    from repro_torch.core import ir
+    outs = region.fn(**{n: ir.matrix(n, tuple(shapes[n]), sparsity=(
+        sparsity or {}).get(n, 1.0)) for n in region.names})
+    return list(outs) if isinstance(outs, tuple) else outs
+
+
+def fuse_exprs_cplans(m: int, n: int):
+    """[(label, cplan)] of every :func:`fuse_exprs_regions` region at
+    (m, n), planned as ``fuse_exprs`` plans them (the scoped context's
+    mode and cost parameters, no rewrite sweep)."""
+    from repro_torch.core import current_context, ir
+    from repro_torch.core.codegen import compile_plan
+    from repro_torch.core.select import plan as plan_graph
+    ctx, shapes = current_context(), l2svm_shapes(m, n)
+    out = []
+    for label, region in fuse_exprs_regions():
+        exprs = hand_built(region, shapes)
+        graph = ir.Graph.build(exprs if isinstance(exprs, list) else [exprs])
+        eplan = plan_graph(graph, ctx.mode, ctx.params)
+        out += [(label, cp) for cp in compile_plan(eplan).cplans()]
+    return out
+
+
+@contextlib.contextmanager
+def captured_plans():
+    """Every ``CompiledPlan`` that ``fuse_exprs`` compiles inside the
+    block, in order (``core.api.compile_plan`` wrapped)."""
+    from repro_torch.core import api
+    seen, real = [], api.compile_plan
+
+    def spy(*args, **kw):
+        seen.append(real(*args, **kw))
+        return seen[-1]
+
+    api.compile_plan = spy
+    try:
+        yield seen
+    finally:
+        api.compile_plan = real
+
+
+def as_tuple(x) -> tuple:
+    return x if isinstance(x, tuple) else (x,)
+
+
+def plan_step_checks(cplan_obj, binds: dict, label: str) -> list:
+    """Each fused step of a compiled plan held to its kernel on the plan's
+    own plain values (every step run in order with ``kernels="never"``):
+    :func:`compare`, within the kernel limit per element.  Returns
+    [(kernel, cplan, max |error|, share of the limit)]."""
+    from repro_torch.core.codegen import _eval_basic
+    from repro_torch.kernels import ops
+    graph = cplan_obj.plan.graph
+    _in, _out, steps, _free, _seg = cplan_obj._steps()
+    lits = cplan_obj._literals()
+    env = {n.nid: binds[n.name] for n in graph.inputs()}
+    env.update(lits)
+    out = []
+    for step in steps:
+        if step[0] == "basic":
+            env[step[1].nid] = _eval_basic(graph, step[1], env, lits)
+            continue
+        _kind, cp, bind_nids, roots = step
+        senv = {nid: env[nid] for nid in bind_nids}
+        kname = "outer" if cp.ttype.name == "OUTER" else kernel_name(cp)
+        err, share = compare(cp, senv, f"{label} {kname} {cp.variant}")
+        out.append((kname, cp, err, share))
+        val = ops.execute(cp, senv, kernels="never")
+        if len(roots) > 1:
+            for k, r in enumerate(roots):
+                env[r] = val[k].reshape(1, 1)
+        else:
+            env[roots[0]] = val
+    return out
+
+
+def out_rel(outs, refs) -> float:
+    """Largest relative difference of two tuples of outputs, each output's
+    largest |difference| over its reference's largest |value|; infinite
+    when their number or shapes differ or a value is not finite."""
+    if len(outs) != len(refs) or any(a.shape != c.shape
+                                     for a, c in zip(outs, refs)):
+        return math.inf
+    rels = [float((a - c).abs().max()) / max(float(c.abs().max()), 1e-30)
+            for a, c in zip(outs, refs)]
+    return max(rels) if all(math.isfinite(r) for r in rels) else math.inf
+
+
+def fuse_exprs_main(X, y, w, counters) -> dict:
+    """The main-path check of ``fuse_exprs``: each of
+    :func:`fuse_exprs_regions`, hand-built, over the main path's X and y
+    and its trained w (a random direction s for y⊙Xs, the hinge of w for
+    ``out``, λ = LAM), with ``kernels="cuda"`` and the counters set to 0
+    just before each call and read just after; its outputs equal to the
+    ``@fused`` staged path's on the same bindings bit for bit (both run
+    the same whole-plan-cached function); every fused step of its plan
+    held to its plain version on the plan's own values within the kernel
+    limit; a one-step region's outputs held to ``kernels="never"``'s the
+    same way, and a multi-step region's within TRACE_RTOL of them
+    (:func:`out_rel`), the limit that the objective with the planted fold
+    fault (a partial dropped in every reducing kernel) must leave.
+    Returns the launches per kernel and the largest share of the limit."""
+    import torch
+    from repro_torch.core import FusionContext, fuse_exprs
+    from repro_torch.algos import l2svm
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(2025)
+    s = torch.randn((N_MAIN, 1), generator=gen, device="cuda")
+    binds = {"X": X, "y": y, "w": w,
+             "lam": torch.full((1, 1), LAM, device="cuda"),
+             "out": l2svm._hinge(X, w, y), "yXs": y * (X @ s)}
+    shapes = {k: tuple(v.shape) for k, v in binds.items()}
+    launches = {k: 0 for k in counters}
+    worst, failed = 0.0, []
+    for label, region in fuse_exprs_regions():
+        b = {n: binds[n] for n in region.names}
+        with FusionContext(kernels="cuda"):
+            torch.cuda.synchronize()
+            for mod in counters.values():
+                mod.launches = 0
+            with captured_plans() as seen:
+                got = as_tuple(fuse_exprs(hand_built(region, shapes), b))
+            torch.cuda.synchronize()
+            mine = {k: mod.launches for k, mod in counters.items()}
+            staged = as_tuple(region(**b))
+        with FusionContext(kernels="never"):
+            never = as_tuple(fuse_exprs(hand_built(region, shapes), b))
+        for k, n in mine.items():
+            launches[k] += n
+        same = len(got) == len(staged) and all(
+            bool(torch.equal(a, c)) for a, c in zip(got, staged))
+        steps = plan_step_checks(seen[0], b, f"[fuse_exprs] {label}")
+        shares = [sh for _k, _cp, _e, sh in steps]
+        if len(seen[0].plan.specs) == 1:
+            # the region is one fused step: its outputs are the step's
+            _k, cp, _e, _s = steps[0]
+            names = {n.nid: n.name for n in seen[0].plan.graph.inputs()}
+            env = {bd.nid: b[names[bd.nid]] for bd in cp.binds}
+            whole = torch.cat([o.reshape(-1, 1) for o in got]) \
+                if len(got) > 1 else got[0]
+            err, share = measure(cp, env, whole,
+                                 f"[fuse_exprs] {label} vs never")
+            shares.append(share)
+            vs_never = f"{err:.3e} = {share:.3g} x limit"
+        else:
+            rel = out_rel(got, never)
+            vs_never = (f"largest relative difference {rel:.3e} (limit "
+                        f"{TRACE_RTOL:g})")
+            if not rel <= TRACE_RTOL:
+                failed.append(f"{label}: {rel:.3e} from never")
+        if label == "objective":
+            want = float(never[0])
+        worst = max([worst] + shares)
+        log(f"[fuse_exprs] {label:12s} steps "
+            f"{[(k, cp.variant) for k, cp, _e, _s in steps]}: launches "
+            f"{json.dumps(mine)}; = @fused staged bit for bit {same}; "
+            f"kernel vs plain per step {[f'{sh:.3g}' for sh in shares]} x "
+            f"limit; vs never {vs_never}")
+        if not same:
+            failed.append(f"{label}: fuse_exprs differs from @fused")
+        if not max(shares) <= 1.0:
+            failed.append(f"{label}: over the kernel limit")
+        if sum(mine.values()) < len(steps):
+            failed.append(f"{label}: {mine} launches for {len(steps)} "
+                          f"fused steps")
+    b = {n: binds[n] for n in l2svm._objective_full.names}
+    expr = hand_built(l2svm._objective_full, shapes)
+    with FusionContext(kernels="cuda"), planted_fault():
+        bad = float(fuse_exprs(expr, b))
+    rel_fault = trace_rel([bad], [want])
+    log(f"[fuse_exprs] planted fault (a partial dropped in every reducing "
+        f"kernel) on the objective: {bad} vs never {want}, relative "
+        f"{rel_fault:.3e} (must exceed {TRACE_RTOL:g})")
+    if not rel_fault > TRACE_RTOL:
+        failed.append("the planted fault passed the fuse_exprs check")
+    missing = [k for k in ("cell", "magg", "row") if launches[k] == 0]
+    if missing:
+        failed.append(f"fuse_exprs never launched {missing}")
+    log(f"[fuse_exprs] main path {X.shape[0]}x{X.shape[1]}: launches "
+        f"{json.dumps(launches)}, largest share of the limit {worst:.3g}; "
+        f"wall {time.perf_counter() - t0:.1f} s")
+    if failed:
+        raise AssertionError("[fuse_exprs]: " + "; ".join(failed))
+    return {"launches": launches, "worst_share": worst}
 
 
 def kernel_name(cplan) -> str:
@@ -2487,8 +2729,15 @@ DIST_PG_TIMEOUT_S = 120
 #: sizes reduces its ranks' too)
 #: the [dist] paths each rank runs, counted and checked one by one
 DIST_PATHS = ("l2svm", "mlogreg", "segment", "outer")
+#: the fused loss under ``TrainConfig(fusion_layout=mesh)``: logits of
+#: [lm-train-sharded]'s global batch (4 x 128 tokens) over minitron-4b's
+#: vocabulary, 128 rows a rank
+DIST_LOSS_SHAPE = (512, 256000)
+#: its loss and gradient against local planning's and kernels="never"'s
+#: (the gradient relative to its largest element)
+DIST_LOSS_RTOL = 1e-5
 DIST_SIZES = ("M_MAIN", "ITERS", "MLR_OUTER", "MLR_INNER", "DIST_SEG_SHAPE",
-              "ALS_SHAPE", "DIST_FAULT_ITERS")
+              "ALS_SHAPE", "DIST_FAULT_ITERS", "DIST_LOSS_SHAPE")
 
 
 def dist_segment_expr(ir):
@@ -2616,7 +2865,8 @@ class PanelCalls:
         ops.execute = rec
 
 
-def panel_checks(mesh, calls: PanelCalls, label: str) -> list:
+def panel_checks(mesh, calls: PanelCalls, label: str,
+                 library=None) -> list:
     """Each recorded panel call again, one rank at a time, as the CPlan of
     its panel (``panel_cplan``) on its panel operands, aligned once
     before: its CUDA output held to its plain version on the same panel
@@ -2626,7 +2876,10 @@ def panel_checks(mesh, calls: PanelCalls, label: str) -> list:
     path and the panel's preparation are outside it), the profiler's
     device ms (:func:`device_ms`, kept to compare: in a rank process it
     has read panels under their HBM bound) and the call's CUDA-event ms
-    (:func:`time_ms`, the host's launch path included)."""
+    (:func:`time_ms`, the host's launch path included).  With
+    ``library`` (``(label, panel cplan, operands) -> callable``) the
+    plain version's and that library call's device ms (queued events)
+    are taken too."""
     import torch
     from repro_torch.core.cplan import panel_cplan
     from repro_torch.kernels import cuda_src
@@ -2657,8 +2910,17 @@ def panel_checks(mesh, calls: PanelCalls, label: str) -> list:
                     "max_abs_err": err, "share": share, "ms": ms,
                     "device_ms": dev, "profiler_ms": prof,
                     "bound_ms": b_ms, "bound_by": b_by}
+            if kname != "outer":
+                part["layout"] = layout_name(pcp)
             lib = ""
-            if kname == "cell" and sum_of_squares(pcp):
+            if library is not None:
+                call = library(label, pcp, penv)
+                part["plain_device_ms"] = queued_ms(
+                    lambda: calls.execute(pcp, penv, kernels="never"))
+                part["library_device_ms"] = queued_ms(call)
+                lib = (f", plain {part['plain_device_ms']} ms, library "
+                       f"{part['library_device_ms']} ms (device)")
+            elif kname == "cell" and sum_of_squares(pcp):
                 # Σw² on the panel: torch.dot of the panel with itself
                 call = _sum_sq_call(pcp, penv)
                 part["library_ms"] = time_ms(call)
@@ -2900,6 +3162,142 @@ def dist_outer(mesh, rows, calls) -> dict:
     return rec
 
 
+def dist_fuse_exprs(mesh, rows, calls) -> dict:
+    """``fuse_exprs`` of the hand-built hinge under
+    ``fusion_mode(layout=mesh)`` over the main path's X and y (w from a
+    seed): its Row launches on the rank's M_MAIN / DIST_RANKS-row panel,
+    its output equal to the staged ``_hinge.trace(...).plan(layout=mesh)``
+    path's bit for bit, its panel call held to plain and timed
+    (:func:`panel_checks`), and rank 1's panel dropped from the
+    all-gather, which must fail the kernel limit on those rows."""
+    import torch
+    from repro_torch.algos import l2svm
+    from repro_torch.core import fuse_exprs, fusion_mode
+    X, y = l2svm_data(M_MAIN)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    binds = {"X": X, "w": 0.1 * torch.randn((N_MAIN, 1), generator=g,
+                                            device="cuda"), "y": y}
+    expr = hand_built(l2svm._hinge, {k: tuple(v.shape)
+                                     for k, v in binds.items()})
+    rec = {}
+    with fusion_mode(layout=mesh), captured_plans() as seen:
+        with dist_run(mesh, rows, calls, rec):
+            got = fuse_exprs(expr, binds)
+        staged = l2svm._hinge.trace(**binds).plan(layout=mesh).compile()(
+            **binds)
+    rec["same_bits"] = bool(torch.equal(got, staged))
+    rec["fallbacks"] = seen[0].fallbacks
+    rec["seg_steps"] = len(seen[0]._seg_plans)
+    (cp,) = seen[0].cplans()
+    names = {nd.nid: nd.name for nd in seen[0].plan.graph.inputs()}
+    env = {b.nid: binds[names[b.nid]] for b in cp.binds}
+    panel = M_MAIN // DIST_RANKS
+    one = slice(panel, panel + min(panel, MEASURE_ROWS))   # rank 1's rows
+    sub = {k: (v[one] if v.shape[0] == M_MAIN else v) for k, v in env.items()}
+    gather = mesh.all_gather
+
+    def drop_rank1(p, dim=0, over="row"):
+        out = gather(p, dim, over)
+        out[p.shape[0]:2 * p.shape[0]] = 0.0
+        return out
+
+    mesh.all_gather = drop_rank1
+    try:
+        with fusion_mode(layout=mesh):
+            bad = fuse_exprs(expr, binds)
+    finally:
+        del mesh.all_gather
+    # rank 1's rows (a million of them) of the sound and the planted
+    # output, each held to the whole CPlan's plain version on those rows
+    rec["share"], rec["planted_share"] = one_rank_at_a_time(
+        mesh, lambda: (
+            _measure(cp, sub, got[one], "[dist] fuse_exprs")[1],
+            _measure(cp, sub, bad[one], "[dist] fuse_exprs, rank 1's "
+                                        "panel dropped")[1]))
+    log(f"[dist] rank {mesh.rank} fuse_exprs hinge {M_MAIN}x{N_MAIN} under "
+        f"the mesh: {rec['seg_steps']} segment steps, launches "
+        f"{rec['launches']} by rows {rec['launch_rows']}, "
+        f"{rec['collectives']} collectives; = the staged path bit for bit "
+        f"{rec['same_bits']}; rank 1's rows {rec['share']:.3g} x limit, "
+        f"with rank 1's panel dropped {rec['planted_share']:.3g} x limit; "
+        f"wall {rec['wall_s']:.2f} s")
+    rec["panels"] = panel_checks(mesh, calls, "fuse_exprs")
+    calls.calls.clear()
+    del X, y, binds, got, staged, bad, env, sub
+    torch.cuda.empty_cache()
+    return rec
+
+
+def loss_panel_library(label, pcp, penv):
+    """The library call of a loss panel: the forward's
+    ``torch.logsumexp``, the backward's ``softmax`` then ``mul_``."""
+    return loss_library("_lse:vjp" if len(pcp.binds) > 1 else "_lse",
+                        penv, pcp)
+
+
+def dist_loss(mesh, rows, calls) -> dict:
+    """The fused softmax-CE loss (``launch.train._ce``) under
+    ``TrainConfig(fusion="gen", fusion_layout=mesh)`` over DIST_LOSS_SHAPE
+    logits N(0, 2²) and random targets, with its gradient: each rank runs
+    the log-sum-exp Row plan and its planned backward on its own rows
+    (one segment step each way, the Row kernel's staged layout), counted;
+    the loss and gradient within DIST_LOSS_RTOL of local planning's and of
+    ``kernels="never"``'s under the mesh; the planted staged-chunk fault
+    must leave that bound; each panel call held to plain and timed beside
+    its bound, the plain version and the library call."""
+    import torch
+    from repro_torch.core import fusion_mode
+    from repro_torch.launch import train
+    R, V = DIST_LOSS_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(13)
+    L = 2.0 * torch.randn((R, V), generator=g, device="cuda")
+    t = torch.randint(0, V, (R,), generator=g, device="cuda")
+
+    def loss_grad(tc, **ctx):
+        with fusion_mode(**ctx):
+            x = L.detach().requires_grad_(True)
+            loss = train._ce(x, t, tc)
+            (gx,) = torch.autograd.grad(loss, x)
+        return float(loss.detach()), gx
+
+    def errs(a, b):
+        return (abs(a[0] - b[0]) / max(abs(b[0]), 1e-30),
+                float((a[1] - b[1]).abs().max())
+                / max(float(b[1].abs().max()), 1e-30))
+
+    tc = train.TrainConfig(fusion="gen", fusion_layout=mesh)
+    train._LSE_OPS.clear()
+    rec = {}
+    with dist_run(mesh, rows, calls, rec):
+        got = loss_grad(tc)
+    (op,) = train._LSE_OPS.values()
+    rec["seg_steps"] = [len(op._cplan._seg_plans),
+                        len(op._bwd_compiled._seg_plans)]
+    rec["fallbacks"] = op.explain()["execution"]["fallbacks"]
+    rec["loss"] = got[0]
+    rec["err_local"] = errs(got, loss_grad(train.TrainConfig(fusion="gen")))
+    rec["err_never"] = errs(got, loss_grad(tc, kernels="never"))
+    with planted_fault():
+        bad = loss_grad(tc)
+    rec["err_planted"] = [e if math.isfinite(e) else math.inf
+                          for e in errs(bad, got)]
+    log(f"[dist] rank {mesh.rank} fused loss {R}x{V} under "
+        f"fusion_layout=mesh: loss {got[0]!r}; segment steps (forward, "
+        f"backward) {rec['seg_steps']}; launches {rec['launches']} by rows "
+        f"{rec['launch_rows']}, {rec['collectives']} collectives "
+        f"{rec['collective_ms']:.1f} ms; relative (loss, gradient) error vs "
+        f"local planning {rec['err_local']}, vs never {rec['err_never']}; "
+        f"planted chunk fault {rec['err_planted']}; wall "
+        f"{rec['wall_s']:.2f} s")
+    rec["panels"] = panel_checks(mesh, calls, "loss",
+                                 library=loss_panel_library)
+    calls.calls.clear()
+    del L, t, got, bad, op
+    train._LSE_OPS.clear()
+    torch.cuda.empty_cache()
+    return rec
+
+
 def dist_rank(rank: int, world: int, init: str, outdir: str,
               sizes: str) -> None:
     """One rank of the [dist] phase (``--dist-rank``): takes the phase's
@@ -2925,21 +3323,29 @@ def dist_rank(rank: int, world: int, init: str, outdir: str,
         from repro_torch.dist import Mesh
         mesh = Mesh({"data": world}, device="cuda:0")
         rows, calls = LaunchRows(), PanelCalls()
-        res = {"rank": rank, "part": mesh.part}
-        res["l2svm"] = dist_algo(
-            mesh, rows, calls, "l2svm", lambda: l2svm_data(M_MAIN),
-            lambda ops_, max_iter=ITERS, **kw: l2svm.run(
-                *ops_, max_iter=max_iter, **kw),
-            [l2svm._hinge, l2svm._search_terms, l2svm._objective_full],
-            fault_kw={"max_iter": DIST_FAULT_ITERS})
-        res["mlogreg"] = dist_algo(
-            mesh, rows, calls, "mlogreg", lambda: mlogreg_data(M_MAIN),
-            lambda ops_, **kw: mlogreg.run(
-                *ops_, lam=LAM, max_outer=MLR_OUTER, max_inner=MLR_INNER,
-                **kw),
-            [mlogreg._probs, mlogreg._nll_obj_reg, mlogreg._hvp])
-        res["segment"] = dist_segment(mesh, rows, calls)
-        res["outer"] = dist_outer(mesh, rows, calls)
+        res = {"rank": rank, "part": mesh.part, "walls": {}}
+        paths = {
+            "l2svm": lambda: dist_algo(
+                mesh, rows, calls, "l2svm", lambda: l2svm_data(M_MAIN),
+                lambda ops_, max_iter=ITERS, **kw: l2svm.run(
+                    *ops_, max_iter=max_iter, **kw),
+                [l2svm._hinge, l2svm._search_terms, l2svm._objective_full],
+                fault_kw={"max_iter": DIST_FAULT_ITERS}),
+            "mlogreg": lambda: dist_algo(
+                mesh, rows, calls, "mlogreg", lambda: mlogreg_data(M_MAIN),
+                lambda ops_, **kw: mlogreg.run(
+                    *ops_, lam=LAM, max_outer=MLR_OUTER,
+                    max_inner=MLR_INNER, **kw),
+                [mlogreg._probs, mlogreg._nll_obj_reg, mlogreg._hvp]),
+            "segment": lambda: dist_segment(mesh, rows, calls),
+            "outer": lambda: dist_outer(mesh, rows, calls),
+            "fuse_exprs": lambda: dist_fuse_exprs(mesh, rows, calls),
+            "loss": lambda: dist_loss(mesh, rows, calls)}
+        for name, path in paths.items():
+            # each path's wall on this rank, its checks and timings in
+            t0 = time.perf_counter()
+            res[name] = path()
+            res["walls"][name] = round(time.perf_counter() - t0, 2)
         (Path(outdir) / f"rank{rank}.json").write_text(json.dumps(res))
     finally:
         dist.destroy_process_group()
@@ -2982,6 +3388,8 @@ def dist_phase(traces: dict) -> dict:
             if line.startswith("[dist]"):
                 log(line)
     dist_rec = dist_check(ranks, traces)
+    log("[dist] rank walls s a path, checks and timings in: " + json.dumps(
+        {res["rank"]: res["walls"] for res in ranks}))
     log(f"[dist] phase wall {time.perf_counter() - t0:.1f} s")
     return dist_rec
 
@@ -3032,6 +3440,45 @@ def dist_check(ranks: list, traces: dict) -> dict:
         if not res["outer"]["share"] <= 1.0:
             failed.append(f"rank {r} outer: {res['outer']['share']:.3g} x "
                           f"limit")
+
+    # fuse_exprs of the hinge and the fused loss under the mesh
+    loss_rows = DIST_LOSS_SHAPE[0] // DIST_RANKS
+    for res in ranks:
+        r, fe, lo = res["rank"], res["fuse_exprs"], res["loss"]
+        on_panel = fe["launch_rows"].get(f"row@{panel}", 0)
+        if not (fe["same_bits"] and fe["seg_steps"] == 1
+                and not fe["fallbacks"] and fe["share"] <= 1.0
+                and on_panel == fe["launches"]["row"] >= 1):
+            failed.append(f"rank {r} fuse_exprs: bit-equal "
+                          f"{fe['same_bits']}, segment steps "
+                          f"{fe['seg_steps']}, fallbacks {fe['fallbacks']}, "
+                          f"{fe['share']:.3g} x limit, row launches "
+                          f"{fe['launches']['row']} ({on_panel} on panels)")
+        if not fe["planted_share"] > 1.0:
+            failed.append(f"rank {r}: the fuse_exprs panel dropped passed")
+        on_panel = lo["launch_rows"].get(f"row@{loss_rows}", 0)
+        layouts = {t.get("layout") for t in lo["panels"]}
+        worst = max(lo["err_local"] + lo["err_never"])
+        log(f"[dist] rank {r} fused loss under the mesh: largest relative "
+            f"error vs local planning and never {worst:.3e} (tolerance "
+            f"{DIST_LOSS_RTOL:g}); planted {lo['err_planted']}; row "
+            f"launches {lo['launches']['row']} ({on_panel} on "
+            f"{loss_rows}-row panels), layouts {sorted(layouts)}")
+        if not (worst <= DIST_LOSS_RTOL and lo["seg_steps"] == [1, 1]
+                and not lo["fallbacks"]
+                and on_panel == lo["launches"]["row"] == 2
+                and layouts == {"staged"}):
+            failed.append(f"rank {r} fused loss: error {worst:.3e}, segment "
+                          f"steps {lo['seg_steps']}, fallbacks "
+                          f"{lo['fallbacks']}, row launches "
+                          f"{lo['launches']['row']} ({on_panel} on panels), "
+                          f"layouts {sorted(layouts)}")
+        if not max(lo["err_planted"]) > DIST_LOSS_RTOL:
+            failed.append(f"rank {r}: the planted loss fault passed")
+        for t in fe["panels"] + lo["panels"]:
+            if not t["share"] <= 1.0:
+                failed.append(f"rank {r} {t['region']} panel: "
+                              f"{t['share']:.3g} x limit")
 
     # every panel call held to its plain version, on every rank
     for res in ranks:
@@ -3085,6 +3532,19 @@ def dist_check(ranks: list, traces: dict) -> dict:
     log(f"[dist] collective wall ms per rank (l2svm, mlogreg, segment, "
         f"outer): " + json.dumps([[round(res[p]["collective_ms"], 1)
                                    for p in DIST_PATHS] for res in ranks]))
+    # the fused loss's rank panels, forward and backward: rank 0's
+    # readings (one rank on the card at a time), the worst check and the
+    # launches over every rank's counted run (one each way a rank)
+    dist_rec["loss_panels"] = {}
+    for name, nbinds in (("row_loss_panel", 1), ("row_loss_vjp_panel", 2)):
+        (part,) = [t for t in ranks[0]["loss"]["panels"]
+                   if len(t["binds"]) == nbinds]
+        checks = [t for res in ranks for t in res["loss"]["panels"]
+                  if len(t["binds"]) == nbinds]
+        dist_rec["loss_panels"][name] = dict(
+            part, launches=sum(res["loss"]["launches"]["row"] // 2
+                               for res in ranks),
+            max_abs_err=max(t["max_abs_err"] for t in checks))
     return dist_rec
 
 
@@ -5829,6 +6289,7 @@ def run() -> None:
             tails += [(c, m, n, sweep.with_rows(cp33, m), names)
                       for m in TAIL_ROWS]
     main_cps = main_path_cplans(m_main, N_MAIN)
+    fuse_cps = fuse_exprs_cplans(m_main, N_MAIN)
     # the request-axis checks: the sweep at BATCH_SHAPES (the sources of
     # the plain sweep: m is a run-time argument), the batch regions at the
     # main path's width and at the serving harness's
@@ -5839,7 +6300,7 @@ def run() -> None:
     serve_cps = batch_region_cplans(SERVE_FEATURES, SERVE_CLASSES)
     paths = algo_paths(m_main)
     path_cps = {path.name: path_cplans(path) for path in paths}
-    dense_cps = [cp for _r, cp in main_cps] + [
+    dense_cps = [cp for _r, cp in main_cps + fuse_cps] + [
         cp for cps in path_cps.values() for _r, cp in cps]
     sources = {}
     for cp in [p[3] for p in planned + tails + planned_batch] + dense_cps \
@@ -6031,6 +6492,7 @@ def run() -> None:
         raise AssertionError("planted fault passed the trace check")
     profile_run(f"l2svm.run kernels=cuda, {ITERS} iterations",
                 lambda: l2svm.run(X, y, max_iter=ITERS, kernels="cuda"))
+    fuse_rec = fuse_exprs_main(X, y, w, counters)
     del X, y, w, _w2, _w3, _w4
 
     # 6. timing at the main path's shapes ----------------------------------
@@ -6084,6 +6546,10 @@ def run() -> None:
     examples_phase()
 
     # 23. result lines -------------------------------------------------------
+    fuse_launches = dict(fuse_rec["launches"],
+                         outer=als["fuse_exprs"]["launches"])
+    log(f"[fuse_exprs] launches added by the fuse_exprs checks (main path "
+        f"and [als]): {json.dumps(fuse_launches)}")
     rows = []
     for k, (src, replaces) in KERNELS.items():
         agg = per_kernel[k]
@@ -6098,7 +6564,8 @@ def run() -> None:
                     "update, loss)" if k == "outer" else
                     "one call of each main-path CPlan it runs, summed over "
                     "L2SVM, MLogReg, GLM, KMeans and the autoencoder"),
-            "parts": agg["parts"], "dist": dist_rec[k]})
+            "parts": agg["parts"], "dist": dist_rec[k],
+            "fuse_exprs_launches": fuse_launches[k]})
     for bname, k in BATCHED.items():
         agg = per_kernel[bname]
         rows.append({
@@ -6166,6 +6633,27 @@ def run() -> None:
                     f"a rank's {part['rows']} x 256,000 fp32 logits in "
                     f"[lm-train-sharded]; launches: every rank's in its "
                     f"full-depth run (c)"),
+            "parts": [part]})
+    for name, what in (("row_loss_panel", "forward: log-sum-exp rows"),
+                       ("row_loss_vjp_panel", "planned backward")):
+        part = dist_rec["loss_panels"][name]
+        dev = part["device_ms"]
+        rows.append({
+            "name": name, "route": "cuda", "source": KERNELS["row"][0],
+            "replaces": KERNELS["row"][1], "launches": part["launches"],
+            "max_abs_err": part["max_abs_err"],
+            "ms": dev if dev is not None else part["ms"],
+            "ms_from": ("queued CUDA events" if dev is not None else
+                        "the call's CUDA events"),
+            "plain_ms": part["plain_device_ms"],
+            "bound_ms": part["bound_ms"], "bound_by": part["bound_by"],
+            "library_ms": part["library_device_ms"],
+            "layout": part["layout"], "skeleton": STAGED_SKELETON,
+            "per": (f"one call of the fused softmax-CE loss's {what} over "
+                    f"a rank's row panel {part['binds'][0]} of "
+                    f"{DIST_LOSS_SHAPE[0]} x {DIST_LOSS_SHAPE[1]} fp32 "
+                    f"logits under TrainConfig(fusion_layout=mesh) in "
+                    f"[dist]; launches: every rank's in its counted run"),
             "parts": [part]})
     log(json.dumps({"kernels": rows}))
     log(card_line())
@@ -6282,11 +6770,65 @@ def als_phase(counters, launches, main_err) -> dict:
                 failed.append(f"planted fold fault in {label} passed the "
                               f"kernel check")
 
-    # timing at the main path's shapes
     rec = outer_times(cps, envs)
+    del envs
+    rec["fuse_exprs"] = als_fuse_exprs(X, failed)
     if failed:
         raise AssertionError("; ".join(failed))
     return rec
+
+
+def als_fuse_exprs(X, failed: list) -> dict:
+    """ALS's ``_wsq_mm`` hand-built with a BCSR leaf and run once through
+    ``fuse_exprs`` on the Netflix-shaped X (U and V drawn from a seed),
+    the Outer counter set to 0 just before and read just after: equal to
+    the ``@fused`` path's on the same bindings bit for bit, within the
+    kernel limit of its plain version, and with the planted fault
+    (``right_mm`` skips the middle block of every block row) over it.
+    Appends what failed to ``failed``; returns the launches and the
+    reading."""
+    import torch
+    from repro_torch.algos import als_cg
+    from repro_torch.core import fuse_exprs
+    from repro_torch.kernels import outerprod
+    t0 = time.perf_counter()
+    m, n = X.shape
+    g = torch.Generator(device="cuda").manual_seed(25)
+    binds = {"X": X,
+             "U": 0.1 * torch.randn((m, ALS_RANK), generator=g,
+                                    device="cuda"),
+             "V": 0.1 * torch.randn((n, ALS_RANK), generator=g,
+                                    device="cuda")}
+    shapes = {k: tuple(v.shape) for k, v in binds.items()}
+    expr = hand_built(als_cg._wsq_mm, shapes, {"X": X.block_sparsity})
+    torch.cuda.synchronize()
+    outerprod.launches = 0
+    with captured_plans() as seen:
+        got = fuse_exprs(expr, binds)
+    torch.cuda.synchronize()
+    launches = outerprod.launches
+    same = bool(torch.equal(got, als_cg._wsq_mm(**binds)))
+    (cp,) = seen[0].cplans()
+    names = {nd.nid: nd.name for nd in seen[0].plan.graph.inputs()}
+    env = {b.nid: binds[names[b.nid]] for b in cp.binds}
+    err, share = measure(cp, env, got, "[als] fuse_exprs _wsq_mm")
+    with planted_fault():
+        bad = fuse_exprs(expr, binds)
+    planted_share = fault_share(cp, env, bad, "[als] planted fuse_exprs")
+    log(f"[als] fuse_exprs _wsq_mm over the BCSR X {m}x{n}: launches "
+        f"outer {launches}; = @fused bit for bit {same}; max|kernel-plain| "
+        f"{err:.3e} = {share:.3g} x limit; planted fault (middle blocks "
+        f"skipped) {planted_share:.3g} x limit; wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not same:
+        failed.append("fuse_exprs _wsq_mm differs from @fused")
+    if not (launches >= 1 and share <= 1.0):
+        failed.append(f"fuse_exprs _wsq_mm: launches {launches}, "
+                      f"{share:.3g} x limit")
+    if not planted_share > 1.0:
+        failed.append("the planted fault passed the fuse_exprs _wsq_mm "
+                      "check")
+    return {"launches": launches, "max_abs_err": err, "share": share}
 
 
 def times_only() -> None:

@@ -109,6 +109,17 @@ def _same_device(a: torch.device, b: torch.device) -> bool:
     return a.type == b.type and index(a) == index(b)
 
 
+def _check_mesh_device(device: torch.device, layout) -> None:
+    """A plan under a :class:`~repro_torch.dist.Mesh` runs on the mesh's
+    device: raise when the context names another."""
+    mesh = getattr(layout, "mesh", None)
+    if _is_real_mesh(mesh) and not _same_device(device, mesh.device):
+        raise ValueError(
+            f"the context's device {str(device)!r} is not the "
+            f"mesh's {str(mesh.device)!r}: a rank runs its plans on its "
+            f"mesh's device (FusionContext(device=mesh.device))")
+
+
 def _uncanon_output(out):
     """(n, 1) columns → 1-D ``(n,)``, (1, 1) → 0-D (vector-world calls)."""
     shape = tuple(out.shape)
@@ -526,13 +537,7 @@ class Compiled:
         self.planned = planned
         ctx = planned.context
         self.device = resolve_device(ctx.device)
-        mesh = getattr(ctx.layout, "mesh", None)
-        if _is_real_mesh(mesh) and not _same_device(self.device,
-                                                    mesh.device):
-            raise ValueError(
-                f"the context's device {str(self.device)!r} is not the "
-                f"mesh's {str(mesh.device)!r}: a rank runs its plans on its "
-                f"mesh's device (FusionContext(device=mesh.device))")
+        _check_mesh_device(self.device, ctx.layout)
         self._cplan: CompiledPlan = compile_plan(
             planned.eplan, kernels=ctx.kernels, device=str(self.device),
             staged=ctx.staged, layout=ctx.layout,
@@ -683,3 +688,37 @@ def fused(fn: Optional[Callable] = None, *, sparsity: Optional[dict] = None):
     if fn is None:
         return lambda f: Fused(f, sparsity=sparsity)
     return Fused(fn, sparsity=sparsity)
+
+
+def fuse_exprs(outputs, bindings: dict[str, object],
+               mode: Optional[str] = None):
+    """One-shot: plan and execute a hand-built expression DAG under the
+    scoped :class:`FusionContext` (``mode`` overrides its mode), honouring
+    its layout the same way the staged path does.
+
+    ``outputs`` is one :mod:`~repro_torch.core.ir` expression or a list /
+    tuple of them; ``bindings`` maps every input name to its value — a
+    numpy array, a tensor, a BCSR or a DictCompressed — placed on the
+    context's device as :class:`Compiled` places operands.  Returns one
+    2-D tensor, or a tuple for several outputs.  The plan runs through
+    the whole-plan cache (``staged``), so a call shares its staged
+    function with every structurally-equal plan.  There is no planned
+    backward here: differentiate a :func:`fused` region instead."""
+    ctx = current_context()
+    if mode is not None:
+        ctx = ctx.with_(mode=mode)
+    graph = ir.Graph.build(list(outputs) if isinstance(outputs, (list, tuple))
+                           else [outputs])
+    if ctx.layout is not None and not isinstance(ctx.layout, FusionLayout):
+        ctx = ctx.with_(layout=ensure_layout(ctx.layout, graph))
+    device = resolve_device(ctx.device)
+    _check_mesh_device(device, ctx.layout)
+    eff = layout_cost_params(ctx.layout, graph, ctx.params)
+    eplan = plan_graph(graph, ctx.mode, eff)
+    # every rank holds whole operands on the mesh's device (checked
+    # above), so the reference's placement through ``layout.apply`` has
+    # nothing to move here: the compiled plan cuts each rank's row panel
+    bindings = {n: _canon_value(n, v, device) for n, v in bindings.items()}
+    return compile_plan(eplan, kernels=ctx.kernels, device=str(device),
+                        staged=ctx.staged, layout=ctx.layout,
+                        strict=ctx.verify == "strict")(bindings)

@@ -139,16 +139,22 @@ def current_context() -> FusionContext:
     return s[-1] if s else _DEFAULT
 
 
+# backwards-compatible alias (pre-staged-API name)
+current_config = current_context
+
+
 @contextlib.contextmanager
 def fusion_mode(mode: Optional[str] = None, kernels: Optional[str] = None,
                 device: Optional[str] = None,
                 params: Optional[CostParams] = None,
                 layout: Any = None,
+                staged: Optional[bool] = None,
                 verify: Optional[str] = None,
                 rewrite: Optional[bool] = None):
     """Sugar: scope a context derived from the current one."""
     kw = {k: v for k, v in dict(mode=mode, kernels=kernels, device=device,
-                                params=params, layout=layout, verify=verify,
+                                params=params, layout=layout, staged=staged,
+                                verify=verify,
                                 rewrite=rewrite).items() if v is not None}
     ctx = current_context().with_(**kw)
     with ctx:

@@ -21,7 +21,8 @@ plans):
   priced at the reference's TPU figure (``TPU_V5E.ici_bw``, 50 GB/s), so
   the port selects the reference's plans.
 * **execution** — on a :class:`~repro_torch.dist.Mesh` every rank holds
-  whole operands; operators the plan placed *distributed* run their
+  whole operands (:meth:`FusionLayout.apply` places each on the mesh's
+  device, whole); operators the plan placed *distributed* run their
   generated kernels on the rank's row panels and join them with the
   template's collective (:mod:`repro_torch.kernels.distributed`).
 """
@@ -113,6 +114,25 @@ class FusionLayout:
         """Total row-shard degree (Π row-axis sizes; 1 on a 1-D TP mesh)."""
         from repro_torch.dist import sharding as sh
         return sh.axis_size(self.mesh, self.row_axes())
+
+    def apply(self, name: str, value):
+        """Place one dense operand for execution under this layout
+        (identity when the name has no spec, the value is sparse — BCSR or
+        DictCompressed — or the mesh is abstract).  On a
+        :class:`~repro_torch.dist.Mesh` every rank holds whole operands:
+        the value stays the whole logical operand, moved to the mesh's
+        device, and the compiled plan cuts each rank's row panel itself
+        (``compile_plan(layout=)``)."""
+        import numpy as np
+        import torch
+        from repro_torch.dist import Mesh
+        spec = self.specs.get(name)
+        if spec is None or hasattr(value, "todense") \
+                or not isinstance(self.mesh, Mesh):
+            return value
+        if isinstance(value, torch.Tensor):
+            return value.to(self.mesh.device)
+        return torch.as_tensor(np.asarray(value), device=self.mesh.device)
 
 
 def ensure_layout(layout, graph: Graph,

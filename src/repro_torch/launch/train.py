@@ -19,10 +19,10 @@ one rank's part of the reference's global SPMD step on a model placed by
 rank's data block of each microbatch, the forward and backward on the
 rank's blocks with the collectives' differentiable forms
 (:mod:`repro_torch.models.sharded`), the fused loss on the rank's rows,
-the loss averaged over the row group, FSDP leaves' gradients
-reduce-scattered by the backward and the others all-reduced over the row
-axes they are replicated on, the global gradient norm with every block
-counted once, and AdamW on the rank's blocks.
+the loss averaged over the row group, FSDP leaves' gradients reduce-scattered by
+the backward and the others all-reduced over the row axes they are
+replicated on, the global gradient norm with every block counted once,
+and AdamW on the rank's blocks.
 
 The CLI runs on one device, or over the ranks of a process group
 (``--ranks N`` starts them through ``dist.launch.run_ranks``) on
@@ -36,11 +36,14 @@ from __future__ import annotations
 import tempfile
 from dataclasses import dataclass
 from pathlib import Path
+from typing import Optional
+
 import torch
 from torch.func import functional_call
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
-from repro_torch.core import current_context, fused, ir
+from repro_torch.core import FusionLayout, current_context, fused, ir
+from repro_torch.core.layout import layout_signature
 from repro_torch.models import LM, lm_loss
 from repro_torch.models.lm import N_PATCHES
 from repro_torch.optim import adamw
@@ -51,6 +54,17 @@ class TrainConfig:
     n_microbatches: int = 1
     moe_aux_weight: float = 0.01
     fusion: str = "off"          # off | gen | fa | fnr  (planner arm)
+    #: mesh or FusionLayout for the fused-loss planner: the LSE Row chain
+    #: iterates flattened (B·S) token rows, so under a layout the planner
+    #: may place it distributed (row-partitioned, no collective).  Under a
+    #: ``LogicalMesh`` the plan is priced for the mesh and runs locally; on
+    #: a ``Mesh`` of ranks each rank runs the plan over its row panel.
+    #: ``make_train_step(mesh=)`` takes a ``LogicalMesh`` only: its loss
+    #: already runs on the rank's rows.  None keeps local planning.
+    fusion_layout: Optional[object] = None
+    #: whole-plan staged execution of the fused loss (False: per-operator
+    #: dispatch — the debug path; see repro_torch.core.codegen.CompiledPlan)
+    fusion_staged: bool = True
     opt: adamw.OptConfig = adamw.OptConfig()
 
 
@@ -61,25 +75,27 @@ def _lse(L):
 
 
 #: the compiled fused LSE operators, one per (shape, mode, context,
-#: device)
+#: device, layout, staged)
 _LSE_OPS: dict = {}
 
 
-def _fused_lse(logits2d: torch.Tensor, mode: str) -> torch.Tensor:
+def _fused_lse(logits2d: torch.Tensor, mode: str, layout=None,
+               staged: bool = True) -> torch.Tensor:
     """log-sum-exp rows (``(rows, 1)``) through the fusion planner (Row
     template: rowmax → sub → exp → rowsums → log → add), staged
-    explicitly: trace → plan → compile once per (shape, mode) under the
-    current context's kernel policy on ``logits2d``'s device, then reuse
-    the Compiled operator.  Differentiable: the backward pass runs the
-    planned gradient DAG.  It plans locally and runs whole-plan staged:
-    the sharded step runs it on each rank's rows, and nothing asks for the
-    reference's ``layout`` / ``staged`` options (ROADMAP.md)."""
+    explicitly: trace → plan → compile once per (shape, mode, layout,
+    staged) under the current context's kernel policy on ``logits2d``'s
+    device, then reuse the Compiled operator — whole-plan staged by
+    default (``staged=False`` keeps per-operator dispatch for debugging).
+    Differentiable: the backward pass runs the planned gradient DAG, under
+    the same layout."""
     ctx = current_context()
-    key = (tuple(logits2d.shape), mode, ctx.key(), str(logits2d.device))
+    key = (tuple(logits2d.shape), mode, ctx.key(), str(logits2d.device),
+           layout_signature(layout), staged)
     op = _LSE_OPS.get(key)
     if op is None:
-        op = _lse.trace(logits2d).plan(mode=mode).compile(
-            device=str(logits2d.device))
+        op = _lse.trace(logits2d).plan(mode=mode, layout=layout).compile(
+            staged=staged, device=str(logits2d.device))
         _LSE_OPS[key] = op
     return op(logits2d)
 
@@ -89,7 +105,8 @@ def _ce(logits, targets, tc: TrainConfig):
         return lm_loss(logits, targets)
     V = logits.shape[-1]
     flat = logits.reshape(-1, V).float()
-    lse = _fused_lse(flat, tc.fusion)
+    lse = _fused_lse(flat, tc.fusion, layout=tc.fusion_layout,
+                     staged=tc.fusion_staged)
     tgt = torch.gather(flat, 1, targets.reshape(-1, 1).long())
     return torch.mean(lse - tgt)
 
@@ -97,7 +114,18 @@ def _ce(logits, targets, tc: TrainConfig):
 def make_loss_fn(model: LM, cfg: ModelConfig, tc: TrainConfig):
     """``loss_fn(params, batch) -> (loss + aux weight · MoE aux, ce)`` over
     a dict of parameters; the batch's arrays are moved to the model's
-    device."""
+    device.  A model placed on a mesh takes no ``fusion_layout`` but a
+    ``LogicalMesh``: its loss already runs on the rank's rows, which a
+    mesh of ranks would split again."""
+    from repro_torch.dist import LogicalMesh
+    lay = tc.fusion_layout
+    if model.shard is not None and lay is not None and not isinstance(
+            lay.mesh if isinstance(lay, FusionLayout) else lay, LogicalMesh):
+        raise ValueError(
+            "a sharded step runs the fused loss on the rank's rows: its "
+            "TrainConfig.fusion_layout may only be a LogicalMesh, which "
+            "prices the plan")
+
     def loss_fn(params, batch):
         batch = {k: torch.as_tensor(v, device=model.device)
                  for k, v in batch.items()}

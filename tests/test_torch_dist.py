@@ -22,6 +22,11 @@ reference's, computed in this process:
   differently ordered product reach 1.5e-5 of the largest output, so the
   reference's absolute 1e-5 on outputs up to 505 is no bound for it
   (ROADMAP queue C);
+* ``fuse_exprs`` of the segment program under the mesh against the
+  reference's local plan, 1e-5;
+* the fused loss under ``TrainConfig(fusion="gen", fusion_layout=mesh)``
+  (64 x 256 logits, 8 rows a rank) and its gradient against the
+  reference's local ``_ce``, 1e-5 (of the largest gradient);
 * every rank's outputs equal rank 0's, bit for bit.
 
 A second spawn has rank 3 raise before the first collective: the run must
@@ -41,10 +46,12 @@ from repro.algos import l2svm as ref_l2svm
 from repro.algos import mlogreg as ref_mlogreg
 from repro.core import Fused as RefFused
 from repro.core import FusionContext as RefContext
+from repro.core import fuse_exprs as ref_fuse_exprs
 from repro.core import fused as ref_fused
 from repro.core import ir as ref_ir
 from repro.dist.planner import LogicalMesh as RefMesh
 from repro.kernels.blocksparse import BCSR as RefBCSR
+from repro.launch import train as ref_train
 from repro_torch.dist.launch import RankFailure, rank_env, run_ranks
 
 import torch_dist_worker as worker
@@ -140,6 +147,32 @@ def test_strict_program_downgrades_with_its_reason_and_right_answer(
     scale = max(float(np.abs(want).max()), 1.0)
     np.testing.assert_allclose(ranks[0]["strict"], want, rtol=0,
                                atol=1e-5 * scale)
+
+
+def test_fuse_exprs_under_the_mesh_matches_the_local_plan(ranks, data):
+    """``fuse_exprs`` of the segment program's hand-built DAG, scoped
+    under the mesh, gives the reference's local plan."""
+    names = ["X1", "X2", "X3", "X4", "X5", "X6", "w"]
+    leaves = {n: ref_ir.matrix(n, v.shape) for n, v in zip(names, data["seg"])}
+    want = ref_fuse_exprs(worker.segment_expr(ref_ir)(**leaves),
+                          dict(zip(names, data["seg"])))
+    for i, w in enumerate(want):
+        np.testing.assert_allclose(ranks[0][f"fuse_exprs{i}"], np.asarray(w),
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_fused_loss_under_the_mesh_matches_the_local_plan(ranks, data):
+    """The loss under ``TrainConfig(fusion="gen", fusion_layout=mesh)`` —
+    each rank's Row plan over its 8 rows, forward and planned backward —
+    and its gradient give the reference's local plan's."""
+    logits, targets = (jnp.asarray(a) for a in data["ce"])
+    tc = ref_train.TrainConfig(fusion="gen")
+    loss, g = jax.value_and_grad(
+        lambda L: ref_train._ce(L, targets, tc))(logits)
+    np.testing.assert_allclose(ranks[0]["ce_loss"], float(loss), rtol=1e-5)
+    top = float(jnp.abs(g).max())
+    np.testing.assert_allclose(ranks[0]["ce_grad"], np.asarray(g), rtol=0,
+                               atol=1e-5 * top)
 
 
 def test_a_failing_rank_fails_the_run_without_a_hang(tmp_path):

@@ -24,7 +24,9 @@ numpy seed, each data block its two sequences.  Held:
   ``fusion="gen"`` (the Row CPlan's plain version on the CPU) against
   three one-rank port steps: losses and grad norms within 1e-5 relative,
   every rank's updated blocks within 1e-5 of max |p|, written into the
-  tensors the step was given;
+  tensors the step was given; the same steps with ``fusion_layout`` a
+  ``LogicalMesh`` of the step's shape, which prices the loss's plan only,
+  within 1e-5 of them, and the step's own mesh refused;
 * the CLI over ``--ranks 4 --model-axis 2``: its checkpoint (whole
   leaves) resumed on one rank gives the uninterrupted sharded run's
   losses, and a one-rank checkpoint resumed over the ranks the one-rank
@@ -148,6 +150,23 @@ def test_sharded_steps_equal_one_rank_steps(ranks):
         assert st["param_err"] <= RTOL
         assert st["in_place"]
     assert len(res[0]["steps"]["trace"]["one"]) == worker.STEPS
+
+
+def test_an_abstract_fusion_layout_prices_the_sharded_loss_only(ranks):
+    """``TrainConfig(fusion_layout=LogicalMesh(mesh.shape))`` in
+    ``make_train_step(mesh=)``: the loss's plan is priced for the mesh and
+    runs on the rank's rows, so the steps are the steps without it; the
+    step's own mesh is refused."""
+    _tmp, res = ranks
+    for r in res:
+        st = r["layout_steps"]
+        assert st["priced"] and st["n_ops"] >= 1
+        assert st["own_mesh_refused"]
+        for (l1, g1), (ll, gl) in zip(r["steps"]["trace"]["sharded"],
+                                      st["trace"]):
+            assert abs(ll - l1) <= RTOL * abs(l1)
+            assert abs(gl - g1) <= RTOL * abs(g1)
+        assert len(st["trace"]) == worker.STEPS
 
 
 def _cli(tmp: Path, ckpt: Path, *extra) -> list:

@@ -6,11 +6,14 @@ joins a gloo process group of WORLD ranks at the ``file://`` address INIT
 CASE:
 
 * ``all`` — the segment program, ``l2svm.run`` / ``mlogreg.run`` under
-  the mesh, the hybrid gradient, the distributed Outer over a BCSR and
-  the strict program, asserting what a rank can see (one segment step
-  with ≥ 2 members, no recorded fallback, collectives launched, EXE005
-  on a plan costed for another mesh, the strict raise) and writing its outputs to ``OUTDIR/rank<RANK>.npz`` for
-  the parent to hold against the reference;
+  the mesh, the hybrid gradient, the distributed Outer over a BCSR, the
+  strict program, ``fuse_exprs`` of the segment program under the mesh
+  and the fused loss under ``TrainConfig(fusion_layout=mesh)``, asserting
+  what a rank can see (one segment step with ≥ 2 members, no recorded
+  fallback, collectives launched, EXE005 on a plan costed for another
+  mesh, the strict raise, the loss's segment steps each way) and writing
+  its outputs to ``OUTDIR/rank<RANK>.npz`` for the parent to hold against
+  the reference;
 * ``raise`` — rank 3 raises before the first collective, the others
   enter it: the launcher must stop them.
 
@@ -52,7 +55,16 @@ def inputs() -> dict:
             "grad": (Xm, Bg, Ym, np.full((1, 1), 1e-3, np.float32)),
             # 16 block rows: 2 a rank; 12: not partitionable across 8
             "outer": _bcsr_dense(2048, 512, 128, 13),
-            "strict": _bcsr_dense(1536, 512, 128, 17)}
+            "strict": _bcsr_dense(1536, 512, 128, 17),
+            # the fused loss: 64 rows (8 a rank) of .reduced()'s vocabulary
+            "ce": ce_inputs()}
+
+
+def ce_inputs(rows: int = 64, vocab: int = 256):
+    """Logits N(0, 2²) and targets of the fused-loss case (fixed seed)."""
+    rng = np.random.default_rng(29)
+    return ((2.0 * rng.standard_normal((rows, vocab))).astype(np.float32),
+            rng.integers(0, vocab, size=(rows,)).astype(np.int32))
 
 
 def segment_expr(ir):
@@ -199,6 +211,49 @@ def run_all(mesh, outdir: Path, rank: int) -> None:
     else:
         raise AssertionError("strict did not raise on the abandoned "
                              "placement")
+    # fuse_exprs under the mesh: the segment program's hand-built DAG
+    from repro_torch.core import FusionLayout, fuse_exprs
+    names = ["X1", "X2", "X3", "X4", "X5", "X6", "w"]
+    leaves = {n: ir.matrix(n, v.shape) for n, v in zip(names, data["seg"])}
+    binds = dict(zip(names, data["seg"]))
+    with ctx.with_(layout=mesh):
+        c0 = mesh.collectives
+        outs = fuse_exprs(segment_expr(ir)(**leaves), binds)
+    _check(mesh.collectives > c0, "fuse_exprs launched no collective")
+    for i, o in enumerate(outs):
+        out[f"fuse_exprs{i}"] = o.numpy()
+    lay = FusionLayout(mesh, {"X1": ("data", None)})
+    placed = lay.apply("X1", binds["X1"])
+    _check(isinstance(placed, torch.Tensor) and placed.device == mesh.device
+           and tuple(placed.shape) == binds["X1"].shape,
+           "FusionLayout.apply did not keep the whole operand")
+    try:
+        with ctx.with_(layout=mesh, device="meta"):
+            fuse_exprs(segment_expr(ir)(**leaves), binds)
+    except ValueError as e:
+        _check("mesh's device" in str(e), str(e))
+    else:
+        raise AssertionError("fuse_exprs ran on another device than the "
+                             "mesh's")
+
+    # the fused loss under fusion_layout=mesh: each rank's row panel
+    from repro_torch.launch import train
+    logits, targets = (torch.tensor(a) for a in data["ce"])
+    tc = train.TrainConfig(fusion="gen", fusion_layout=mesh)
+    train._LSE_OPS.clear()
+    with ctx:
+        L = logits.clone().requires_grad_(True)
+        c0 = mesh.collectives
+        loss = train._ce(L, targets, tc)
+        (gL,) = torch.autograd.grad(loss, L)
+    (op,) = train._LSE_OPS.values()
+    _check(op._cplan._seg_plans and op._bwd_compiled._seg_plans,
+           "the fused loss ran no segment step each way")
+    _check(op.explain()["execution"]["fallbacks"] == [],
+           op.explain()["execution"]["fallbacks"])
+    _check(mesh.collectives > c0, "the fused loss launched no collective")
+    out["ce_loss"], out["ce_grad"] = loss.detach().numpy(), gL.numpy()
+
     out["collectives"] = np.asarray(mesh.collectives)
     np.savez(outdir / f"rank{rank}.npz", **out)
 

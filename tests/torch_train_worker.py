@@ -15,7 +15,9 @@ files of whole tensors):
   gradient joined whole (``OUTDIR/grads_<model>.pt``); then
   :data:`STEPS` sharded ``make_train_step`` steps of minitron-4b with
   ``fusion="gen"`` against the same steps on one rank: the losses, grad
-  norms and the rank's blocks of the parameters after them;
+  norms and the rank's blocks of the parameters after them; the same
+  sharded steps with ``fusion_layout`` a ``LogicalMesh`` of the step's
+  shape (the loss's plan priced for it), and the step's own mesh refused;
 * ``record`` (``{data: 2, model: 2}``) — :data:`RECORD_CELLS` measured by
   ``dryrun_lib.measure_cell`` on the live mesh and on a
   ``RecordingMesh`` of this rank's coordinates (``meta``): both
@@ -153,6 +155,34 @@ def run_train(mesh, outdir: Path, rank: int) -> dict:
     res["steps"] = {"trace": trace, "param_err": max(errs.values()),
                     "in_place": all(ps[k] is p for k, p in
                                     m.named_parameters())}
+
+    # the same sharded steps with fusion_layout a LogicalMesh of the
+    # step's shape: it prices the loss's plan, which runs on the rank's
+    # rows; the step's own mesh is refused
+    from repro_torch.dist import LogicalMesh
+    m = _model(cfg, arch, outdir)
+    m.shard_(mesh, specs)
+    ps = dict(m.named_parameters())
+    os_ = adamw.init(ps, tc.opt)
+    train._LSE_OPS.clear()
+    step = train.make_train_step(m, cfg, replace(
+        tc, fusion_layout=LogicalMesh(dict(mesh.shape))), mesh=mesh)
+    layout_trace = []
+    for b in batches:
+        ps, os_, met = step(ps, os_, b)
+        layout_trace.append([float(met["loss"]), float(met["grad_norm"])])
+    priced = all(isinstance(op.planned.context.layout.mesh, LogicalMesh)
+                 and op.planned.context.layout.mesh.shape == mesh.shape
+                 and not op._cplan._seg_plans
+                 for op in train._LSE_OPS.values())
+    try:
+        train.make_loss_fn(m, cfg, replace(tc, fusion_layout=mesh))
+        refused = False
+    except ValueError:
+        refused = True
+    res["layout_steps"] = {"trace": layout_trace, "priced": priced,
+                           "n_ops": len(train._LSE_OPS),
+                           "own_mesh_refused": refused}
     return res
 
 
