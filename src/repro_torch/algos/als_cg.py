@@ -19,8 +19,9 @@ import numpy as np
 import torch
 
 from .util import fs
+from repro_torch import spans
 from repro_torch.core import ir, fused, FusionContext
-from repro_torch.interop import resolve_device, to_bcsr
+from repro_torch.interop import resolve_device, to_bcsr, to_torch
 from repro_torch.kernels.blocksparse import BCSR
 from repro_torch.kernels.ops import bcsr_matmul
 
@@ -55,13 +56,13 @@ def _cg(U, grad, hvp, max_inner, eps):
     d = torch.zeros_like(U)
     r = -g
     p = r
-    rs = float(torch.sum(r * r))
+    rs = fs(torch.sum(r * r))
     for _ in range(max_inner):
         Hp = hvp(p)
-        alpha = rs / max(float(torch.sum(p * Hp)), 1e-30)
+        alpha = rs / max(fs(torch.sum(p * Hp)), 1e-30)
         d = d + alpha * p
         r = r - alpha * Hp
-        rs_new = float(torch.sum(r * r))
+        rs_new = fs(torch.sum(r * r))
         if rs_new < eps:
             break
         p = r + (rs_new / rs) * p
@@ -77,13 +78,12 @@ def _cg_update(X, U, V, lam, max_inner, eps):
 def _init(m: int, n: int, rank: int, seed: int, device):
     """The reference's starting factors: the same numpy draws."""
     rng = np.random.default_rng(seed)
-    U = torch.as_tensor(rng.normal(size=(m, rank)).astype(np.float32),
-                        device=device) * 0.1
-    V = torch.as_tensor(rng.normal(size=(n, rank)).astype(np.float32),
-                        device=device) * 0.1
+    U = to_torch(rng.normal(size=(m, rank)).astype(np.float32), device) * 0.1
+    V = to_torch(rng.normal(size=(n, rank)).astype(np.float32), device) * 0.1
     return U, V
 
 
+@spans.spanned("als_cg.run")
 def run(X, rank: int = 20, lam: float = 1e-3, max_iter: int = 6,
         max_inner: int = 5, eps: float = 1e-12, mode: str = "gen",
         kernels: str = "cuda", device=None, seed: int = 0):
@@ -102,16 +102,18 @@ def run(X, rank: int = 20, lam: float = 1e-3, max_iter: int = 6,
     if mode == "hand":
         return _run_hand(X, rank, lam, max_iter, max_inner, eps, seed)
     m, n = X.shape
-    U, V = _init(m, n, rank, seed, X.device)
-    XT = X.T
+    with spans.span("als_cg.init"):
+        U, V = _init(m, n, rank, seed, X.device)
+        with spans.span("als_cg.transpose"):
+            XT = X.T
     losses = []
     with ctx:
         for _ in range(max_iter):
             U = _cg_update(X, U, V, lam, max_inner, eps)
             V = _cg_update(XT, V, U, lam, max_inner, eps)
             losses.append(fs(_loss_terms(X, U, V))
-                          + lam * (float(torch.sum(U * U))
-                                   + float(torch.sum(V * V))))
+                          + lam * (fs(torch.sum(U * U))
+                                   + fs(torch.sum(V * V))))
     return U, V, losses
 
 
@@ -130,7 +132,7 @@ def _run_hand(X: BCSR, rank, lam, max_iter, max_inner, eps, seed):
     for _ in range(max_iter):
         U = upd(Xd, W, U, V)
         V = upd(Xd.T, W.T, V, U)
-        losses.append(float(torch.sum((W * (U @ V.T) - Xd) ** 2))
-                      + lam * (float(torch.sum(U * U))
-                               + float(torch.sum(V * V))))
+        losses.append(fs(torch.sum((W * (U @ V.T) - Xd) ** 2))
+                      + lam * (fs(torch.sum(U * U))
+                               + fs(torch.sum(V * V))))
     return U, V, losses

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .util import fs
+from repro_torch import spans
 from repro_torch.core import ir, fused, FusionContext
 from repro_torch.interop import to_torch
 
@@ -42,6 +44,7 @@ def _init(n: int, h1: int, h2: int, seed: int, device):
     return Ws, bs
 
 
+@spans.spanned("autoencoder.run")
 def run(X, h1: int = 64, h2: int = 2, batch: int = 128, epochs: int = 1,
         lr: float = 0.1, mu: float = 0.9, mode: str = "gen",
         kernels: str = "cuda", device=None, seed: int = 0):
@@ -58,7 +61,8 @@ def run(X, h1: int = 64, h2: int = 2, batch: int = 128, epochs: int = 1,
     if mode == "hand":
         return _run_hand(X, h1, h2, batch, epochs, lr, mu, seed)
     m, n = X.shape
-    Ws, bs = _init(n, h1, h2, seed, X.device)
+    with spans.span("autoencoder.init"):
+        Ws, bs = _init(n, h1, h2, seed, X.device)
     vel = [torch.zeros_like(w) for w in Ws]
     losses = []
     steps = max(1, (m // batch) * epochs)
@@ -75,7 +79,7 @@ def run(X, h1: int = 64, h2: int = 2, batch: int = 128, epochs: int = 1,
             lo = (step * batch) % max(m - batch, 1)
             Xb = X[lo:lo + batch]
             val, grads, dbs = val_grads(Xb, Ws, bs)
-            losses.append(float(val))
+            losses.append(fs(val))
             for i in range(4):
                 vel[i] = mu * vel[i] - lr * grads[i]
                 Ws[i] = Ws[i] + vel[i]
@@ -100,7 +104,7 @@ def _run_hand(X, h1, h2, batch, epochs, lr, mu, seed):
         H3 = sig(H2 @ Ws[2] + bs[2])
         O = H3 @ Ws[3] + bs[3]
         R = O - Xb
-        losses.append(float(torch.sum(R * R)) / batch)
+        losses.append(fs(torch.sum(R * R)) / batch)
         D4 = 2.0 * R / batch
         G4 = H3.T @ D4
         D3 = (D4 @ Ws[3].T) * H3 * (1 - H3)

@@ -13,6 +13,7 @@ import math
 import torch
 
 from .util import fs
+from repro_torch import spans
 from repro_torch.core import ir, fused, FusionContext
 from repro_torch.interop import to_torch
 
@@ -50,6 +51,7 @@ def _deviance(y, eta):
     return (y * ir.log(mu) + (1.0 - y) * ir.log(1.0 - mu)).sum()
 
 
+@spans.spanned("glm.run")
 def run(X, y, lam: float = 1e-3, max_outer: int = 8, max_inner: int = 10,
         eps: float = 1e-12, mode: str = "gen", kernels: str = "cuda",
         device=None):
@@ -62,7 +64,8 @@ def run(X, y, lam: float = 1e-3, max_outer: int = 8, max_inner: int = 10,
     ctx = FusionContext(mode=mode, kernels=kernels)
     if device is not None:
         ctx = ctx.with_(device=device)
-    X, y = to_torch(X, ctx.device), to_torch(y, ctx.device)
+    with spans.span("glm.init"):
+        X, y = to_torch(X, ctx.device), to_torch(y, ctx.device)
     if mode == "hand":
         return _run_hand(X, y, lam, max_outer, max_inner, eps)
     m, n = X.shape
@@ -78,13 +81,13 @@ def run(X, y, lam: float = 1e-3, max_outer: int = 8, max_inner: int = 10,
             d = torch.zeros_like(beta)
             res = rhs
             p = res
-            rs = float(torch.sum(res * res))
+            rs = fs(torch.sum(res * res))
             for _ in range(max_inner):
                 Hp = _wxv(X, w, p) + lam * p
-                alpha = rs / max(float(torch.sum(p * Hp)), 1e-30)
+                alpha = rs / max(fs(torch.sum(p * Hp)), 1e-30)
                 d = d + alpha * p
                 res = res - alpha * Hp
-                rs_new = float(torch.sum(res * res))
+                rs_new = fs(torch.sum(res * res))
                 if rs_new < eps:
                     break
                 p = res + (rs_new / rs) * p
@@ -105,19 +108,19 @@ def _run_hand(X, y, lam, max_outer, max_inner, eps):
         dens = torch.exp(-0.5 * eta * eta) / _SQRT2PI
         w = dens * dens / (mu * (1 - mu))
         r = (y - mu) / torch.clamp_min(dens, 1e-30)
-        devs.append(-2.0 * float(torch.sum(y * torch.log(mu)
-                                           + (1 - y) * torch.log(1 - mu))))
+        devs.append(-2.0 * fs(torch.sum(y * torch.log(mu)
+                                        + (1 - y) * torch.log(1 - mu))))
         rhs = X.T @ (w * r) - lam * beta
         d = torch.zeros_like(beta)
         res = rhs
         p = res
-        rs = float(torch.sum(res * res))
+        rs = fs(torch.sum(res * res))
         for _ in range(max_inner):
             Hp = X.T @ (w * (X @ p)) + lam * p
-            alpha = rs / max(float(torch.sum(p * Hp)), 1e-30)
+            alpha = rs / max(fs(torch.sum(p * Hp)), 1e-30)
             d = d + alpha * p
             res = res - alpha * Hp
-            rs_new = float(torch.sum(res * res))
+            rs_new = fs(torch.sum(res * res))
             if rs_new < eps:
                 break
             p = res + (rs_new / rs) * p

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from .util import fs
+from repro_torch import spans
 from repro_torch.core import fused, FusionContext
 from repro_torch.interop import to_torch
 
@@ -30,6 +32,7 @@ def _min_dist(XC, xsq, csq):
     return D._agg("min", "row")
 
 
+@spans.spanned("kmeans.run")
 def run(X, C0, max_iter: int = 20, eps: float = 1e-12, mode: str = "gen",
         kernels: str = "cuda", device=None):
     """Returns (C, within-cluster sum of squares per iteration).
@@ -42,7 +45,8 @@ def run(X, C0, max_iter: int = 20, eps: float = 1e-12, mode: str = "gen",
     ctx = FusionContext(mode=mode, kernels=kernels)
     if device is not None:
         ctx = ctx.with_(device=device)
-    X, C0 = to_torch(X, ctx.device), to_torch(C0, ctx.device)
+    with spans.span("kmeans.init"):
+        X, C0 = to_torch(X, ctx.device), to_torch(C0, ctx.device)
     if mode == "hand":
         return _run_hand(X, C0, max_iter, eps)
     m, n = X.shape
@@ -59,11 +63,11 @@ def run(X, C0, max_iter: int = 20, eps: float = 1e-12, mode: str = "gen",
             D = xsq - 2.0 * XC + csq
             A = (D == dmin).to(torch.float32)
             A = A / A.sum(dim=1, keepdim=True)     # break ties evenly
-            wcss = float(torch.sum(dmin))
+            wcss = fs(torch.sum(dmin))
             wcss_hist.append(wcss)
             counts = A.sum(dim=0).reshape(k, 1)
             C_new = (A.T @ X) / torch.clamp_min(counts, 1.0)
-            if float(torch.max(torch.abs(C_new - C))) < eps:
+            if fs(torch.max(torch.abs(C_new - C))) < eps:
                 C = C_new
                 break
             C = C_new
@@ -82,10 +86,10 @@ def _run_hand(X, C0, max_iter, eps):
         dmin = D.min(dim=1, keepdim=True).values
         A = (D == dmin).to(torch.float32)
         A = A / A.sum(dim=1, keepdim=True)
-        hist.append(float(torch.sum(dmin)))
+        hist.append(fs(torch.sum(dmin)))
         counts = A.sum(dim=0).reshape(k, 1)
         C_new = (A.T @ X) / torch.clamp_min(counts, 1.0)
-        if float(torch.max(torch.abs(C_new - C))) < eps:
+        if fs(torch.max(torch.abs(C_new - C))) < eps:
             C = C_new
             break
         C = C_new

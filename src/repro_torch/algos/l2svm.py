@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from .util import fs, run_context
+from repro_torch import spans
 from repro_torch.core import ir, fused
 from repro_torch.interop import to_torch
 
@@ -51,6 +52,7 @@ def _objective(out, w):
     return (out ** 2).sum(), (w ** 2).sum()
 
 
+@spans.spanned("l2svm.run")
 def run(X, y, lam: float = 1e-3, max_iter: int = 20, eps: float = 1e-12,
         mode: str = "gen", kernels: str = "cuda", device=None,
         layout=None):
@@ -66,7 +68,8 @@ def run(X, y, lam: float = 1e-3, max_iter: int = 20, eps: float = 1e-12,
     all-gather epilogues), the small w-space aggregates stay local; each
     rank passes the whole X and y and runs on its mesh's device."""
     ctx = run_context(mode, kernels, device, layout)
-    X, y = to_torch(X, ctx.device), to_torch(y, ctx.device)
+    with spans.span("l2svm.init"):
+        X, y = to_torch(X, ctx.device), to_torch(y, ctx.device)
     if mode == "hand":
         return _run_hand(X, y, lam, max_iter, eps)
     m, n = X.shape
@@ -86,17 +89,17 @@ def run(X, y, lam: float = 1e-3, max_iter: int = 20, eps: float = 1e-12,
             Xs = X @ s                        # basic GEMV
             out = _hinge(X, w, y)
             num_t, den_t = _search_terms(out, y * Xs)
-            num = fs(num_t) - lam * float(torch.sum(w * s))
-            den = fs(den_t) + lam * float(torch.sum(s * s))
+            num = fs(num_t) - lam * fs(torch.sum(w * s))
+            den = fs(den_t) + lam * fs(torch.sum(s * s))
             step = num / max(den, 1e-30)
             w = w + step * s
             val, g_new = obj_grad(w)          # fused forward + fused backward
-            objs.append(float(val))
-            beta = float(torch.sum(g_new * g_new)) / max(
-                float(torch.sum(g * g)), 1e-30)
+            objs.append(fs(val))
+            beta = fs(torch.sum(g_new * g_new)) / max(
+                fs(torch.sum(g * g)), 1e-30)
             s = -g_new + beta * s
             g = g_new
-            if float(torch.sum(g * g)) < eps:
+            if fs(torch.sum(g * g)) < eps:
                 break
     return w, objs
 
@@ -114,18 +117,18 @@ def _run_hand(X, y, lam, max_iter, eps):
         out = torch.clamp_min(1.0 - y * (X @ w), 0.0)
         act = (out > 0).to(torch.float32)
         yXs = y * Xs
-        num = float(torch.sum(act * out * yXs)) - lam * float(torch.sum(w * s))
-        den = float(torch.sum(act * yXs * yXs)) + lam * float(torch.sum(s * s))
+        num = fs(torch.sum(act * out * yXs)) - lam * fs(torch.sum(w * s))
+        den = fs(torch.sum(act * yXs * yXs)) + lam * fs(torch.sum(s * s))
         step = num / max(den, 1e-30)
         w = w + step * s
         out = torch.clamp_min(1.0 - y * (X @ w), 0.0)
-        objs.append(0.5 * float(torch.sum(out ** 2))
-                    + 0.5 * lam * float(torch.sum(w ** 2)))
+        objs.append(0.5 * fs(torch.sum(out ** 2))
+                    + 0.5 * lam * fs(torch.sum(w ** 2)))
         g_new = -(X.T @ (out * y)) + lam * w
-        beta = float(torch.sum(g_new * g_new)) / max(float(torch.sum(g * g)),
+        beta = fs(torch.sum(g_new * g_new)) / max(fs(torch.sum(g * g)),
                                                      1e-30)
         s = -g_new + beta * s
         g = g_new
-        if float(torch.sum(g * g)) < eps:
+        if fs(torch.sum(g * g)) < eps:
             break
     return w, objs

@@ -15,8 +15,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import spans
 from repro_torch.core import ir, fused
-from .util import run_context
+from .util import fs, run_context
 from repro_torch.interop import to_torch
 
 
@@ -71,6 +72,7 @@ def _fit_terms(X, B, Y):
     return (B * (X.T @ Y)).sum()
 
 
+@spans.spanned("mlogreg.run")
 def run(X, Y, lam: float = 1e-3, max_outer: int = 10, max_inner: int = 20,
         eps: float = 1e-12, mode: str = "gen", kernels: str = "cuda",
         device=None, layout=None):
@@ -83,7 +85,8 @@ def run(X, Y, lam: float = 1e-3, max_outer: int = 10, max_inner: int = 20,
     mesh or ``FusionLayout``) plans every fused region hybrid
     local/distributed — see :func:`repro_torch.algos.l2svm.run`."""
     ctx = run_context(mode, kernels, device, layout)
-    X, Y = to_torch(X, ctx.device), to_torch(Y, ctx.device)
+    with spans.span("mlogreg.init"):
+        X, Y = to_torch(X, ctx.device), to_torch(Y, ctx.device)
     if mode == "hand":
         return _run_hand(X, Y, lam, max_outer, max_inner, eps)
     m, n = X.shape
@@ -101,18 +104,18 @@ def run(X, Y, lam: float = 1e-3, max_outer: int = 10, max_inner: int = 20,
         for _ in range(max_outer):
             P = _probs(X, B)
             val, G = obj_grad(B)          # fused forward + fused backward
-            nlls.append(float(val))
+            nlls.append(fs(val))
             # CG solve (H + lam I) d = -G with fused HVPs
             d = torch.zeros_like(B)
             r = -G
             p = r
-            rs = float(torch.sum(r * r))
+            rs = fs(torch.sum(r * r))
             for _ in range(max_inner):
                 Hp = _hvp(X, p, P) + lam * p
-                alpha = rs / max(float(torch.sum(p * Hp)), 1e-30)
+                alpha = rs / max(fs(torch.sum(p * Hp)), 1e-30)
                 d = d + alpha * p
                 r = r - alpha * Hp
-                rs_new = float(torch.sum(r * r))
+                rs_new = fs(torch.sum(r * r))
                 if rs_new < eps:
                     break
                 p = r + (rs_new / rs) * p
@@ -136,21 +139,21 @@ def _run_hand(X, Y, lam, max_outer, max_inner, eps):
 
     for _ in range(max_outer):
         P = probs(B)
-        nll = -float(torch.sum(Y * torch.log(P + 1e-30))) \
-            + 0.5 * lam * float(torch.sum(B * B))
+        nll = -fs(torch.sum(Y * torch.log(P + 1e-30))) \
+            + 0.5 * lam * fs(torch.sum(B * B))
         nlls.append(nll)
         G = X.T @ (P - Y) + lam * B
         d = torch.zeros_like(B)
         r = -G
         p = r
-        rs = float(torch.sum(r * r))
+        rs = fs(torch.sum(r * r))
         for _ in range(max_inner):
             Q = P * (X @ p)
             Hp = X.T @ (Q - P * Q.sum(dim=1, keepdim=True)) + lam * p
-            alpha = rs / max(float(torch.sum(p * Hp)), 1e-30)
+            alpha = rs / max(fs(torch.sum(p * Hp)), 1e-30)
             d = d + alpha * p
             r = r - alpha * Hp
-            rs_new = float(torch.sum(r * r))
+            rs_new = fs(torch.sum(r * r))
             if rs_new < eps:
                 break
             p = r + (rs_new / rs) * p

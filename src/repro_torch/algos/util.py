@@ -1,12 +1,15 @@
 """Small shared helpers for the algorithm suite."""
 
+from repro_torch import spans
 from repro_torch.core import FusionContext
 
 
 def fs(x) -> float:
     """Python float from any single-element tensor (fused ops return
-    (1,1))."""
-    return float(x.reshape(()))
+    (1,1)): the algorithms' one read from the device, in a ``sync``
+    span."""
+    with spans.span("sync"):
+        return float(x.reshape(()))
 
 
 def run_context(mode: str, kernels: str, device, layout) -> FusionContext:

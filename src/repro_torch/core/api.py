@@ -43,6 +43,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.interop import resolve_device
 from repro_torch.kernels.blocksparse import BCSR, DictCompressed
 from . import ir
@@ -513,19 +514,20 @@ class _PlannedFunction(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *cts):
         compiled = ctx.compiled
-        arrs = ctx.saved_tensors
-        names = compiled.planned.traced.in_names
-        bwd_plan, grad_names, ct_names = compiled._get_bwd()
-        binds = dict(zip(names, arrs))
-        binds.update({n: c.to(torch.float32).contiguous()
-                      for n, c in zip(ct_names, cts)})
-        grads = bwd_plan(binds)
-        if not isinstance(grads, tuple):
-            grads = (grads,)
-        by_name = dict(zip(grad_names, grads))
-        return (None,) + tuple(
-            by_name[n] if n in by_name else torch.zeros_like(arrs[i])
-            for i, n in enumerate(names))
+        with spans.span(compiled._bwd_span):
+            arrs = ctx.saved_tensors
+            names = compiled.planned.traced.in_names
+            bwd_plan, grad_names, ct_names = compiled._get_bwd()
+            binds = dict(zip(names, arrs))
+            binds.update({n: c.to(torch.float32).contiguous()
+                          for n, c in zip(ct_names, cts)})
+            grads = bwd_plan(binds)
+            if not isinstance(grads, tuple):
+                grads = (grads,)
+            by_name = dict(zip(grad_names, grads))
+            return (None,) + tuple(
+                by_name[n] if n in by_name else torch.zeros_like(arrs[i])
+                for i, n in enumerate(names))
 
 
 class Compiled:
@@ -543,6 +545,9 @@ class Compiled:
             staged=ctx.staged, layout=ctx.layout,
             strict=ctx.verify == "strict")
         self._bwd_compiled: Optional[CompiledPlan] = None
+        region = planned.traced.name
+        self._bwd_span = f"fused.backward:{region}"
+        self._bwd_plan_span = f"fused.plan:{region}"
 
     # -- serving hooks ------------------------------------------------------
     @property
@@ -574,12 +579,15 @@ class Compiled:
         return self._cplan(dict(zip(self.planned.traced.in_names, arrs)))
 
     def _get_bwd(self) -> tuple[CompiledPlan, list[str], list[str]]:
-        bwd = self.planned.backward()
         if self._bwd_compiled is None:
-            self._bwd_compiled = compile_plan(
-                bwd.eplan, kernels=self.planned.context.kernels,
-                device=str(self.device), staged=self.planned.context.staged,
-                layout=self.planned.context.layout)
+            with spans.span(self._bwd_plan_span):
+                self._bwd_compiled = compile_plan(
+                    self.planned.backward().eplan,
+                    kernels=self.planned.context.kernels,
+                    device=str(self.device),
+                    staged=self.planned.context.staged,
+                    layout=self.planned.context.layout)
+        bwd = self.planned.backward()
         ct_names = [n for n in bwd.traced.in_names if n.startswith("__ct")]
         return self._bwd_compiled, bwd.grad_names, ct_names  # type: ignore
 
@@ -641,6 +649,9 @@ class Fused:
         self.sparsity = dict(sparsity or {})
         self.names = list(inspect.signature(fn).parameters)
         self._staged: dict[tuple, Compiled] = {}
+        region = getattr(fn, "__name__", "<expr>")
+        self._call_span = f"fused.call:{region}"
+        self._plan_span = f"fused.plan:{region}"
 
     def trace(self, *args, **kwargs) -> Traced:
         """Stage 1: trace with abstract or concrete operands (anything with
@@ -666,15 +677,17 @@ class Fused:
         return self.trace(**shaped_args).plan().eplan
 
     def __call__(self, *args, **kwargs):
-        ctx = current_context()
-        bound = dict(zip(self.names, args))
-        bound.update(kwargs)
-        key = _signature(bound, ctx)
-        compiled = self._staged.get(key)
-        if compiled is None:
-            compiled = self.trace(**bound).plan(context=ctx).compile()
-            self._staged[key] = compiled
-        return compiled(**bound)
+        with spans.span(self._call_span):
+            ctx = current_context()
+            bound = dict(zip(self.names, args))
+            bound.update(kwargs)
+            key = _signature(bound, ctx)
+            compiled = self._staged.get(key)
+            if compiled is None:
+                with spans.span(self._plan_span):
+                    compiled = self.trace(**bound).plan(context=ctx).compile()
+                self._staged[key] = compiled
+            return compiled(**bound)
 
 
 def fused(fn: Optional[Callable] = None, *, sparsity: Optional[dict] = None):

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.kernels.blocksparse import BCSR, DictCompressed, ShardedBCSR
 
 
@@ -35,14 +36,20 @@ def resolve_device(device) -> torch.device:
 
 def to_torch(values, device="cuda"):
     """Contiguous fp32 tensor(s) on ``device`` from one array-like, or a
-    list / tuple of them (same structure back)."""
+    list / tuple of them (same structure back).  A copy from the host to
+    the card runs in a ``sync`` span: from pageable memory it waits for
+    the card's queue."""
     device = resolve_device(device)
     if isinstance(values, (list, tuple)):
         return type(values)(to_torch(v, device) for v in values)
+    to_card = device.type == "cuda"
     if isinstance(values, torch.Tensor):
-        return values.to(device=device, dtype=torch.float32).contiguous()
-    return torch.as_tensor(np.ascontiguousarray(values, dtype=np.float32),
-                           device=device)
+        with (spans.span("sync") if to_card and values.device.type == "cpu"
+              else spans.NOOP):
+            return values.to(device=device, dtype=torch.float32).contiguous()
+    with spans.span("sync") if to_card else spans.NOOP:
+        return torch.as_tensor(np.ascontiguousarray(values, dtype=np.float32),
+                               device=device)
 
 
 def to_bcsr(x, device="cuda"):

@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
+
 DEFAULT_BLOCK = 128
 #: most blocks in one piece of the Outer kernel's grid.  Xᵀ of the ALS
 #: configuration has 139 block rows of ≈940 blocks on 132 SMs with two
@@ -117,8 +119,10 @@ class BCSR:
             per = torch.clamp((lens + PIECE_BLOCKS - 1) // PIECE_BLOCKS,
                               min=1)
             ptr = torch.cat([per.new_zeros(1), torch.cumsum(per, 0)])
-            row = torch.repeat_interleave(
-                torch.arange(lens.numel(), device=rp.device), per)
+            # the output's length is read from the device
+            with spans.span("sync") if rp.is_cuda else spans.NOOP:
+                row = torch.repeat_interleave(
+                    torch.arange(lens.numel(), device=rp.device), per)
             q = torch.arange(row.numel(), device=rp.device) - ptr[row]
             first = rp[row] + q * lens[row] // per[row]
             end = rp[row] + (q + 1) * lens[row] // per[row]

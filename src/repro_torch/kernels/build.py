@@ -26,6 +26,8 @@ from typing import Iterable, Optional
 
 import torch
 
+from repro_torch import spans
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -70,7 +72,11 @@ def build_all(sources: Iterable[KernelSource]) -> list[Path]:
     """Compile every source whose library is missing, one ``nvcc`` process
     each, all started together; returns the library paths.  Raises with
     the compiler's output when any build fails."""
-    srcs = list(sources)
+    with spans.span("kernels.build"):
+        return _build_all(list(sources))
+
+
+def _build_all(srcs: list[KernelSource]) -> list[Path]:
     paths = [library_path(s) for s in srcs]
     todo = {p: s for p, s in zip(paths, srcs) if not p.exists()}
     if not todo:
@@ -125,8 +131,9 @@ def launcher(src: KernelSource, symbol: str = "repro_launch"):
     with _LOCK:
         fn = _LOADED.get((src.key, symbol))
         if fn is None:
-            (path,) = build_all([src])
-            fn = getattr(ctypes.CDLL(str(path)), symbol)
+            with spans.span("kernels.build"):
+                (path,) = _build_all([src])
+                fn = getattr(ctypes.CDLL(str(path)), symbol)
             fn.argtypes = _ARGTYPES[symbol]
             fn.restype = ctypes.c_int
             _LOADED[(src.key, symbol)] = fn

@@ -44,7 +44,7 @@ import torch
 
 from typing import Optional
 
-from repro_torch import faults
+from repro_torch import faults, spans
 from repro_torch.core.cplan import (CPlan, COL_AGG, FULL_AGG, LEFT_MM,
                                     NO_AGG, RIGHT_MM, ROW_AGG, panel_cplan)
 from repro_torch.core.templates import TType
@@ -188,8 +188,10 @@ def _segment_sum(vals: torch.Tensor, ptr: torch.Tensor) -> torch.Tensor:
     ``vals[ptr[s]:ptr[s + 1]]``, summed in order; empty segments give 0.
     Deterministic on every device (no atomics)."""
     lengths = (ptr[1:] - ptr[:-1]).to(torch.int64)
-    return torch.segment_reduce(vals, "sum", lengths=lengths, axis=0,
-                                initial=0.0)
+    # on the card, segment_reduce waits for it (it reads the lengths)
+    with spans.span("sync") if vals.is_cuda else spans.NOOP:
+        return torch.segment_reduce(vals, "sum", lengths=lengths, axis=0,
+                                    initial=0.0)
 
 
 def _segments(idx: torch.Tensor, nseg: int):
