@@ -19,6 +19,9 @@ toolkit:
                                          # [examples] (no result line)
     python3 chip_smoke.py --lm-train-sharded   # only [lm-train-sharded]
                                                # (no result line)
+    python3 chip_smoke.py --dist   # only [dist], against the single-device
+                                   # L2SVM and MLogReg traces it is held
+                                   # to (no result line)
 
 Phases, each reported on its own lines with its wall time:
 
@@ -473,8 +476,11 @@ def card_line() -> str:
 def region_cplans(entries, prefix: str = "", layout=None):
     """CPlans of fused regions planned on shapes alone (meta tensors), in
     order: [(label, cplan)], each region's planned backward after its
-    forward where ``entries`` (region, args, backward?) asks for it;
-    planned under ``layout`` where given."""
+    forward where ``entries`` (region, args, backward) asks for it:
+    ``True`` for every input's gradient; the names of the inputs the
+    algorithm differentiates add their backward's CPlans that the
+    every-input one lacks (``:vjp[names]``); planned under ``layout``
+    where given."""
     from repro_torch.core import FusionContext
     from repro_torch.core.codegen import compile_plan
     out = []
@@ -484,9 +490,15 @@ def region_cplans(entries, prefix: str = "", layout=None):
             label = prefix + region.fn.__name__
             out += [(label, cp)
                     for cp in compile_plan(planned.eplan).cplans()]
-            if bwd:
-                out += [(label + ":vjp", cp) for cp in
-                        compile_plan(planned.backward().eplan).cplans()]
+            if not bwd:
+                continue
+            every = compile_plan(planned.backward().eplan).cplans()
+            out += [(label + ":vjp", cp) for cp in every]
+            if bwd is not True:
+                have = {cp.cache_key() for cp in every}
+                out += [(f"{label}:vjp[{','.join(bwd)}]", cp) for cp in
+                        compile_plan(planned.backward(bwd).eplan).cplans()
+                        if cp.cache_key() not in have]
     return out
 
 
@@ -497,12 +509,13 @@ def meta(*shape):
 
 def main_path_cplans(m: int, n: int):
     """CPlans of one L2SVM iteration, in order: hinge, search terms, the
-    objective forward and its planned backward."""
+    objective forward and its planned backward, of every input and of w
+    (the one ``l2svm.run`` runs)."""
     from repro_torch.algos import l2svm
     X, w, col, lam = meta(m, n), meta(n, 1), meta(m, 1), meta(1, 1)
     return region_cplans([(l2svm._hinge, (X, w, col), False),
                           (l2svm._search_terms, (col, col), False),
-                          (l2svm._objective_full, (X, w, col, lam), True)])
+                          (l2svm._objective_full, (X, w, col, lam), ("w",))])
 
 
 # --------------------------------------------------------------------------
@@ -1629,7 +1642,8 @@ def l2svm_data(m: int):
 
 class AlgoPath(NamedTuple):
     """One dense algorithm's main path: its fused regions at the path's
-    shapes (region, meta args, plan the backward?), its data drawn on the
+    shapes (region, meta args, backward: True for every input's, or the
+    names the run differentiates), its data drawn on the
     card, its run, and the check of what the run returns."""
     name: str
     depth: str
@@ -1750,7 +1764,7 @@ def algo_paths(m: int) -> list:
             f"{MLR_INNER} CG iterations (reference: 10 x 20)",
             [(mlogreg._probs, (X, meta(n, k)), False),
              (mlogreg._nll_obj_reg, (X, meta(n, k), meta(m, k), meta(1, 1)),
-              True),
+              ("B",)),
              (mlogreg._hvp, (X, meta(n, k), meta(m, k)), False)],
             lambda: mlogreg_data(m),
             lambda ops, **kw: mlogreg.run(*ops, lam=LAM, max_outer=MLR_OUTER,
@@ -1778,7 +1792,8 @@ def algo_paths(m: int) -> list:
         AlgoPath(
             "autoencoder", f"X {AE_ROWS} x {AE_N}, H1 {h1}, H2 {h2}, batch "
             f"{AE_BATCH}, {AE_STEPS} SGD steps (reference: one epoch)",
-            [(autoencoder._recon_loss, (Xb, *weights), True)],
+            [(autoencoder._recon_loss, (Xb, *weights),
+              ("W1", "b1", "W2", "b2", "W3", "b3", "W4", "b4"))],
             lambda: images_data(AE_ROWS),
             lambda ops, **kw: autoencoder.run(
                 ops[0][:AE_STEPS * AE_BATCH], h1=h1, h2=h2, batch=AE_BATCH,
@@ -2753,15 +2768,17 @@ def dist_segment_expr(ir):
 
 def dist_regions(m: int):
     """The L2SVM and MLogReg regions at m rows (region, meta args,
-    backward?), as the [dist] ranks run them."""
+    backward: the weights ``l2svm.run`` and ``mlogreg.run``
+    differentiate), as the [dist] ranks run them."""
     from repro_torch.algos import l2svm, mlogreg
     n, k = N_MAIN, MLR_K
     X, col, lam = meta(m, n), meta(m, 1), meta(1, 1)
     return [(l2svm._hinge, (X, meta(n, 1), col), False),
             (l2svm._search_terms, (col, col), False),
-            (l2svm._objective_full, (X, meta(n, 1), col, lam), True),
+            (l2svm._objective_full, (X, meta(n, 1), col, lam), ("w",)),
             (mlogreg._probs, (X, meta(n, k)), False),
-            (mlogreg._nll_obj_reg, (X, meta(n, k), meta(m, k), lam), True),
+            (mlogreg._nll_obj_reg, (X, meta(n, k), meta(m, k), lam),
+             ("B",)),
             (mlogreg._hvp, (X, meta(n, k), meta(m, k)), False)]
 
 
@@ -2943,7 +2960,8 @@ def panel_checks(mesh, calls: PanelCalls, label: str,
 
 def mesh_report(regions, mesh) -> dict:
     """Distributed operators and recorded fallbacks over every Compiled
-    the regions' call sugar built under this mesh (forward and backward)."""
+    the regions' call sugar built under this mesh (forward and every
+    backward plan it ran)."""
     n_dist, fbs = 0, []
     for region in regions:
         for compiled in region._staged.values():
@@ -2953,9 +2971,9 @@ def mesh_report(regions, mesh) -> dict:
             rep = compiled.explain()
             n_dist += rep["distributed"]["n_fused_distributed"]
             fbs += rep["execution"]["fallbacks"]
-            if compiled._bwd_compiled is not None:
-                n_dist += sum(len(sp.items) for sp in
-                              compiled._bwd_compiled._seg_plans)
+            n_dist += sum(len(sp.items) for cp in
+                          compiled._bwd_plans.values()
+                          for sp in cp._seg_plans)
     return {"n_fused_distributed": n_dist, "fallbacks": fbs}
 
 
@@ -3271,8 +3289,8 @@ def dist_loss(mesh, rows, calls) -> dict:
     with dist_run(mesh, rows, calls, rec):
         got = loss_grad(tc)
     (op,) = train._LSE_OPS.values()
-    rec["seg_steps"] = [len(op._cplan._seg_plans),
-                        len(op._bwd_compiled._seg_plans)]
+    (bwd,) = op._bwd_plans.values()
+    rec["seg_steps"] = [len(op._cplan._seg_plans), len(bwd._seg_plans)]
     rec["fallbacks"] = op.explain()["execution"]["fallbacks"]
     rec["loss"] = got[0]
     rec["err_local"] = errs(got, loss_grad(train.TrainConfig(fusion="gen")))
@@ -6831,6 +6849,39 @@ def als_fuse_exprs(X, failed: list) -> dict:
     return {"launches": launches, "max_abs_err": err, "share": share}
 
 
+def dist_only() -> None:
+    """``--dist``: [dist] alone (no result line): the kernels the ranks and
+    the single-device L2SVM and MLogReg paths launch built first, those
+    paths' ``kernels="cuda"`` traces, then the rank processes, checked
+    against them as in the whole run."""
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.algos import l2svm
+    from repro_torch.kernels import build, cuda_src
+    log(f"[env] {ROOT} torch {torch.__version__}; nvidia-smi: "
+        f"{card_line()}")
+    t0 = time.perf_counter()
+    (mlr,) = [p for p in algo_paths(M_MAIN) if p.name == "mlogreg"]
+    srcs = [cuda_src.source_for(cp) for _r, cp in
+            main_path_cplans(M_MAIN, N_MAIN) + path_cplans(mlr)]
+    srcs += dist_sources() + loss_sources()
+    build.build_all({s.key: s for s in srcs}.values())
+    log(f"[build] {len(srcs)} kernel sources {time.perf_counter() - t0:.1f} "
+        f"s")
+    X, y = l2svm_data(M_MAIN)
+    _w, objs = l2svm.run(X, y, max_iter=ITERS, kernels="cuda")
+    del X, y, _w
+    ops = mlr.data()
+    _B, nlls = mlr.run(ops, kernels="cuda")
+    del ops, _B
+    torch.cuda.synchronize()
+    log(f"[main] l2svm trace {objs}; mlogreg trace {nlls}")
+    dist_phase({"l2svm": objs, "mlogreg": nlls})
+
+
 def times_only() -> None:
     """``--times``: the readings of speed only, to compare two trees of the
     port on one card: the profiles of every main path and the times of
@@ -6930,10 +6981,11 @@ def main() -> int:
     modes = {(): run, ("--times",): times_only,
              ("--lm-times",): lm_times_only, ("--lm-train",): lm_train_only,
              ("--lm-sharded",): sharded_only,
-             ("--lm-train-sharded",): train_sharded_only}
+             ("--lm-train-sharded",): train_sharded_only,
+             ("--dist",): dist_only}
     if tuple(args) not in modes:
         print("usage: python3 chip_smoke.py [--times | --lm-times | "
-              "--lm-train | --lm-sharded | --lm-train-sharded]",
+              "--lm-train | --lm-sharded | --lm-train-sharded | --dist]",
               file=sys.stderr)
         return 2
     try:

@@ -18,7 +18,9 @@ memoizes the Compiled stage.
 **Autodiff.**  Every call runs through a ``torch.autograd.Function`` whose
 backward is *itself* planned through explore → select
 (:mod:`repro_torch.core.grad`), so ``torch.autograd.grad`` of a ``@fused``
-region executes generated fused operators in both directions.
+region executes generated fused operators in both directions.  The
+backward plans a root for each input autograd asks a gradient of, and
+nothing for the others (one plan per such set of inputs).
 
 **Devices.**  Operands (numpy arrays, tensors, python scalars) are placed
 on the context's device — the card unless the context says
@@ -302,7 +304,8 @@ class Planned:
     traced: Traced
     context: FusionContext
     eplan: ExecPlan
-    _bwd: Optional["Planned"] = field(default=None, repr=False)
+    #: planned backwards, one per tuple of inputs differentiated
+    _bwds: dict = field(default_factory=dict, repr=False)
     #: VerifyReport from the plan() stage boundary (None: verify="off")
     _verify: Optional[VerifyReport] = field(default=None, repr=False)
     #: rewrite-sweep report from Traced.plan() (None: not swept)
@@ -344,27 +347,50 @@ class Planned:
                         "selected": m == self.context.mode})
         return out
 
-    def backward(self) -> "Planned":
+    def wrt_key(self, wrt=None) -> tuple[str, ...]:
+        """The forward inputs named in ``wrt``, a collection of names
+        (every input for None), in ``graph.inputs()`` order: the key of
+        :meth:`backward`'s plans.  A bare ``str`` is refused: it would be
+        read as a set of one-letter names."""
+        if isinstance(wrt, str):
+            raise TypeError(f"wrt takes a collection of input names, not "
+                            f"the str {wrt!r}")
+        names = [n.name for n in self.eplan.graph.inputs()]
+        if wrt is None:
+            return tuple(names)
+        wanted = set(wrt)
+        return tuple(n for n in names if n in wanted)
+
+    def backward(self, wrt=None) -> "Planned":
         """Plan the gradient DAG through the same explore → select pipeline
-        (fused backward operators).  Raises NonDifferentiableError when the
-        forward graph has an op with no VJP rule."""
-        if self._bwd is None:
+        (fused backward operators).  ``wrt`` names the inputs whose
+        gradient is planned, one root each (None: every input); an input
+        with no path to the outputs gets an exact zero.  One plan is kept
+        per distinct set of inputs; ``grad_names`` lists its roots.
+        Raises NonDifferentiableError when the forward graph has an op
+        with no VJP rule."""
+        key = self.wrt_key(wrt)
+        if not key and wrt is not None:
+            raise ValueError(f"backward of {self.traced.name!r}: no input "
+                             f"of {sorted(wrt)} is an input of the plan")
+        bwd = self._bwds.get(key)
+        if bwd is None:
             ct_names, grads = vjp_graph(self.eplan.graph)
-            fwd_inputs = [n.name for n in self.eplan.graph.inputs()]
-            bgraph = ir.Graph.build([grads[n] for n in fwd_inputs])
+            bgraph = ir.Graph.build([grads[n] for n in key])
             in_meta = dict(self.traced.in_meta)
             for name, o in zip(ct_names, self.eplan.graph.outputs):
                 in_meta[name] = {"shape": o.shape, "format": "dense",
                                  "sparsity": 1.0}
             btr = Traced(self.traced.name + ":vjp", bgraph,
                          list(self.traced.in_names) + ct_names, in_meta)
-            self._bwd = _verified_planned(
+            bwd = _verified_planned(
                 btr, self.context,
                 plan_graph(bgraph, self.context.mode,
                            layout_cost_params(self.context.layout, bgraph,
                                               self.context.params)))
-            self._bwd.grad_names = fwd_inputs   # type: ignore[attr-defined]
-        return self._bwd
+            bwd.grad_names = list(key)   # type: ignore[attr-defined]
+            self._bwds[key] = bwd
+        return bwd
 
     def explain(self, include_backward: bool = False) -> dict:
         """Structured plan report: ``expression``, ``mode``, ``inputs``,
@@ -493,7 +519,7 @@ class Planned:
                 self.eplan, strict=ctx.verify == "strict",
                 kernels=ctx.kernels, layout=ctx.layout))
             report.raise_if_errors()
-        return Compiled(replace(self, context=ctx))
+        return Compiled(replace(self, context=ctx, _bwds=dict(self._bwds)))
 
 
 # --------------------------------------------------------------------------
@@ -502,8 +528,10 @@ class Planned:
 
 class _PlannedFunction(torch.autograd.Function):
     """Forward: the staged plan function.  Backward: the planned gradient
-    DAG (``Planned.backward()``), cotangents cast to fp32, zeros for the
-    inputs the gradient DAG does not reach."""
+    DAG of the inputs autograd asks a gradient of
+    (``Planned.backward(wrt)``), cotangents cast to fp32; ``None`` for the
+    inputs it does not ask for, zeros for the ones the gradient DAG does
+    not reach."""
 
     @staticmethod
     def forward(ctx, compiled: "Compiled", *arrs):
@@ -517,17 +545,23 @@ class _PlannedFunction(torch.autograd.Function):
         with spans.span(compiled._bwd_span):
             arrs = ctx.saved_tensors
             names = compiled.planned.traced.in_names
-            bwd_plan, grad_names, ct_names = compiled._get_bwd()
-            binds = dict(zip(names, arrs))
-            binds.update({n: c.to(torch.float32).contiguous()
-                          for n, c in zip(ct_names, cts)})
-            grads = bwd_plan(binds)
-            if not isinstance(grads, tuple):
-                grads = (grads,)
-            by_name = dict(zip(grad_names, grads))
+            need = ctx.needs_input_grad[1:]
+            wrt = compiled.planned.wrt_key(
+                [n for n, want in zip(names, need) if want])
+            by_name = {}
+            if wrt:
+                bwd_plan, grad_names, ct_names = compiled._get_bwd(wrt)
+                binds = dict(zip(names, arrs))
+                binds.update({n: c.to(torch.float32).contiguous()
+                              for n, c in zip(ct_names, cts)})
+                grads = bwd_plan(binds)
+                if not isinstance(grads, tuple):
+                    grads = (grads,)
+                by_name = dict(zip(grad_names, grads))
             return (None,) + tuple(
-                by_name[n] if n in by_name else torch.zeros_like(arrs[i])
-                for i, n in enumerate(names))
+                None if not want else
+                by_name[n] if n in by_name else torch.zeros_like(a)
+                for n, want, a in zip(names, need, arrs))
 
 
 class Compiled:
@@ -544,7 +578,8 @@ class Compiled:
             planned.eplan, kernels=ctx.kernels, device=str(self.device),
             staged=ctx.staged, layout=ctx.layout,
             strict=ctx.verify == "strict")
-        self._bwd_compiled: Optional[CompiledPlan] = None
+        #: compiled backward plans, keyed as ``Planned.backward``'s
+        self._bwd_plans: dict[tuple, CompiledPlan] = {}
         region = planned.traced.name
         self._bwd_span = f"fused.backward:{region}"
         self._bwd_plan_span = f"fused.plan:{region}"
@@ -578,31 +613,51 @@ class Compiled:
     def _run_plain(self, arrs):
         return self._cplan(dict(zip(self.planned.traced.in_names, arrs)))
 
-    def _get_bwd(self) -> tuple[CompiledPlan, list[str], list[str]]:
-        if self._bwd_compiled is None:
+    def _get_bwd(self, wrt=None) -> tuple[CompiledPlan, list[str],
+                                          list[str]]:
+        """(compiled backward, gradient names, cotangent names) of the
+        inputs in ``wrt`` (None: every input), planned and compiled on the
+        first call for that set of inputs."""
+        bwd = self.planned.backward(wrt)
+        key = tuple(bwd.grad_names)       # type: ignore[attr-defined]
+        cp = self._bwd_plans.get(key)
+        if cp is None:
             with spans.span(self._bwd_plan_span):
-                self._bwd_compiled = compile_plan(
-                    self.planned.backward().eplan,
+                cp = self._bwd_plans[key] = compile_plan(
+                    bwd.eplan,
                     kernels=self.planned.context.kernels,
                     device=str(self.device),
                     staged=self.planned.context.staged,
                     layout=self.planned.context.layout)
-        bwd = self.planned.backward()
         ct_names = [n for n in bwd.traced.in_names if n.startswith("__ct")]
-        return self._bwd_compiled, bwd.grad_names, ct_names  # type: ignore
+        return cp, list(key), ct_names
 
     def explain(self, include_backward: bool = False) -> dict:
         """The plan's report, with the downgrades recorded at call time
         (value formats seen by the forward and backward plans) merged into
-        ``execution.fallbacks``, deduped by site and reason."""
+        ``execution.fallbacks``, deduped by site and reason.  With
+        ``include_backward=True``, ``backward`` also gives ``n_plans``,
+        the backward plans held, and ``plans``: for each, the inputs it
+        differentiates (``wrt``), the ones it leaves out (``skipped``),
+        its cost and its operators."""
         report = self.planned.explain(include_backward=include_backward)
         fbs = report["execution"]["fallbacks"]
-        for cp in (self._cplan, self._bwd_compiled):
-            if cp is None:
-                continue
+        for cp in (self._cplan, *self._bwd_plans.values()):
             seen = {(f["site"], f["reason"]) for f in fbs}
             fbs.extend(dict(f) for f in cp.fallbacks
                        if (f["site"], f["reason"]) not in seen)
+        if include_backward:
+            every = self.planned.wrt_key()
+            plans = []
+            for key in self._bwd_plans:
+                bwd = self.planned.backward(key)
+                plans.append({"wrt": list(key),
+                              "skipped": [n for n in every if n not in key],
+                              "cost": bwd.cost,
+                              "n_operators": len(bwd.eplan.specs),
+                              "operators": bwd.fused_signatures()})
+            report["backward"]["n_plans"] = len(plans)
+            report["backward"]["plans"] = plans
         return report
 
     def _bind(self, args, kwargs) -> dict:

@@ -41,7 +41,8 @@ The port's spans::
     fused.call:<region>     a fused region's call (``Fused.__call__``)
     fused.backward:<region> its planned backward (autograd's backward)
     fused.plan:<region>     trace, plan and compile on a signature miss,
-                            and the backward's first compile
+                            and each backward plan's first compile (one
+                            per set of inputs differentiated)
     kernels.build           building the generated kernels, and loading
                             one on a launcher miss
     py.gc                   one pass of Python's cyclic collector

@@ -14,7 +14,8 @@ misaligned row panel copied, not refused; the LM's fused rmsnorm at
 columns in the Row kernel's staged layout; the staged layout at a small
 width in one CTA and in a cluster of 4, on its scalar path and over a
 request axis, and the streaming layout, against their plain versions;
-the staged row_agg and full_agg in one CTA and in a cluster.
+the staged row_agg and full_agg in one CTA and in a cluster; L2SVM's and
+MLogReg's backward of the weights alone (one Row pass, no ∇X).
 Marked ``gpu``; without a card
 every test skips.  Imports no JAX (the machine with the card has none):
 
@@ -30,15 +31,13 @@ import torch
 from repro_torch.algos import (als_cg, autoencoder, data, glm, kmeans,
                                l2svm, mlogreg)
 from repro_torch.core import FusionContext
-from repro_torch.core.codegen import compile_plan
+from repro_torch.core.codegen import _eval_basic, _is_fused, compile_plan
 from repro_torch.kernels import (build, cellwise, cuda_src, multiagg, ops,
                                  outerprod, rowwise, sweep)
 from repro_torch.kernels.blocksparse import BCSR
 
 from torch_regions import GRADS, chip_smoke, inputs, regions, run_port
 
-#: regions whose planned backward the tests run
-GRADS_FNS = {fn for name, (fn, _s) in regions(1, 1).items() if name in GRADS}
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -55,13 +54,16 @@ def card():
     torch.backends.cuda.matmul.allow_tf32 = False
     cplans = [sweep.fused_cplan(c, *SWEEP_SHAPES[0])[0]
               for c in sweep.cases()]
-    for fn, shapes in regions(*REGION_SHAPE).values():
+    for name, (fn, shapes) in regions(*REGION_SHAPE).items():
         planned = fn.trace(**{k: torch.empty(s, device="meta")
                               for k, s in shapes.items()}).plan(
             context=FusionContext(device="cpu"))
         cplans += compile_plan(planned.eplan).cplans()
-        if fn in GRADS_FNS:
-            cplans += compile_plan(planned.backward().eplan).cplans()
+        if name in GRADS:
+            # the backward of every input, and of the inputs the region
+            # tests differentiate (the one their autograd runs)
+            for wrt in (None, GRADS[name]):
+                cplans += compile_plan(planned.backward(wrt).eplan).cplans()
     srcs = [cuda_src.source_for(cp) for cp in cplans]
     srcs += [cuda_src.source_for(cp) for cp, _n in
              [sweep.fused_cplan(c, *s) for c, s in CELL_VECTOR_RUNS]
@@ -589,3 +591,71 @@ def test_staged_row_and_full_aggregates_match_plain_on_the_card(
 def ir_exp(x):
     from repro_torch.core import ir
     return ir.exp(x)
+
+
+#: the weights-only backward's check: X is 80 MB, well under the cells'
+WRT_SHAPE = (200_003, 100, 5)
+
+
+@pytest.mark.parametrize("name,weights", [("l2svm/objective_full", "w"),
+                                          ("mlogreg/nll_obj_reg", "B")])
+def test_weights_only_backward_on_the_card(name, weights):
+    """L2SVM's and MLogReg's objectives with only the weights requiring a
+    gradient, as their ``run`` asks: the backward launches the generated
+    Row and Cell kernels with no fallback, allocates less than a tenth of
+    X's bytes beyond what the call held before it (no ∇X: the peak stays
+    under X's bytes plus 10 %), its Row is within the kernel limit of its
+    plain version, and the gradient matches the every-input plan's within
+    the same limit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    smoke = chip_smoke()
+    fn, shapes = regions(*WRT_SHAPE)[name]
+    vals = inputs(shapes, seed=sum(map(ord, name)))
+    compiled = fn.trace(**vals).plan(context=FusionContext(
+        kernels="cuda", device="cuda")).compile()
+    masked = compiled.planned.backward([weights])
+    cps = compile_plan(masked.eplan).cplans()
+    assert [(c.ttype.name, c.variant) for c in cps] == \
+        [("ROW", "col_t_agg"), ("CELL", "no_agg")]
+    every_cps = compile_plan(compiled.planned.backward().eplan).cplans()
+    build.build_all({s.key: s for s in map(cuda_src.source_for,
+                                            cps + every_cps)}.values())
+    args = {k: torch.tensor(v, device="cuda", requires_grad=k == weights)
+            for k, v in vals.items()}
+    out = compiled(**args)
+    torch.cuda.synchronize()
+    x_bytes = args["X"].numel() * args["X"].element_size()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = (rowwise.launches, cellwise.launches)
+    (got,) = torch.autograd.grad(out[0, 0], args[weights])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    assert (rowwise.launches, cellwise.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert peak - held < 0.1 * x_bytes, (peak, held, x_bytes)
+    assert compiled.explain()["execution"]["fallbacks"] == []
+    # the every-input plan on the same operands
+    every, grad_names, ct_names = compiled._get_bwd()
+    binds = {k: v.detach() for k, v in args.items()}
+    binds.update({n: torch.ones((1, 1), device="cuda") for n in ct_names})
+    want = dict(zip(grad_names, every(binds)))[weights]
+    # the Row against its plain version, and the gradients within its
+    # limit (the Cell's λ·w term adds the rounding of |∇|)
+    row, graph = cps[0], masked.eplan.graph
+    env = {n.nid: binds[n.name] for n in graph.inputs()}
+    lits = compile_plan(masked.eplan, device="cuda")._literals()
+    for spec in masked.eplan.specs:       # the scalars the Row binds
+        if _is_fused(spec):
+            break
+        node = graph.by_id[spec.root]
+        env[node.nid] = _eval_basic(graph, node, env, lits)
+    env = {b.nid: env[b.nid] for b in row.binds}
+    _err, share = smoke.compare(row, env, f"{name} weights-only Row")
+    assert share <= 1.0
+    limit = smoke.KERNEL_ULPS * smoke.EPS32 * (
+        smoke.error_scale(row, env) + want.abs())
+    worst = float(((got - want).abs() / limit).max())
+    assert worst <= 1.0, f"{worst:.3g} x the limit"

@@ -75,6 +75,9 @@ def test_fused_lse_is_one_row_operator_each_way():
                                atol=1e-6)
     bwd = op._get_bwd()[0].cplans()
     assert [(c.ttype.name, c.variant) for c in bwd] == [("ROW", "no_agg")]
+    # the activations need their gradient: autograd's backward ran the
+    # every-input plan, the only one held
+    assert list(op._bwd_plans) == [op.planned.wrt_key()]
 
 
 #: the update is compared where |first moment| >= COND x its largest

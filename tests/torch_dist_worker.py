@@ -169,7 +169,8 @@ def run_all(mesh, outdir: Path, rank: int) -> None:
             layout=mesh).compile()
         Bt = Bg.clone().requires_grad_(True)
         (g,) = torch.autograd.grad(comp(X, Bt, Y, lam)[0, 0], Bt)
-    _check(comp._bwd_compiled._seg_plans, "the backward ran no segment")
+    _check(comp._bwd_plans[("B",)]._seg_plans,
+           "the backward ran no segment")
     _check(comp.explain()["execution"]["fallbacks"] == [],
            comp.explain()["execution"]["fallbacks"])
     out["grad"] = g.numpy()
@@ -247,7 +248,8 @@ def run_all(mesh, outdir: Path, rank: int) -> None:
         loss = train._ce(L, targets, tc)
         (gL,) = torch.autograd.grad(loss, L)
     (op,) = train._LSE_OPS.values()
-    _check(op._cplan._seg_plans and op._bwd_compiled._seg_plans,
+    (bwd,) = op._bwd_plans.values()
+    _check(op._cplan._seg_plans and bwd._seg_plans,
            "the fused loss ran no segment step each way")
     _check(op.explain()["execution"]["fallbacks"] == [],
            op.explain()["execution"]["fallbacks"])
