@@ -15,6 +15,9 @@ toolkit:
     python3 chip_smoke.py --lm-times   # only [lm]'s prefill, decode and
                                        # Engine.step() readings, likewise
     python3 chip_smoke.py --lm-train   # only [lm-train] (no result line)
+    python3 chip_smoke.py --attn   # only [attn] (no result line)
+    python3 chip_smoke.py --lm   # only [attn] and [lm] .. [lm-xlstm],
+                                 # then the attention kernel's entry
     python3 chip_smoke.py --lm-sharded   # only [lm-sharded] and
                                          # [examples] (no result line)
     python3 chip_smoke.py --lm-train-sharded   # only [lm-train-sharded]
@@ -164,7 +167,21 @@ Phases, each reported on its own lines with its wall time:
    ``kernels="never"``'s, the planted staged-chunk fault leaving that,
    each panel timed beside its bound, its plain version and the library
    call (``torch.logsumexp``; ``softmax`` then ``mul_``);
-18.-21. ``[lm]``, ``[lm-moe]``, ``[lm-hybrid]``, ``[lm-xlstm]``: the LM
+18.-21. first ``[attn]``: the attention kernel
+   (``kernels.attention.flash``, ``csrc/attn.cuh``) forward and backward
+   on card tensors at the LM benchmark cell's shapes
+   (``portbench/configs/mellum2-12b-ep8.json``: 32 query heads over 4 KV
+   heads of 128, 8,192 tokens, window 1,024 and full) and at gemma3-27b's
+   head shape (32 over 16 heads of 168, 2,048 tokens), out, dq, dk and dv
+   each within ATTN_RTOL of max |x| of the torch block loop
+   ``models.attention._chunked_attention`` (autograd through it) on the
+   same tensors, a planted fault (the kernel's output of the last query
+   block left out) that must fail, and the kernel's forward and forward +
+   backward device times at the cell's micro-batch of 8 sequences beside
+   the bound ``portbench.lmwork`` gives (the visible pairs' operations at
+   the fp32 peak), and each build's ptxas register and spill lines; the
+   kernel's launch counters set to 0 just after it.
+   Then ``[lm]``, ``[lm-moe]``, ``[lm-hybrid]``, ``[lm-xlstm]``: the LM
    serving path, one phase a model of ``LM_ARCHS``: minitron-4b at full
    width for 8 of its 32 attention layers (d_model 3,072, vocab 256,000;
    the whole model is 4,190,306,304 parameters), olmoe-1b-7b at full
@@ -319,6 +336,9 @@ Phases, each reported on its own lines with its wall time:
    decode times; ``row_loss`` / ``row_loss_vjp``, the fused loss's forward
    and backward at 256,000 columns in the staged layout, launches from
    [lm-train]'s full-size run, a part at every width;
+   ``attn``, the attention kernel: [attn]'s worst check and times, its
+   forward and backward launches counted over [lm], [lm-moe], [lm-hybrid]
+   and [lm-xlstm] (every 2,048-token prefill of a transformer layer);
    ``row_loss_sharded`` / ``row_loss_vjp_sharded``, the same at a rank's
    256 x 256,000 of [lm-train-sharded], launches from its full-depth
    run; ``row_loss_panel`` / ``row_loss_vjp_panel``, the same over a
@@ -3597,6 +3617,18 @@ LM_TIE = 1e-5
 #: fp32, of max |out|: online softmax vs one softmax
 LM_CHUNK_RTOL = 1e-5
 BF16_PEAK = 989e12           # H100 SXM bf16 dense tensor cores, FLOP/s
+#: [attn]: the LM benchmark cell whose shapes the attention kernel is
+#: checked and timed at, the seed of its operands, and kernel vs block
+#: loop (fp32 both, sums in another order and block size), of max |x|
+ATTN_CELL = "portbench/configs/mellum2-12b-ep8.json"
+ATTN_SEED = 23
+ATTN_RTOL = 2e-5
+#: [attn]'s checks: (label, query heads, KV heads, head size, tokens,
+#: window) on one sequence
+ATTN_CHECKS = (("cell window", 32, 4, 128, 8192, 1024),
+               ("cell full", 32, 4, 128, 8192, 0),
+               ("gemma3-27b window", 32, 16, 168, 2048, 1024),
+               ("gemma3-27b full", 32, 16, 168, 2048, 0))
 
 
 def lm_norm_cplans(d: int = 0):
@@ -4312,6 +4344,137 @@ def lm_attn_checks(tag: str, m32, toks, full16) -> None:
     log(f"[{tag}] bf16 vs fp32 prefill logits over {S} positions: worst "
         f"{diff / float(full32.abs().max()):.3e} of max |logit|, top-1 "
         f"token equal at {top1:.4f} of positions (recorded, no limit)")
+
+
+def attn_phase() -> dict:
+    """``[attn]``: the attention kernel against the torch block loop at
+    ATTN_CHECKS, with a planted fault, and its device times at the LM
+    cell's micro-batch beside ``portbench.lmwork``'s bound; the kernel's
+    launch counters set to 0 at the end.  Returns the kernel's record for
+    the result line."""
+    import torch
+    from portbench import lmwork, work
+    from repro_torch.kernels import attention as kattn
+    from repro_torch.models.attention import _chunked_attention, _expand
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(ATTN_SEED)
+
+    def operands(B, S, H, KV, D):
+        return [torch.randn(shape, generator=gen, device="cuda")
+                for shape in ((B, S, H, D), (B, S, KV, D), (B, S, KV, D),
+                              (B, S, H, D))]
+
+    def plain(q, k, v, window):
+        rep = q.shape[2] // k.shape[2]
+        pos = torch.arange(q.shape[1], device="cuda")[None]
+        return _chunked_attention(q, _expand(k, rep, None),
+                                  _expand(v, rep, None), pos, window)
+
+    def grads(fn, q, k, v, do, window):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = fn(*leaves, window)
+        out.backward(do)
+        return [out.detach()] + [t.grad for t in leaves]
+
+    worst, parts = 0.0, []
+    for label, H, KV, D, S, window in ATTN_CHECKS:
+        q, k, v, do = operands(1, S, H, KV, D)
+        got = grads(kattn.flash, q, k, v, do, window)
+        want = grads(plain, q, k, v, do, window)
+        rel = [float((a - b).abs().max() / b.abs().max())
+               for a, b in zip(got, want)]
+        bad = got[0].clone()
+        bad[:, -kattn.BLOCK:] = 0.0
+        fault = float((bad - want[0]).abs().max() / want[0].abs().max())
+        log(f"[attn] {label} ({H} / {KV} heads x {D}, {S} tokens, window "
+            f"{window}): kernel vs block loop, of max |x|: out "
+            f"{rel[0]:.3e}, dq {rel[1]:.3e}, dk {rel[2]:.3e}, dv "
+            f"{rel[3]:.3e} (limit {ATTN_RTOL:g}); planted (the last query "
+            f"block's output left out) {fault:.3e}")
+        if not max(rel) <= ATTN_RTOL:
+            raise AssertionError(f"[attn] {label}: kernel and block loop "
+                                 f"disagree")
+        if not fault > ATTN_RTOL:
+            raise AssertionError(f"[attn] {label}: the planted fault passed")
+        worst = max(worst, *rel)
+        parts.append({"check": label, "rel": rel, "fault": fault})
+        del q, k, v, do, got, want, bad
+        torch.cuda.empty_cache()
+
+    cfg = json.loads((ROOT / ATTN_CELL).read_text())
+    s = lmwork.shapes(cfg)
+    q, k, v, do = operands(s["B"], s["S"], s["H"], s["KV"], s["hd"])
+    ms = bound = 0.0
+    for window in sorted(set(s["windows"])):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+
+        def fwd_bwd():
+            for t in leaves:
+                t.grad = None
+            kattn.flash(*leaves, window).backward(do)
+        with torch.no_grad():
+            f_ms = device_ms(lambda: kattn.flash(q, k, v, window), reps=3)
+        fb_ms = device_ms(fwd_bwd, reps=3)
+        flops = lmwork.attn_flops(cfg, window)
+        f_bound = work.least_ms(0, flops[0])
+        fb_bound = work.least_ms(0, sum(flops))
+        log(f"[attn] cell micro-batch {s['B']} x {s['S']} tokens, window "
+            f"{window}: forward {f_ms:.3f} ms device (bound {f_bound:.3f} "
+            f"ms, {100 * f_bound / f_ms:.1f} %), forward + backward "
+            f"{fb_ms:.3f} ms device (bound {fb_bound:.3f} ms, "
+            f"{100 * fb_bound / fb_ms:.1f} %)")
+        ms += fb_ms * s["windows"].count(window)
+        bound += fb_bound * s["windows"].count(window)
+        parts.append({"window": window, "fwd_ms": f_ms,
+                      "fwd_bound_ms": f_bound, "fwd_bwd_ms": fb_ms,
+                      "fwd_bwd_bound_ms": fb_bound})
+        del leaves
+    del q, k, v, do
+    torch.cuda.empty_cache()
+    for D in sorted({c[3] for c in ATTN_CHECKS}):
+        for line in ptxas_lines(kattn.source(D)):
+            log(f"[attn] head {D} ptxas: {line}")
+    kattn.launches = kattn.backward_launches = 0
+    log(f"[attn] phase wall {time.perf_counter() - t0:.1f} s")
+    return {"max_abs_err": worst, "ms": ms, "bound_ms": bound,
+            "parts": parts}
+
+
+def lm_phases() -> tuple[dict, dict]:
+    """[attn], then the serving phases of LM_ARCHS with the attention
+    kernel's launches counted over them: ([attn]'s record with the
+    launches, each phase's rmsnorm record by tag)."""
+    from repro_torch.kernels import attention as kattn
+    attn_rec = attn_phase()
+    arch_recs = {run.tag: lm_arch_phase(run) for run in LM_ARCHS}
+    attn_rec["launches"] = kattn.launches
+    attn_rec["backward_launches"] = kattn.backward_launches
+    log(f"[attn] launches over [lm], [lm-moe], [lm-hybrid] and "
+        f"[lm-xlstm]: {kattn.launches} forward, {kattn.backward_launches} "
+        f"backward")
+    if not kattn.launches:
+        raise AssertionError("the LM phases never launched the attention "
+                             "kernel")
+    return attn_rec, arch_recs
+
+
+def attn_row(rec: dict) -> dict:
+    """The attention kernel's entry of the result line's kernels."""
+    return {
+        "name": "attn", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/attn.cuh",
+        "replaces": "none (the reference's attention is einsums)",
+        "launches": rec["launches"],
+        "backward_launches": rec["backward_launches"],
+        "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+        "bound_ms": rec["bound_ms"], "bound_by": "operations",
+        "per": ("forward + backward device time of the LM cell's four "
+                "layers (3 window, 1 full) over one micro-batch of 8 x "
+                "8,192 tokens, bound from portbench.lmwork; max_abs_err "
+                "the worst of [attn]'s checks, relative to max |x|; "
+                "launches over [lm], [lm-moe], [lm-hybrid] and "
+                "[lm-xlstm]"),
+        "parts": rec["parts"]}
 
 
 def lm_arch_phase(run: LMArch) -> dict:
@@ -6551,8 +6714,9 @@ def run() -> None:
     # 17. [dist]: distributed segments on a mesh of 4 ranks on the card ----
     dist_rec = dist_phase(traces)
 
-    # 18.-21. [lm], [lm-moe], [lm-hybrid], [lm-xlstm]: the LM serving path -
-    arch_recs = {run.tag: lm_arch_phase(run) for run in LM_ARCHS}
+    # 18.-21. [attn], then [lm], [lm-moe], [lm-hybrid], [lm-xlstm]: the LM
+    # serving path -------------------------------------------------------
+    attn_rec, arch_recs = lm_phases()
 
     # 22. [lm-train]: the fused loss, the train step and the CLI ----------
     train_recs = lm_train_phase()
@@ -6617,6 +6781,7 @@ def run() -> None:
                     f"{width}, fp32; launches in the [{run.tag}] phase's "
                     f"call"),
             "parts": rec["parts"], "lm_times": rec["times"]})
+    rows.append(attn_row(attn_rec))
     for name, what in (("row_loss", "forward: log-sum-exp rows"),
                        ("row_loss_vjp", "planned backward")):
         rec = train_recs[name]
@@ -6964,6 +7129,36 @@ def lm_train_only() -> None:
                     for k, v in recs.items()}, default=str))
 
 
+def attn_only() -> None:
+    """``--attn``: [attn] alone (its checks and readings, no result
+    line)."""
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[env] {ROOT} torch {torch.__version__}; nvidia-smi: "
+        f"{card_line()}")
+    rec = attn_phase()
+    log(json.dumps({"attn": {k: v for k, v in rec.items()
+                             if k != "parts"}}))
+
+
+def lm_only() -> None:
+    """``--lm``: [attn] and the LM serving phases (18-21) alone, then the
+    attention kernel's entry of the result line (no result line)."""
+    import torch
+    if not torch.cuda.is_available():
+        raise RuntimeError("torch.cuda.is_available() is False")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[env] {ROOT} torch {torch.__version__}; nvidia-smi: "
+        f"{card_line()}")
+    attn_rec, _arch_recs = lm_phases()
+    log(json.dumps({"kernels": [attn_row(attn_rec)]}))
+    log(card_line())
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--dist-rank"] and len(args) == 6:
@@ -6980,12 +7175,14 @@ def main() -> int:
         return 0
     modes = {(): run, ("--times",): times_only,
              ("--lm-times",): lm_times_only, ("--lm-train",): lm_train_only,
+             ("--attn",): attn_only, ("--lm",): lm_only,
              ("--lm-sharded",): sharded_only,
              ("--lm-train-sharded",): train_sharded_only,
              ("--dist",): dist_only}
     if tuple(args) not in modes:
         print("usage: python3 chip_smoke.py [--times | --lm-times | "
-              "--lm-train | --lm-sharded | --lm-train-sharded | --dist]",
+              "--lm-train | --attn | --lm | --lm-sharded | "
+              "--lm-train-sharded | --dist]",
               file=sys.stderr)
         return 2
     try:

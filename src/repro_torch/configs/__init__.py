@@ -2,7 +2,7 @@
 reference's ``configs`` (no weights, no framework), and the named
 production mesh shapes the layout planner costs."""
 
-from .base import ModelConfig, ShapeConfig
+from .base import ModelConfig, PortConfig, ShapeConfig
 from .meshes import MESH_SHAPES, mesh_devices
-from .registry import ARCH_IDS, all_configs, get_config
+from .registry import ARCH_IDS, PORT_IDS, all_configs, get_config
 from .shapes import SHAPES, applicable, cells

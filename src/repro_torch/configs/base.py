@@ -3,6 +3,7 @@
 from __future__ import annotations
 
 from dataclasses import dataclass, replace
+from typing import ClassVar
 
 
 @dataclass(frozen=True)
@@ -50,6 +51,12 @@ class ModelConfig:
     remat: bool = True
     scan_layers: bool = True
 
+    # the fields of :class:`PortConfig` (the reference's configurations
+    # have none of them): their values for every other configuration
+    yarn: ClassVar[tuple] = ()
+    expert_first: ClassVar[int] = 0
+    experts_held: ClassVar[int] = 0
+
     @property
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.n_heads
@@ -85,6 +92,24 @@ class ModelConfig:
             dtype="float32",
             remat=False,
         )
+
+
+@dataclass(frozen=True)
+class PortConfig(ModelConfig):
+    """A configuration of the port alone, beyond the reference's fields."""
+    # YaRN on the global layers of a local/global pattern: (factor,
+    # original context, beta_fast, beta_slow, attention factor); () = none
+    yarn: tuple = ()
+    # one device's share of the experts (expert parallelism without its
+    # exchange): experts expert_first .. + experts_held - 1 of the
+    # n_experts the router routes over (0 = all of them)
+    expert_first: int = 0
+    experts_held: int = 0
+
+    def reduced(self) -> "PortConfig":
+        r = super().reduced()
+        return replace(r, expert_first=0,
+                       experts_held=min(self.experts_held, r.n_experts))
 
 
 def _param_count(c: ModelConfig, active_only: bool) -> int:

@@ -12,6 +12,10 @@ ARCH_IDS = [
     "musicgen-large",
 ]
 
+#: configurations of the port alone: the JAX package has none of them, so
+#: the tests that hold the port to it run over ARCH_IDS
+PORT_IDS = ["mellum2-12b-a2.5b"]
+
 _MODULES = {
     "grok-1-314b": "grok_1_314b",
     "olmoe-1b-7b": "olmoe_1b_7b",
@@ -23,6 +27,7 @@ _MODULES = {
     "xlstm-1.3b": "xlstm_1_3b",
     "llava-next-34b": "llava_next_34b",
     "musicgen-large": "musicgen_large",
+    "mellum2-12b-a2.5b": "mellum2_12b_a2_5b",
 }
 
 

@@ -109,19 +109,25 @@ def _build_all(srcs: list[KernelSource]) -> list[Path]:
     return paths
 
 
-#: argument types of the two launcher ABIs: ``repro_launch`` (Cell, MAgg,
+#: argument types of the launcher ABIs: ``repro_launch`` (Cell, MAgg,
 #: Row: bind pointers, per-request bind strides, request count, out, out's
 #: per-request stride, part, tickets, m, nblocks per request, aux; see
 #: ``cuda_src.LAUNCH_SIGNATURE``) and
 #: ``repro_launch_outer`` (Outer: bind pointers, the BCSR's data, cols and
 #: block-row pointer, its piece table, piece pointer and piece count, the
-#: closer, out, part, m, n, nblocks, bs, r, k)
+#: closer, out, part, m, n, nblocks, bs, r, k), and the attention kernel's
+#: ``attn_fwd`` / ``attn_bwd`` (:mod:`repro_torch.kernels.attention`)
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
     "repro_launch": [ctypes.POINTER(_P), ctypes.POINTER(_LL), _I, _P, _LL, _P,
                      _P, _LL, _I, ctypes.c_double, _P, _I],
     "repro_launch_outer": [ctypes.POINTER(_P), _P, _P, _P, _P, _P, _LL, _P,
                            _P, _P, _LL, _LL, _I, _I, _I, _I, _P, _I],
+    # csrc/attn.cuh: q, k, v, kv_of, out, lse; B, S, H, KV, window, scale
+    "attn_fwd": [_P] * 6 + [_I] * 5 + [ctypes.c_float, _P, _I],
+    # q, k, v, kv_of, dout, lse, delta, dq, dk, dv; B, S, H, KV, window,
+    # scale
+    "attn_bwd": [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P, _I],
 }
 
 

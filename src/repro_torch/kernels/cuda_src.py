@@ -1042,6 +1042,8 @@ def row_tile(widths: list[int], gp: int, sbf: int, variant: str, c: int,
     for budget in ((_SM_SMEM // 2) - _CTA_RESERVED, _CTA_SMEM_MAX):
         for rows in cands:
             lt = 1 if rows >= t else min(32, t // rows)
+            if rows % (t // lt):
+                continue        # under t / 32 rows a pass holds no whole row
             kt = ng = sl = cw = pbr = u = 1
             fold = {FULL_AGG: t, COL_AGG: t * c}.get(variant, 0)
             if phase_b == "close":

@@ -41,6 +41,7 @@ from typing import Optional
 import torch
 from torch.func import functional_call
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core import FusionLayout, current_context, fused, ir
 from repro_torch.core.layout import layout_signature
@@ -185,6 +186,10 @@ def make_train_step(model: LM, cfg: ModelConfig, tc: TrainConfig,
                                                    model), mesh)
 
     def train_step(params, opt_state, batch):
+        with spans.span("train.step"):
+            return step(params, opt_state, batch)
+
+    def step(params, opt_state, batch):
         n_mb = tc.n_microbatches
         if n_mb > 1:
             mbs = {k: torch.as_tensor(v).reshape(
@@ -210,11 +215,15 @@ def make_train_step(model: LM, cfg: ModelConfig, tc: TrainConfig,
         if mesh is not None:
             grads = _reduce_grads(mesh, model.shard.specs, grads)
             gnorm = _global_norm(mesh, model.shard.specs, grads)
-        if loss.device.type != "meta" and not bool(torch.isfinite(loss)):
-            return params, opt_state, {"loss": loss}
-        new_params, new_opt, metrics = adamw.update(grads, opt_state,
-                                                    params, tc.opt,
-                                                    gnorm=gnorm)
+        if loss.device.type != "meta":
+            with spans.span("sync"):
+                finite = bool(torch.isfinite(loss))
+            if not finite:
+                return params, opt_state, {"loss": loss}
+        with spans.span("optim.adamw"):
+            new_params, new_opt, metrics = adamw.update(grads, opt_state,
+                                                        params, tc.opt,
+                                                        gnorm=gnorm)
         del grads
         metrics = dict(metrics, loss=loss)
         return new_params, new_opt, metrics

@@ -14,29 +14,70 @@ local query head to its KV head (local or replicated), writes its block
 of the cache's heads, and reduces ``wo``'s partial sums (under
 ``activation_rules(mesh, "sp")`` reduce-scatters them along the
 sequence).  ``constrain`` marks the reference's ``"bthd"`` points.
+
+Training and prefill attend over positions 0 .. S − 1.  Where
+``cfg.attn_chunk`` splits the sequence, the card runs the hand-written
+kernel (:func:`repro_torch.kernels.attention.flash`) and the CPU the torch
+block loop :func:`_chunked_attention`, its plain version: both visit only
+the key blocks inside a query block's causal window.  A layer's rope is
+plain RoPE, or YaRN (``rope_kind="yarn"``: ``cfg.yarn``'s frequencies and
+scale, as Hugging Face's ``_compute_yarn_parameters``).  Each layer runs
+inside the span ``attn.window`` or ``attn.full`` (forward and backward).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
 from .layers import normal
 from repro_torch.dist.sharding import constrain
 from .sharded import enter, proj, row, weights
 
 
-def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
-    """x: (B, S, H, hd); positions: (B, S)."""
+def rope_freqs(hd: int, theta: float, yarn: tuple = (), device=None):
+    """(the rotate-half inverse frequencies θ^(−i/half), (hd/2,) fp32, and
+    the scale of cos and sin).  With ``yarn`` = (factor, original context,
+    beta_fast, beta_slow, attention factor), Hugging Face's
+    ``_compute_yarn_parameters``: from the dimension whose wavelength turns
+    beta_fast times in the original context (floored) to the one that
+    turns beta_slow times (ceiled), clamped to [0, hd − 1], a linear ramp
+    from the frequency to it over the factor; cos and sin scaled by the
+    attention factor."""
+    half = hd // 2
+    i = torch.arange(0, half, dtype=torch.float32, device=device)
+    freqs = theta ** (-i / half)
+    if not yarn:
+        return freqs, 1.0
+    factor, original, beta_fast, beta_slow, mscale = yarn
+
+    def dim_of(turns):
+        return hd * math.log(original / (turns * 2 * math.pi)) \
+            / (2 * math.log(theta))
+    low = max(math.floor(dim_of(beta_fast)), 0)
+    high = min(math.ceil(dim_of(beta_slow)), hd - 1)
+    if low == high:
+        high += 0.001
+    ramp = torch.clamp((i - low) / (high - low), 0.0, 1.0)
+    return freqs * (1 - ramp) + (freqs / factor) * ramp, float(mscale)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         yarn: tuple = ()):
+    """x: (B, S, H, hd); positions: (B, S); ``yarn``: see
+    :func:`rope_freqs`."""
     hd = x.shape[-1]
     half = hd // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
+    freqs, mscale = rope_freqs(hd, theta, yarn, x.device)
     ang = positions[..., None].float() * freqs             # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
+    if yarn:
+        cos, sin = cos * mscale, sin * mscale
     x1, x2 = x[..., :half], x[..., half:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
@@ -78,7 +119,8 @@ def _scores(q: torch.Tensor, k: torch.Tensor, spec: str,
     return torch.einsum(spec, q.float(), k.float()) * scale
 
 
-def _qkv(x: torch.Tensor, p, cfg: ModelConfig, positions, sh):
+def _qkv(x: torch.Tensor, p, cfg: ModelConfig, positions, sh,
+         yarn: tuple = ()):
     """Roped q, k and v (B, S, heads, hd) of the heads this rank runs, and
     the KV head each of its query heads reads (None: ``repeat_interleave``
     by H / KV, as without a mesh)."""
@@ -95,9 +137,9 @@ def _qkv(x: torch.Tensor, p, cfg: ModelConfig, positions, sh):
             # the rank's query heads read whole K / V
             k, v = sh.enter(k), sh.enter(v)
     q = rope(constrain(q.reshape(B, S, -1, hd), "bthd"), positions,
-             cfg.rope_theta)
+             cfg.rope_theta, yarn)
     k = rope(constrain(k.reshape(B, S, -1, hd), "bthd"), positions,
-             cfg.rope_theta)
+             cfg.rope_theta, yarn)
     v = constrain(v.reshape(B, S, -1, hd), "bthd")
     rep = H // KV
     Hl, KVl = q.shape[2], k.shape[2]
@@ -119,25 +161,40 @@ def _expand(kv: torch.Tensor, rep: int, kv_of) -> torch.Tensor:
 
 def attention(x: torch.Tensor, p, cfg: ModelConfig, *,
               positions: torch.Tensor, window: int = 0,
-              cache: Optional[dict] = None, sh=None):
-    """Full-sequence attention (train / prefill).  Returns (out,
-    new_cache): when ``cache`` is given (prefill), K/V are written into
-    its first S positions.
+              cache: Optional[dict] = None, sh=None,
+              rope_kind: str = "default"):
+    """Full-sequence attention (train / prefill) over positions 0 .. S −
+    1.  Returns (out, new_cache): when ``cache`` is given (prefill), K/V
+    are written into its first S positions.
 
     When ``cfg.attn_chunk`` divides the sequence (and is shorter), scores
-    are computed chunk by chunk with an online softmax (flash-attention
-    structure), so the S×S matrix never materialises."""
+    are computed block by block with an online softmax (flash-attention
+    structure), so the S×S matrix never materialises: on the card by the
+    attention kernel, elsewhere by :func:`_chunked_attention`."""
+    name = "attn.window" if window else "attn.full"
+    with spans.span(name):
+        out = _attention(x, p, cfg, positions, window, cache, sh,
+                         cfg.yarn if rope_kind == "yarn" else ())
+    spans.backward_span(name, x, out)
+    return out, cache
+
+
+def _attention(x, p, cfg: ModelConfig, positions, window: int, cache, sh,
+               yarn: tuple):
     B, S, _d = x.shape
     hd = cfg.hd
     p = weights(p, sh)
-    q, k, v, kv_of = _qkv(x, p, cfg, positions, sh)
+    q, k, v, kv_of = _qkv(x, p, cfg, positions, sh, yarn)
     rep = cfg.n_heads // cfg.n_kv_heads
-    kq = _expand(k, rep, kv_of)
-    vq = _expand(v, rep, kv_of)
     C = cfg.attn_chunk
-    if C and S > C and S % C == 0:
-        out = _chunked_attention(q, kq, vq, positions, window)
+    if C and S > C and S % C == 0 and x.device.type == "cuda":
+        from repro_torch.kernels.attention import flash
+        out = flash(q, k, v, window, kv_of)
+    elif C and S > C and S % C == 0:
+        out = _chunked_attention(q, _expand(k, rep, kv_of),
+                                 _expand(v, rep, kv_of), positions, window)
     else:
+        kq, vq = _expand(k, rep, kv_of), _expand(v, rep, kv_of)
         scores = _scores(q, kq, "bqhd,bkhd->bhqk", hd ** -0.5)
         keep = _mask(positions, positions, window)[:, None]
         scores = torch.where(keep, scores, -1e30)
@@ -148,39 +205,54 @@ def attention(x: torch.Tensor, p, cfg: ModelConfig, *,
     if cache is not None:
         _write(cache["k"], k, 0)
         _write(cache["v"], v, 0)
-    return out, cache
+    return out
 
 
 def _chunked_attention(q, k, v, positions, window: int):
-    """Online-softmax attention over KV chunks (flash structure).
+    """Online-softmax attention in blocks of C queries and C keys (flash
+    structure), visiting for each query block only the key blocks inside
+    its causal window (those past it would add exactly nothing), as the
+    kernel does at its own block size.
 
-    q, k, v: (B, S, H, hd); causal (+ optional sliding window).  Masked
-    scores are -inf here (the dense path uses -1e30); ``m_safe`` and
-    ``corr`` keep a row whose keys are all masked so far at zero."""
+    q, k, v: (B, S, H, hd) at positions 0 .. S − 1; causal (+ optional
+    sliding window).  Masked scores are -inf here (the dense path uses
+    -1e30); ``m_safe`` and ``corr`` keep a row whose keys are all masked so
+    far at zero."""
+    from repro_torch.kernels.attention import key_blocks
     B, S, H, hd = q.shape
     C = _chunk_of(S)
     scale = hd ** -0.5
-    m = torch.full((B, H, S), -torch.inf, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((B, H, S), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((B, H, S, hd), dtype=torch.float32, device=q.device)
-    for j0 in range(0, S, C):
-        kj, vj, pj = k[:, j0:j0 + C], v[:, j0:j0 + C], positions[:, j0:j0 + C]
-        s = _scores(q, kj, "bqhd,bkhd->bhqk", scale)
-        keep = pj[:, None, :] <= positions[:, :, None]
-        if window:
-            keep &= pj[:, None, :] > positions[:, :, None] - window
-        s = torch.where(keep[:, None], s, -torch.inf)
-        m_new = torch.maximum(m, torch.amax(s, dim=-1))
-        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
-        p_ = torch.exp(s - m_safe[..., None])
-        p_ = torch.where(keep[:, None], p_, 0.0)
-        corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
-        l = l * corr + torch.sum(p_, dim=-1)
-        acc = acc * corr[..., None] + torch.einsum(
-            "bhqk,bkhd->bhqd", p_.to(vj.dtype), vj).float()
-        m = m_new
-    out = acc / torch.clamp_min(l, 1e-30)[..., None]
+    outs, tiles = [], 0
+    for i0 in range(0, S, C):
+        qi, pi = q[:, i0:i0 + C], positions[:, i0:i0 + C]
+        n = qi.shape[1]
+        m = torch.full((B, H, n), -torch.inf, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, H, n), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, H, n, hd), dtype=torch.float32,
+                          device=q.device)
+        for jb in key_blocks(i0, S, window, C):
+            j0 = jb * C
+            kj, vj = k[:, j0:j0 + C], v[:, j0:j0 + C]
+            pj = positions[:, j0:j0 + C]
+            s = _scores(qi, kj, "bqhd,bkhd->bhqk", scale)
+            keep = pj[:, None, :] <= pi[:, :, None]
+            if window:
+                keep &= pj[:, None, :] > pi[:, :, None] - window
+            s = torch.where(keep[:, None], s, -torch.inf)
+            m_new = torch.maximum(m, torch.amax(s, dim=-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            p_ = torch.exp(s - m_safe[..., None])
+            p_ = torch.where(keep[:, None], p_, 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            l = l * corr + torch.sum(p_, dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p_.to(vj.dtype), vj).float()
+            m = m_new
+            tiles += 1
+        outs.append(acc / torch.clamp_min(l, 1e-30)[..., None])
+    spans.count("attn.blocks", B * H * tiles)
+    out = torch.cat(outs, dim=2)
     return torch.movedim(out, 1, 2).to(q.dtype)            # (B, S, H, hd)
 
 
@@ -192,7 +264,8 @@ def _chunk_of(S: int, target: int = 1024) -> int:
 
 
 def decode_attention(x: torch.Tensor, p, cfg: ModelConfig, *, cache: dict,
-                     pos: int, window: int = 0, sh=None):
+                     pos: int, window: int = 0, sh=None,
+                     rope_kind: str = "default"):
     """Single-token attention against the KV cache.  x: (B, 1, d); pos:
     the current position (an int).  Returns (out (B, 1, d), cache), the
     cache with this token's K/V written at ``pos``.
@@ -204,7 +277,8 @@ def decode_attention(x: torch.Tensor, p, cfg: ModelConfig, *, cache: dict,
     S = cache["k"].shape[1]
     posb = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     p = weights(p, sh)
-    q, k, v, kv_of = _qkv(x, p, cfg, posb, sh)
+    q, k, v, kv_of = _qkv(x, p, cfg, posb, sh,
+                          cfg.yarn if rope_kind == "yarn" else ())
     _write_decode(cache, k, v, pos)
     ck, cv = cache["k"], cache["v"]
 

@@ -54,6 +54,7 @@ class LayerSpec:
     kind: str            # attn | mamba | mlstm
     window: int = 0
     use_moe: bool = False
+    rope: str = "default"   # default | yarn (cfg.yarn)
 
 
 def build_pattern(cfg: ModelConfig) -> list[LayerSpec]:
@@ -69,8 +70,10 @@ def build_pattern(cfg: ModelConfig) -> list[LayerSpec]:
         return specs
     if cfg.local_global_period:
         p = cfg.local_global_period
+        glob = "yarn" if cfg.yarn else "default"
         return [LayerSpec("attn", cfg.sliding_window if i < p - 1 else 0,
-                          cfg.n_experts > 0)
+                          cfg.n_experts > 0,
+                          "default" if i < p - 1 else glob)
                 for i in range(p)]
     return [LayerSpec("attn", cfg.sliding_window,
                       cfg.n_experts > 0)]
@@ -212,11 +215,12 @@ class LM(nn.Module):
             if decode:
                 y, _ = attn_mod.decode_attention(
                     h, p["inner"], cfg, cache=cache, pos=pos,
-                    window=spec.window, sh=si)
+                    window=spec.window, sh=si, rope_kind=spec.rope)
             else:
                 y, _ = attn_mod.attention(
                     h, p["inner"], cfg, positions=positions,
-                    window=spec.window, cache=cache, sh=si)
+                    window=spec.window, cache=cache, sh=si,
+                    rope_kind=spec.rope)
         elif spec.kind == "mamba":
             y, _ = (mamba_mod.mamba_decode(h, p["inner"], cfg, cache, sh=si)
                     if decode else

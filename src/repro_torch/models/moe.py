@@ -33,6 +33,18 @@ so they run on ``meta`` tensors (the dry-run); ``ragged``'s group sizes
 are data.
 Sorting by expert is stable, as ``jnp.argsort`` is, so the tokens that
 ``capacity`` drops are the reference's.
+
+One device's share of the experts (``cfg.experts_held`` of them from
+``cfg.expert_first``, no mesh): the router routes every token over all
+``n_experts`` (its aux loss too), only the held experts compute, on the
+(token, slot) pairs routed to them, and the layer gives their part of the
+output; nothing stands in for the other shares or their exchange.
+``ragged`` sizes its buffers by the held pairs and runs the held experts
+one at a time, forward and a backward that computes them again, so that
+no more than one expert's rows are ever kept: a share's pairs are as many
+as the router sends it (a whole layer's always T·k), and the step's
+memory would follow the routing.  Each call runs inside the span ``moe``
+(forward and backward) and counts its held pairs (``moe.held_slots``).
 """
 
 from __future__ import annotations
@@ -42,18 +54,21 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch import spans
 from repro_torch.configs.base import ModelConfig
 from .layers import _gelu, normal
 from .sharded import weights
 
 
 def moe_params(gen: Optional[torch.Generator], cfg: ModelConfig) -> dict:
-    """The router (d, E) and the experts' weights w1 (E, d, f), w2 (E, f,
-    d) and, for the gated kinds, w3 (E, d, f), drawn from ``gen`` (fp32,
-    see :func:`~repro_torch.models.layers.normal`)."""
-    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    """The router (d, E) and the held experts' weights w1 (E', d, f), w2
+    (E', f, d) and, for the gated kinds, w3 (E', d, f) (E' =
+    ``cfg.experts_held`` or E), drawn from ``gen`` (fp32, see
+    :func:`~repro_torch.models.layers.normal`)."""
+    d, f = cfg.d_model, cfg.d_ff
+    e = cfg.experts_held or cfg.n_experts
     s_in, s_out = d ** -0.5, f ** -0.5
-    p = {"router": normal(gen, (d, e), s_in),
+    p = {"router": normal(gen, (d, cfg.n_experts), s_in),
          "w1": normal(gen, (e, d, f), s_in),
          "w2": normal(gen, (e, f, d), s_out)}
     if cfg.mlp_type in ("swiglu", "geglu"):
@@ -107,6 +122,11 @@ def _experts_of(cfg: ModelConfig, sh):
     whether its outputs are partial sums to reduce over the model group
     (expert- or ff-parallel weights)."""
     E = cfg.n_experts
+    if cfg.experts_held:
+        if sh is not None:
+            raise ValueError("a share of the experts (experts_held) is one "
+                             "device's, under no mesh")
+        return cfg.expert_first, cfg.experts_held, False
     if sh is None:
         return 0, E, False
     d = sh.tp_dim("w1")
@@ -147,31 +167,156 @@ def moe_dense(x: torch.Tensor, p, cfg: ModelConfig, *,
 
 def moe_ragged(x: torch.Tensor, p, cfg: ModelConfig, *,
                with_aux: bool = True, sh=None):
-    """Dropless sort-based routing: one matmul per expert group."""
-    T, d = x.shape
-    e, k = cfg.n_experts, cfg.top_k
+    """Dropless sort-based routing: the (token, slot) pairs routed to the
+    held experts sorted by expert (buffers sized by them), one matmul per
+    expert group; each token's pairs summed in slot order, a pair routed
+    elsewhere adding zero."""
+    T, k = x.shape[0], cfg.top_k
     _, topv, topi, aux = _gates(x, p["router"], k, with_aux, sh)
     e0, El, partial = _experts_of(cfg, sh)
     x, topv = _entered(x, topv, partial, sh)
-    flat_e = topi.reshape(-1)                                # (T*k,)
-    flat_w = topv.reshape(-1).to(x.dtype)
-    order = torch.argsort(flat_e, stable=True)
-    inv = torch.argsort(order)
-    xs = torch.repeat_interleave(x, k, dim=0)[order]         # sorted
-    sizes = torch.bincount(flat_e, minlength=e).tolist()
-    # another rank's experts contribute zero here
-    y = torch.empty_like(xs) if El == e else torch.zeros_like(xs)
-    start = 0
-    for j, n in enumerate(sizes):
-        if n and e0 <= j < e0 + El:
-            rows = xs[start:start + n]
-            y[start:start + n] = _experts(
-                rows[None], {w: p[w][j - e0:j - e0 + 1]
-                             for w in ("w1", "w2", "w3") if w in p}, cfg)[0]
-        start += n
-    y = y[inv] * flat_w[:, None]
-    out = _slot_sum(y.reshape(T, k, d)).to(x.dtype)
+    local = topi.reshape(-1) - e0                            # (T*k,)
+    group = torch.where((local >= 0) & (local < El), local, El)
+    order = torch.argsort(group, stable=True)
+    with spans.span("sync"):
+        sizes = torch.bincount(group, minlength=El + 1).tolist()
+    n = sum(sizes[:El])
+    spans.count("moe.held_slots", n)
+    pairs = order[:n]                                        # held, by expert
+    w, tok = topv.reshape(-1).to(x.dtype)[pairs], pairs // k
+    if cfg.experts_held:
+        names = [n for n in ("w1", "w2", "w3") if n in p]
+        out = _Share.apply(x, w, tok, sizes[:El], cfg, names,
+                           *(p[n] for n in names))
+    else:
+        # pair i's row of the held rows, or the zero row n for a pair
+        # routed elsewhere
+        row_of = torch.full((T * k,), n, dtype=torch.long, device=x.device)
+        row_of[pairs] = torch.arange(n, device=x.device)
+        out = _held(x, w, tok, row_of.view(T, k), sizes[:El], p, cfg)
+    out = out.to(x.dtype)
     return (sh.reduce(out) if partial else out), aux
+
+
+def _held(x, w, tok, row_of, sizes, p, cfg: ModelConfig) -> torch.Tensor:
+    """(T, d): the held experts over their pairs (``sizes`` of them each,
+    in expert order: token ``tok``, gate ``w``), each token's pairs summed
+    in slot order."""
+    xs = _Dispatch.apply(x, tok, row_of)
+    y = torch.empty_like(xs)
+    start = 0
+    for j, rows in enumerate(sizes):
+        if rows:
+            y[start:start + rows] = _experts(
+                xs[start:start + rows][None],
+                {n: p[n][j:j + 1] for n in ("w1", "w2", "w3") if n in p},
+                cfg)[0]
+        start += rows
+    return _Combine.apply(y * w[:, None], tok, row_of)
+
+
+def _groups(sizes):
+    """(expert, its rows' slice) of each expert that holds pairs, in expert
+    order."""
+    start = 0
+    for j, rows in enumerate(sizes):
+        if rows:
+            yield j, slice(start, start + rows)
+        start += rows
+
+
+class _Share(torch.autograd.Function):
+    """One device's share of the experts over its pairs (``sizes`` of them
+    each, in expert order: token ``tok``, gate ``w``), one expert at a
+    time: the forward adds each expert's gated rows into its tokens'
+    output (a token meets an expert once, so no sum races), the backward
+    computes each expert's rows again under autograd and takes their
+    gradients.  Nothing is kept of the experts' rows."""
+
+    @staticmethod
+    def forward(ctx, x, w, tok, sizes, cfg, names, *weights):
+        ctx.save_for_backward(x, w, tok, *weights)
+        ctx.rest = (sizes, cfg, names)
+        out = torch.zeros_like(x)
+        for j, sl in _groups(sizes):
+            t = tok[sl]
+            y = _experts(x[t][None], {n: W[j:j + 1] for n, W in
+                                      zip(names, weights)}, cfg)[0]
+            out.index_put_((t,), y * w[sl, None], accumulate=True)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, tok, *weights = ctx.saved_tensors
+        sizes, cfg, names = ctx.rest
+        need_x, need_w = ctx.needs_input_grad[:2]
+        need = ctx.needs_input_grad[6:]
+        dx = torch.zeros_like(x) if need_x else None
+        dw = torch.empty_like(w) if need_w else None
+        dW = [torch.zeros_like(W) if nd else None
+              for W, nd in zip(weights, need)]
+        for j, sl in _groups(sizes):
+            t = tok[sl]
+            with torch.enable_grad():
+                xs = x[t].requires_grad_(need_x)
+                Wj = [W[j:j + 1].detach().requires_grad_(nd)
+                      for W, nd in zip(weights, need)]
+                y = _experts(xs[None], dict(zip(names, Wj)), cfg)[0]
+            gt = g[t]
+            if need_w:
+                dw[sl] = (gt * y.detach()).sum(-1)
+            want = [v for v in [xs, *Wj] if v.requires_grad]
+            if not want:
+                continue
+            got = iter(torch.autograd.grad(y, want, gt * w[sl, None]))
+            if need_x:
+                dx.index_put_((t,), next(got), accumulate=True)
+            for dWn, Wn in zip(dW, Wj):
+                if Wn.requires_grad:
+                    dWn[j] = next(got)[0]
+        return (dx, dw, None, None, None, None, *dW)
+
+
+def _combine(y: torch.Tensor, row_of: torch.Tensor) -> torch.Tensor:
+    """(T, d): each token's rows of ``y`` (``row_of`` (T, k), the zero row
+    ``len(y)`` for none) summed in slot order."""
+    y = torch.cat([y, y.new_zeros((1, y.shape[1]))])
+    out = y[row_of[:, 0]]
+    for j in range(1, row_of.shape[1]):
+        out = out + y[row_of[:, j]]
+    return out
+
+
+class _Dispatch(torch.autograd.Function):
+    """``x[tok]``, the held pairs' token rows; its gradient is
+    :func:`_combine`'s sum of each token's pairs in slot order (the
+    adjoint), not autograd's scatter of an index, which sorts."""
+
+    @staticmethod
+    def forward(ctx, x, tok, row_of):
+        ctx.save_for_backward(row_of)
+        return x[tok]
+
+    @staticmethod
+    def backward(ctx, g):
+        (row_of,) = ctx.saved_tensors
+        return _combine(g, row_of), None, None
+
+
+class _Combine(torch.autograd.Function):
+    """:func:`_combine`; its gradient is the gather ``g[tok]`` (a held pair
+    reads its token's), not autograd's scatter into a zero row that most
+    slots share."""
+
+    @staticmethod
+    def forward(ctx, y, tok, row_of):
+        ctx.save_for_backward(tok)
+        return _combine(y, row_of)
+
+    @staticmethod
+    def backward(ctx, g):
+        (tok,) = ctx.saved_tensors
+        return g[tok], None, None
 
 
 def _dispatch(topi: torch.Tensor, e: int, capacity_factor: float):
@@ -318,6 +463,9 @@ def moe(x: torch.Tensor, p, cfg: ModelConfig, *, with_aux: bool = True,
     B, S, d = x.shape
     fn = {"ragged": moe_ragged, "capacity": moe_capacity,
           "dense": moe_dense, "a2a": moe_a2a}[cfg.moe_impl]
-    out, aux = fn(x.reshape(B * S, d), weights(p, sh), cfg,
-                  with_aux=with_aux, sh=sh)
-    return out.reshape(B, S, d), aux
+    with spans.span("moe"):
+        out, aux = fn(x.reshape(B * S, d), weights(p, sh), cfg,
+                      with_aux=with_aux, sh=sh)
+        out = out.reshape(B, S, d)
+    spans.backward_span("moe", x, out)
+    return out, aux

@@ -37,7 +37,8 @@ The port's spans::
                             a call that makes the host wait for the card
                             (a copy from pageable host memory, BCSR.pieces'
                             repeat_interleave, the BCSR segment sums'
-                            segment_reduce)
+                            segment_reduce); the ragged expert layer's
+                            group sizes, a train step's finiteness check
     fused.call:<region>     a fused region's call (``Fused.__call__``)
     fused.backward:<region> its planned backward (autograd's backward)
     fused.plan:<region>     trace, plan and compile on a signature miss,
@@ -46,6 +47,22 @@ The port's spans::
     kernels.build           building the generated kernels, and loading
                             one on a launcher miss
     py.gc                   one pass of Python's cyclic collector
+    train.step              one optimizer step (``launch.train``)
+    optim.adamw             its AdamW update
+    attn.window, attn.full  an attention layer with / without a sliding
+                            window (``models.attention``), forward, and
+                            its backward (:func:`backward_span`)
+    moe                     an expert layer (``models.moe``), forward and
+                            backward
+
+Counters are readings of one call, kept beside the spans under the same
+recorder (:attr:`Recorder.counts`); with no recorder :func:`count` is one
+global read::
+
+    attn.blocks             (query block, key block) tiles one attention
+                            call visits, over its batch rows and heads
+    moe.held_slots          (token, slot) pairs one expert-layer call
+                            routes to the experts held here
 """
 
 from __future__ import annotations
@@ -57,8 +74,8 @@ import threading
 import time
 from typing import NamedTuple, Optional
 
-__all__ = ["Span", "Recorder", "NOOP", "span", "spanned", "recording",
-           "active"]
+__all__ = ["Span", "Count", "Recorder", "NOOP", "span", "spanned",
+           "backward_span", "count", "recording", "active"]
 
 _now = time.perf_counter_ns
 _thread = threading.get_ident
@@ -72,6 +89,13 @@ class Span(NamedTuple):
     name: str
     start_ns: int
     end_ns: int
+
+
+class Count(NamedTuple):
+    """One counter reading: ``value`` for one call, read at ``ns``."""
+    name: str
+    value: int
+    ns: int
 
 
 class _NoSpan:
@@ -117,6 +141,8 @@ class Recorder:
         self._log: list = []        # flat (name or None, thread, ns) triples
         self._add = self._log.extend
         self._named: dict[str, _Named] = {}
+        #: every counter reading, in the order they were taken
+        self.counts: list[Count] = []
 
     def _span(self, name: str) -> _Named:
         named = self._named.get(name)
@@ -173,6 +199,34 @@ def span(name: str):
     if rec is None:
         return NOOP
     return rec._span(name)
+
+
+def count(name: str, value: int) -> None:
+    """Record ``value``, one call's reading of the counter ``name``, under
+    the installed recorder; nothing without one."""
+    rec = _ACTIVE
+    if rec is not None:
+        rec.counts.append(Count(name, int(value), _now()))
+
+
+def backward_span(name: str, inp, out) -> None:
+    """Record the span ``name`` over autograd's backward from ``out`` to
+    ``inp`` (tensors): a gradient hook on ``out`` opens it, one on ``inp``
+    closes it, both on autograd's thread.  Nothing without a recorder, or
+    where either tensor takes no gradient."""
+    rec = _ACTIVE
+    if rec is None or not (getattr(inp, "requires_grad", False)
+                           and getattr(out, "requires_grad", False)):
+        return
+    named = rec._span(name)
+
+    def opened(grad):
+        named.__enter__()
+
+    def closed(grad):
+        named.__exit__(None, None, None)
+    out.register_hook(opened)
+    inp.register_hook(closed)
 
 
 def spanned(name: str):
